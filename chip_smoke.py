@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch / CUDA port of the simulator (``src/repro_torch``)
-on one NVIDIA GPU, and check it.
+"""Drive the PyTorch / CUDA port (``src/repro_torch``) on one NVIDIA GPU,
+and check it: the simulator's main path, and serving two LMs at their
+published widths under the policy the simulator picks.
 
     python3 chip_smoke.py
 
@@ -10,21 +11,37 @@ Phases, in order; any failure raises and the script exits non-zero:
    9.0, TF32 off for matmul and cuDNN;
 2. build the CUDA kernels from ``src/repro_torch/csrc`` (into
    ``build/repro_torch/``);
-3. each kernel against its plain PyTorch version on the card, at the
-   main path's shapes: exact agreement, and the time of both;
+3. each kernel against its plain PyTorch version on the card: the
+   simulator's four at the main path's shapes, exactly; ``rwkv6_scan``
+   and ``flash_attention`` at rwkv6_7b's and gemma3_12b's prefill shapes
+   in bf16, to 2e-2; the time of each, of its plain version and, for
+   attention, of PyTorch's ``scaled_dot_product_attention``;
 4. ``run(SimParams())`` (the paper's default cluster, ``priority``) on
    CUDA and on the CPU through the plain versions, compared field by
    field;
 5. ``fleet_run`` of 64 seeds at the engine-throughput configuration,
    on CUDA and on the CPU, compared lane by lane;
-6. the kernel launches of phases 4 and 5, each of which must be > 0.
+6. the simulator kernels' launches in phases 4 and 5, each > 0;
+7. serving rwkv6_7b at full width (random weights from a seed):
+   ``evaluate_policies`` on CUDA picks the policy, then a 4-slot
+   ``ContinuousBatcher`` serves 8 requests of 512-2048 prompt tokens;
+   every request served, every logit finite, ``rwkv6_scan`` launched;
+8. the same for gemma3_12b (``max_len`` 4096, prompts past the
+   1024-token window), ``flash_attention`` launched;
+9. both smoke configs in f32 through the batcher on CUDA and on the CPU
+   port: equal greedy tokens, prefill logits within 2e-4.
 
-The last two lines of standard output are a JSON object with one entry
-per kernel and ``{"ok": true, "device": {...}}``.
+Every phase prints its wall time. The last two lines of standard output
+are a JSON object with one entry per kernel and
+``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import copy
+import dataclasses
+import gc
 import json
+import math
 import pathlib
 import statistics
 import subprocess
@@ -36,10 +53,11 @@ import numpy as np
 ROOT = pathlib.Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-# H100 SXM data sheet: HBM3 rate and the f32 / int32 rate of the CUDA
-# cores (the kernels do no tensor-core work)
+# H100 SXM data sheet: HBM3 rate, the f32 / int32 rate of the CUDA cores
+# and the dense bf16 tensor-core rate
 HBM_BYTES_PER_S = 3.35e12
 CORE_OPS_PER_S = 67e12
+BF16_TENSOR_OPS_PER_S = 989e12
 F, MC, MP, K = 64, 64, 256, 16
 
 # fields that are sums taken in another order than the reference's
@@ -49,6 +67,9 @@ TOLERANT_FIELDS = {
     "cost_dollars", "util_log",
 }
 RTOL = 1e-5
+# the LM kernels against their plain versions: bf16 outputs 2e-2 (an
+# ulp of bf16 apart after sums in another order), f32 2e-4
+LM_TOL = {"bf16": 2e-2, "f32": 2e-4}
 
 
 def gpu_line() -> str:
@@ -119,6 +140,26 @@ def max_abs_err(got, want) -> float:
         if not torch.equal(a, b):
             raise AssertionError(f"output {i} differs from the plain version (max |diff| {d})")
     return err
+
+
+def close_err(got, want, tols) -> tuple[float, float]:
+    """Largest |got - want| and largest |got - want| / (1 + |want|) over
+    the outputs; raises where an output leaves
+    ``|got - want| <= tol (1 + |want|)`` for its tolerance, or is not
+    finite."""
+    err = rel = 0.0
+    for i, (a, b, tol) in enumerate(zip(got, want, tols)):
+        if a.dtype != b.dtype or a.shape != b.shape:
+            raise AssertionError(f"output {i}: {a.dtype}{tuple(a.shape)} vs {b.dtype}{tuple(b.shape)}")
+        a, b = a.double(), b.double()
+        if not bool(a.isfinite().all()):
+            raise AssertionError(f"output {i} is not finite")
+        diff = (a - b).abs()
+        scaled = diff / (1 + b.abs())
+        err, rel = max(err, diff.max().item()), max(rel, scaled.max().item())
+        if bool((scaled > tol).any()):
+            raise AssertionError(f"output {i} beyond tolerance {tol} (max |diff| {diff.max().item()})")
+    return err, rel
 
 
 # ---------------------------------------------------------------------------
@@ -213,11 +254,66 @@ def assign_inputs(rng, dev):
     )
 
 
+def rwkv_inputs(rng, dev, S: int, H: int = 64, N: int = 64):
+    """rwkv6_7b's prefill operands: r, k, v in bf16 from the projections'
+    scale, the decay drawn as the model makes it,
+    w = exp(-exp(w_base + lora)) with w_base on linspace(-6, -0.3, d)
+    (``models/rwkv.py``), u and a carried state in f32."""
+    import torch
+
+    def bf16(x):
+        return torch.tensor(x, dtype=torch.float32, device=dev).to(torch.bfloat16)
+
+    d = H * N
+    w_base = np.linspace(-6.0, -0.3, d).reshape(1, 1, H, N)
+    lora = 0.05 * rng.standard_normal((1, S, H, N))
+    w = np.exp(-np.exp(w_base + lora))
+    return (bf16(rng.standard_normal((1, S, H, N))), bf16(rng.standard_normal((1, S, H, N)) * 0.5),
+            bf16(rng.standard_normal((1, S, H, N))),
+            torch.tensor(w, dtype=torch.float32, device=dev),
+            torch.tensor(rng.standard_normal((H, N)) * 0.3, dtype=torch.float32, device=dev),
+            torch.tensor(rng.standard_normal((1, H, N, N)) * 0.1, dtype=torch.float32, device=dev))
+
+
+def rwkv_ops(S: int, chunk: int, H: int = 64, N: int = 64) -> float:
+    """f32 operations of the chunked scan for one sequence: per chunk and
+    head the strict-lower C x C product and its V product, (r E) S and
+    the state carry, two operations per multiply-add."""
+    C = min(chunk, S)
+    n_chunks = math.ceil(S / C)
+    return 2.0 * n_chunks * H * (C * (C - 1) * N + 2 * C * N * N)
+
+
+def attn_inputs(rng, dev, Sq: int, Skv: int, H: int = 16, KV: int = 8, D: int = 256):
+    import torch
+
+    def bf16(shape):
+        return torch.tensor(rng.standard_normal(shape), dtype=torch.float32, device=dev).to(torch.bfloat16)
+
+    return bf16((1, Sq, H, D)), bf16((1, Skv, KV, D)), bf16((1, Skv, KV, D))
+
+
+def attn_mask(Sq, Skv, window, q_offset, kv_len, dev):
+    """The [Sq, Skv] visibility of the flash kernel's masks (True =
+    attend), for the library call."""
+    import torch
+
+    q_pos = q_offset + torch.arange(Sq, device=dev)[:, None]
+    k_pos = torch.arange(Skv, device=dev)[None, :]
+    ok = (k_pos < kv_len) & (k_pos <= q_pos)
+    if window > 0:
+        ok &= k_pos > q_pos - window
+    return ok
+
+
 def check_kernels(dev) -> dict:
     """Phase 3: every kernel against its plain version; returns the
     per-kernel measurements for the JSON line."""
     import torch
+    import torch.nn.functional as Fn
 
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_ref
+    from repro_torch.kernels.rwkv6_scan import rwkv6_chunked_ref, rwkv6_scan
     from repro_torch.kernels.sched_select import masked_lex_argmin, masked_lex_argmin_ref
     from repro_torch.kernels.sim_tick import fleet_tick, fleet_tick_ref
     from repro_torch.kernels.state_update import (
@@ -225,56 +321,109 @@ def check_kernels(dev) -> dict:
     )
 
     rng = np.random.default_rng(0)
+    # name, label, kernel, plain, bytes in, (ops, ops rate), library, tolerances
     cases = []
     for NP in (1, 3):
         args = tick_inputs(rng, dev, NP)
         cases.append(("fleet_tick", f"NP={NP}",
                       lambda a=args, n=NP: fleet_tick(*a, num_pools=n),
-                      lambda a=args, n=NP: fleet_tick_ref(*a, num_pools=n), args))
+                      lambda a=args, n=NP: fleet_tick_ref(*a, num_pools=n), args, None, None, None))
     args = retire_inputs(rng, dev)
     # timeout off: the landing reads ctr_pipe, ctr_end, the two masks,
     # arrival and prio (not ctr_start, timed or tick)
     cases.append(("retire_land", "", lambda a=args: retire_land(*a),
                   lambda a=args: retire_land_ref(*a),
-                  (args[0], args[1], args[3], args[4], args[6], args[7])))
+                  (args[0], args[1], args[3], args[4], args[6], args[7]), None, None, None))
     for mixed in (False, True):
         mask, keys = select_inputs(rng, dev, mixed)
         label = "K=3 f32/i32/i32 N=MP" if mixed else "K=2 i32/i32 N=MC"
         cases.append(("masked_lex_argmin", label,
                       lambda m=mask, k=keys: masked_lex_argmin(m, k),
                       lambda m=mask, k=keys: masked_lex_argmin_ref(m, k),
-                      (mask, *keys)))
+                      (mask, *keys), None, None, None))
     args = assign_inputs(rng, dev)
-    kw = dict(max_containers=MC, max_pipelines=MP)
-    cases.append(("assign_gather", "", lambda a=args: assign_gather(*a, **kw),
-                  lambda a=args: assign_gather_ref(*a, **kw), args))
+    sizes = dict(max_containers=MC, max_pipelines=MP)
+    cases.append(("assign_gather", "", lambda a=args: assign_gather(*a, **sizes),
+                  lambda a=args: assign_gather_ref(*a, **sizes), args, None, None, None))
+
+    # rwkv6_7b prefill: H = N = 64, chunk 32; one sequence of 2048 tokens
+    # and a ragged one (padded to a multiple of the chunk by the wrapper)
+    for S in (2048, 2000):
+        a = rwkv_inputs(rng, dev, S)
+        pad = (32 - S % 32) % 32
+
+        def plain(a=a, S=S, pad=pad):
+            # the wrapper's padding (w = 1, k = 0), then the chunked form
+            p = lambda t, val=0.0: Fn.pad(t, (0, 0, 0, 0, 0, pad), value=val)
+            o, s = rwkv6_chunked_ref(p(a[0]), p(a[1]), p(a[2]), p(a[3], 1.0), a[4], a[5], chunk=32)
+            return o[:, :S], s
+
+        cases.append(("rwkv6_scan", f"B=1 S={S} H=64 N=64 chunk=32 bf16",
+                      lambda a=a: rwkv6_scan(*a, chunk=32), plain, a,
+                      (rwkv_ops(S, 32), CORE_OPS_PER_S), None,
+                      (LM_TOL["bf16"], LM_TOL["f32"])))
+
+    # gemma3_12b prefill: H = 16, KV = 8, D = 256, 2048 tokens; the local
+    # layers' ring-cache call (window 1024), a full causal call, and the
+    # global layers' call against a 4096-slot cache (q_offset 0, kv_len)
+    for label, Skv, window, kv_len in (("W=1024", 2048, 1024, None), ("W=0", 2048, 0, None),
+                                       ("global Skv=4096 kv_len=2048", 4096, 0, 2048)):
+        q, k, v = attn_inputs(rng, dev, 2048, Skv)
+        kw = dict(causal=True, window=window, q_offset=0, kv_len=kv_len)
+        n_keys = Skv if kv_len is None else kv_len
+        mask = attn_mask(2048, Skv, window, 0, n_keys, dev)
+        visible = int(mask.sum().item())
+        # the keys that this run's queries see: rows below kv_len
+        needed = (q, k[:, :n_keys], v[:, :n_keys])
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+
+        def library(qt=qt, kt=kt, vt=vt, mask=mask):
+            return Fn.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, enable_gqa=True)
+
+        cases.append(("flash_attention", f"B=1 Sq=2048 H=16 KV=8 D=256 {label} bf16",
+                      lambda q=q, k=k, v=v, kw=kw: flash_attention(q, k, v, **kw),
+                      lambda q=q, k=k, v=v, kw=kw: flash_attention_ref(q, k, v, **kw),
+                      needed, (4.0 * 16 * visible * 256, BF16_TENSOR_OPS_PER_S), library,
+                      (LM_TOL["bf16"],)))
 
     results = {}
-    for name, label, kernel, plain, ins in cases:
+    for name, label, kernel, plain, ins, ops, library, tols in cases:
         got = kernel()
         torch.cuda.synchronize()
         want = plain()
-        err = max_abs_err(got, want)
-        ms = timed_ms(kernel)
-        plain_ms = timed_ms(plain)
+        if not isinstance(got, tuple):
+            got, want = (got,), (want,)
+        if tols is None:
+            err, kind, reps = max_abs_err(got, want), "exact", {}
+        else:
+            err, rel = close_err(got, want, tols)
+            kind = f"within {tols} of 1 + |plain| (max |diff| / (1 + |plain|) = {rel:.3g})"
+            reps = dict(reps=11, inner=5)   # milliseconds per call: fewer repeats
+        ms = timed_ms(kernel, **reps)
+        plain_ms = timed_ms(plain, **reps)
+        library_ms = None if library is None else timed_ms(library, **reps)
         dev_ms = device_ms(kernel, f"{name}_kernel")
-        moved = nbytes(ins) + nbytes(got)
-        elements = sum(x.numel() for x in ins)
+        moved = nbytes(x for x in ins if x is not None) + nbytes(got)
         bound_bytes_ms = moved / HBM_BYTES_PER_S * 1e3
-        # a few compares / selects per input element; no tensor-core work
-        bound_ops_ms = 4 * elements / CORE_OPS_PER_S * 1e3
+        if ops is None:
+            # a few compares / selects per input element; no tensor-core work
+            bound_ops_ms = 4 * sum(x.numel() for x in ins if x is not None) / CORE_OPS_PER_S * 1e3
+        else:
+            bound_ops_ms = ops[0] / ops[1] * 1e3
+        bound_ms = max(bound_bytes_ms, bound_ops_ms)
+        bound_by = "bytes" if bound_bytes_ms >= bound_ops_ms else "operations"
         dev_text = "not measured" if dev_ms is None else f"{dev_ms:.5f}"
-        print(f"kernel {name} [{label}] exact max_abs_err={err} ms={ms:.5f} "
+        lib_text = "" if library_ms is None else f" library_ms={library_ms:.5f} (sdpa)"
+        print(f"kernel {name} [{label}] {kind} max_abs_err={err} ms={ms:.5f} "
               f"(per wrapper call) device_ms={dev_text} (kernel alone, profiler) "
-              f"plain_ms={plain_ms:.5f} bytes={moved} bound_ms={bound_bytes_ms:.6f} "
-              f"(bytes / 3.35 TB/s; a launch alone takes a few microseconds)")
+              f"plain_ms={plain_ms:.5f}{lib_text} bytes={moved} "
+              f"bound_bytes_ms={bound_bytes_ms:.6f} bound_ops_ms={bound_ops_ms:.6f} "
+              f"bound_ms={bound_ms:.6f} ({bound_by})")
+        row = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+               "bound_by": bound_by, "library_ms": library_ms}
+        # the case with the largest bound stands for its kernel in the JSON line
         prev = results.get(name)
-        row = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-               "bound_ms": max(bound_bytes_ms, bound_ops_ms),
-               "bound_by": "bytes" if bound_bytes_ms >= bound_ops_ms else "operations",
-               "bytes": moved}
-        # the heavier of a kernel's cases stands for it in the JSON line
-        if prev is None or row["bytes"] > prev["bytes"]:
+        if prev is None or row["bound_ms"] > prev["bound_ms"]:
             results[name] = row
     return results
 
@@ -387,6 +536,247 @@ def profile_fleet(params, wls, dev) -> None:
         print(f"  {e.device_time_total / 1e3:9.3f} ms  {e.count:6d}x  {e.key[:90]}")
 
 
+# ---------------------------------------------------------------------------
+# Phases 7-9: serving through the LM substrate.
+# ---------------------------------------------------------------------------
+class ServeMeter:
+    """Times every prefill and decode step of a batcher (each ends in a
+    device synchronisation) and checks that every logit is finite."""
+
+    def __init__(self):
+        self.prefill_s, self.prefill_tokens, self.decode_s = [], 0, []
+
+    def __enter__(self):
+        import torch
+
+        from repro_torch.models import lm
+
+        self.lm, self.saved = lm, (lm.lm_prefill, lm.lm_decode_step)
+        prefill, decode = self.saved
+
+        def check(logits, what):
+            if not bool(torch.isfinite(logits.float()).all()):
+                raise AssertionError(f"{what} produced a logit that is not finite")
+
+        def timed_prefill(cfg, params, batch, max_len=None):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, caches = prefill(cfg, params, batch, max_len=max_len)
+            torch.cuda.synchronize()
+            self.prefill_s.append(time.perf_counter() - t0)
+            self.prefill_tokens += int(batch["tokens"].numel())
+            check(logits, "prefill")
+            return logits, caches
+
+        def timed_decode(cfg, params, caches, token, pos):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, caches = decode(cfg, params, caches, token, pos)
+            torch.cuda.synchronize()
+            self.decode_s.append(time.perf_counter() - t0)
+            check(logits, "decode")
+            return logits, caches
+
+        lm.lm_prefill, lm.lm_decode_step = timed_prefill, timed_decode
+        return self
+
+    def __exit__(self, *exc):
+        self.lm.lm_prefill, self.lm.lm_decode_step = self.saved
+        return False
+
+
+def serve_phase(phase: int, arch_name: str, lm_kernel: str, dev, *, seed: int = 0) -> dict:
+    """Serve 8 requests (512-2048 prompt tokens, 16 new, 40 % interactive)
+    on ``arch_name`` at its published width, under the policy that
+    ``evaluate_policies`` on CUDA picks; returns the launches."""
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import SIM_KERNELS, launch_counts, reset_launch_counts
+    from repro_torch.models import lm
+    from repro_torch.models.common import param_count
+    from repro_torch.serving import (
+        ContinuousBatcher, Request, ServeRequest, evaluate_policies, pick_policy,
+    )
+
+    arch = get_arch(arch_name)
+    cfg = arch.model
+    rng = np.random.default_rng(seed)
+    trace = [
+        ServeRequest(arrival_s=float(rng.exponential(0.3) * i),
+                     prompt_tokens=int(rng.integers(512, 2049)), new_tokens=16,
+                     interactive=bool(rng.random() < 0.4))
+        for i in range(8)
+    ]
+    t_init = time.perf_counter()
+    params = lm.lm_init(cfg, seed, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t_init
+    n_params = param_count(params)
+    prompts = [rng.integers(2, cfg.vocab, r.prompt_tokens).astype(np.int32) for r in trace]
+
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sim = evaluate_policies(trace, cfg, duration_s=30.0, device=dev)
+    policy = pick_policy(sim)
+    torch.cuda.synchronize()
+    sim_s = time.perf_counter() - t0
+    batcher = ContinuousBatcher(cfg, params, slots=4, max_len=4096, policy=policy)
+    for i, (r, toks) in enumerate(zip(trace, prompts)):
+        batcher.submit(Request(rid=i, tokens=toks, max_new=r.new_tokens, interactive=r.interactive))
+    torch.cuda.reset_peak_memory_stats()
+    t1 = time.perf_counter()
+    with ServeMeter() as meter:
+        done = batcher.run_to_completion()
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t1
+    counts = launch_counts()
+
+    if sorted(r.rid for r in done) != list(range(len(trace))):
+        raise AssertionError(f"phase {phase}: served {sorted(r.rid for r in done)} of {len(trace)}")
+    for name in (*SIM_KERNELS, lm_kernel):
+        if counts[name] <= 0:
+            raise AssertionError(f"phase {phase}: {name} was not launched")
+    for name, s in sim.items():
+        inter = s["per_priority"]["interactive"]
+        print(f"phase {phase} simulator: {name:14s} thr={s['throughput_per_s']:.3f}/s "
+              f"inter_lat={inter['mean_latency_s']} pre={s['preempt_events']} oom={s['oom_events']}")
+    prefill_s = sum(meter.prefill_s)
+    print(f"phase {phase}: {arch_name} at full width ({n_params} parameters, "
+          f"{cfg.param_dtype}, drawn on the card in {init_s:.2f} s): policy {policy} "
+          f"(simulator {sim_s:.2f} s), served {len(done)} requests in {serve_s:.2f} s; "
+          f"{len(meter.prefill_s)} prefills of {meter.prefill_tokens} tokens in "
+          f"{prefill_s:.3f} s = {meter.prefill_tokens / prefill_s:.1f} prefill tokens/s; "
+          f"{len(meter.decode_s)} decode steps of 4 slots, "
+          f"{1e3 * statistics.mean(meter.decode_s):.3f} ms per step (median "
+          f"{1e3 * statistics.median(meter.decode_s):.3f}); peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; every logit finite")
+    print(f"phase {phase} prompts: {[int(r.prompt_tokens) for r in trace]}, interactive "
+          f"{[r.interactive for r in trace]}, outputs {[(r.rid, len(r.out)) for r in done]}")
+    print(f"phase {phase} launches:", json.dumps(counts))
+    longest = max(prompts, key=len)
+    profile_serving(phase, cfg, params, batcher, longest, lm_kernel, dev)
+    del params, batcher, done
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
+def profile_serving(phase, cfg, params, batcher, prompt, lm_kernel, dev) -> None:
+    """Where a prefill's and a decode step's time goes: one prefill of
+    the longest prompt, then 4 decode steps of the 4 slots, each under
+    torch.profiler; wall time against the summed device time of every
+    CUDA kernel (the device's busy share), the LM kernel's share of the
+    device time, and the kernels that take the most."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models import lm
+
+    toks = torch.as_tensor(prompt, device=dev)[None]
+    last = torch.zeros(batcher.slots, dtype=torch.int32, device=dev)
+    pos = int(batcher.pos.max())
+    windows = (
+        ("prefill", lambda: lm.lm_prefill(cfg, params, {"tokens": toks}, max_len=batcher.max_len)),
+        ("decode x4", lambda: [lm.lm_decode_step(cfg, params, batcher.caches, last, pos + i)
+                               for i in range(4)]),
+    )
+    for label, fn in windows:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        rows = [e for e in prof.key_averages()
+                if str(getattr(e, "device_type", "")).endswith("CUDA")]
+        if not rows:
+            print(f"phase {phase} profile {label}: no CUDA kernels in the trace; not measured")
+            continue
+        busy_ms = sum(e.device_time_total for e in rows) / 1e3
+        mine_ms = sum(e.device_time_total for e in rows if f"{lm_kernel}_kernel" in e.key) / 1e3
+        print(f"phase {phase} profile {label} ({len(prompt) if label == 'prefill' else 4 * batcher.slots}"
+              f" tokens): wall {wall_ms:.1f} ms (under the profiler), device busy {busy_ms:.1f} ms "
+              f"({100 * busy_ms / wall_ms:.1f}% of wall), {lm_kernel} {mine_ms:.1f} ms "
+              f"({100 * mine_ms / busy_ms:.1f}% of busy), {sum(e.count for e in rows)} kernel launches")
+        for e in sorted(rows, key=lambda e: -e.device_time_total)[:6]:
+            print(f"  {e.device_time_total / 1e3:9.3f} ms  {e.count:6d}x  {e.key[:90]}")
+
+
+def parity_phase(dev) -> None:
+    """Phase 9: both smoke configs in f32, the batcher on CUDA against the
+    CPU port: equal greedy tokens, prefill logits within 2e-4."""
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models import lm
+    from repro_torch.serving import ContinuousBatcher, Request
+
+    for name in ("rwkv6_7b", "gemma3_12b"):
+        cfg = dataclasses.replace(get_arch(name).smoke, param_dtype=torch.float32,
+                                  compute_dtype=torch.float32)
+        base = lm.lm_init(cfg, 0, device="cpu")
+        rng = np.random.default_rng(1)
+        prompts = [rng.integers(2, cfg.vocab, n).astype(np.int32) for n in (11, 23, 17, 30)]
+        toks = torch.from_numpy(prompts[1])[None]
+        outs, logits = {}, {}
+        for d in (dev, torch.device("cpu")):
+            params = copy.deepcopy(base).to(d)
+            logits[d.type], _ = lm.lm_prefill(cfg, params, {"tokens": toks.to(d)}, max_len=48)
+            b = ContinuousBatcher(cfg, params, slots=2, max_len=48)
+            for i, p in enumerate(prompts):
+                b.submit(Request(rid=i, tokens=p, max_new=6, interactive=i == 3))
+            outs[d.type] = [(r.rid, r.out) for r in b.run_to_completion()]
+        err = (logits["cuda"].cpu() - logits["cpu"]).abs().max().item()
+        if err > 2e-4:
+            raise AssertionError(f"phase 9: {name} prefill logits differ by {err}")
+        if outs["cuda"] != outs["cpu"]:
+            raise AssertionError(f"phase 9: {name} tokens differ: {outs['cuda']} vs {outs['cpu']}")
+        print(f"phase 9: {cfg.name} f32, CUDA == CPU: {len(outs['cpu'])} requests, "
+              f"{sum(len(o) for _, o in outs['cpu'])} greedy tokens equal, prefill logits "
+              f"max |diff| {err:.3g} (<= 2e-4)")
+
+
+def card_phase():
+    """Phase 1: the card, its capability, TF32 off; returns the device."""
+    import torch
+
+    print(gpu_line())
+    cap = torch.cuda.get_device_capability(0)
+    if cap != (9, 0):
+        raise AssertionError(f"compute capability {cap}, the kernels are built for sm_90a")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print(f"phase 1: {torch.cuda.get_device_name(0)} capability {cap}; torch "
+          f"{torch.__version__} CUDA {torch.version.cuda}; "
+          f"matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32} "
+          f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}")
+    return torch.device("cuda", 0)
+
+
+def build_phase() -> None:
+    """Phase 2: build the kernels; print what ptxas says of each."""
+    from repro_torch.kernels import cuda_lib
+
+    lib = cuda_lib.build()
+    print(f"phase 2: built {lib.relative_to(ROOT)}")
+    for line in lib.with_suffix(".log").read_text().splitlines():
+        if "registers" in line or "spill" in line or line.startswith("=="):
+            print("  ptxas:", line.strip())
+
+
+def sim_launch_phase(run_counts, fleet_counts) -> None:
+    """Phase 6: every simulator kernel launched in phases 4 and 5."""
+    from repro_torch.kernels import SIM_KERNELS
+
+    for name in SIM_KERNELS:
+        for label, counts in (("run", run_counts), ("fleet_run", fleet_counts)):
+            if counts[name] <= 0:
+                raise AssertionError(f"{name} was not launched in the {label} phase")
+    print("phase 6: launched in run and fleet_run: " + ", ".join(SIM_KERNELS))
+
+
 def main() -> int:
     import torch
 
@@ -394,41 +784,29 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "drives the port on a GPU", file=sys.stderr)
         return 1
-    from repro_torch.kernels import KERNELS, cuda_lib
+    from repro_torch.kernels import KERNELS
 
-    # ---- phase 1 -------------------------------------------------------
-    print(gpu_line())
-    cap = torch.cuda.get_device_capability(0)
-    if cap != (9, 0):
-        raise AssertionError(f"compute capability {cap}, the kernels are built for sm_90a")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    print(f"phase 1: {torch.cuda.get_device_name(0)} capability {cap}; "
-          f"matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32} "
-          f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}")
-    dev = torch.device("cuda", 0)
+    walls = {}
+    t_all = time.perf_counter()
 
-    # ---- phase 2 -------------------------------------------------------
-    t0 = time.perf_counter()
-    lib = cuda_lib.build()
-    print(f"phase 2: built {lib.relative_to(ROOT)} in {time.perf_counter() - t0:.2f} s")
-    for line in lib.with_suffix(".log").read_text().splitlines():
-        if "registers" in line or line.startswith("=="):
-            print("  ptxas:", line.strip())
+    def phase(n, fn, *args, **kw):
+        t = time.perf_counter()
+        out = fn(*args, **kw)
+        walls[n] = time.perf_counter() - t
+        print(f"phase {n} wall: {walls[n]:.2f} s")
+        return out
 
-    # ---- phase 3 -------------------------------------------------------
-    measured = check_kernels(dev)
-
-    # ---- phases 4 and 5 ------------------------------------------------
-    run_counts = run_phase(dev)
-    fleet_counts = fleet_phase(dev)
-
-    # ---- phase 6 -------------------------------------------------------
-    for name in KERNELS:
-        for phase, counts in (("run", run_counts), ("fleet_run", fleet_counts)):
-            if counts[name] <= 0:
-                raise AssertionError(f"{name} was not launched in the {phase} phase")
-    print("kernels: " + ", ".join(KERNELS))
+    dev = phase(1, card_phase)
+    phase(2, build_phase)
+    measured = phase(3, check_kernels, dev)
+    run_counts = phase(4, run_phase, dev)
+    fleet_counts = phase(5, fleet_phase, dev)
+    phase(6, sim_launch_phase, run_counts, fleet_counts)
+    rwkv_counts = phase(7, serve_phase, 7, "rwkv6_7b", "rwkv6_scan", dev)
+    gemma_counts = phase(8, serve_phase, 8, "gemma3_12b", "flash_attention", dev)
+    phase(9, parity_phase, dev)
+    print("phase walls (s): " + json.dumps({str(k): round(v, 3) for k, v in walls.items()})
+          + f", total {time.perf_counter() - t_all:.2f}")
 
     sources = {
         "fleet_tick": ("src/repro_torch/csrc/sim_tick.cu",
@@ -439,17 +817,22 @@ def main() -> int:
                               "src/repro/kernels/sched_select/kernel.py:52"),
         "assign_gather": ("src/repro_torch/csrc/state_update.cu",
                           "src/repro/kernels/state_update/kernel.py:202"),
+        "rwkv6_scan": ("src/repro_torch/csrc/rwkv6_scan.cu",
+                       "src/repro/kernels/rwkv6_scan/kernel.py:87"),
+        "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
+                            "src/repro/kernels/flash_attention/kernel.py:113"),
     }
+    main_runs = (run_counts, fleet_counts, rwkv_counts, gemma_counts)
     rows = []
     for name in KERNELS:
         m = measured[name]
         rows.append({
             "name": name, "route": "cuda", "source": sources[name][0],
             "replaces": sources[name][1],
-            "launches": run_counts[name] + fleet_counts[name],
+            "launches": sum(c[name] for c in main_runs),
             "max_abs_err": m["max_abs_err"], "ms": m["ms"],
             "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
-            "bound_by": m["bound_by"], "library_ms": None,
+            "bound_by": m["bound_by"], "library_ms": m["library_ms"],
         })
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -1,11 +1,13 @@
-"""Carry workloads and states between the JAX package and the port.
+"""Carry workloads, states and LM parameters between the JAX package and
+the port.
 
 Both packages use the same field names; the JAX package's ``Workload``
 and ``SimState`` become numpy arrays (``np.asarray`` of every field) on
 its side, and these functions turn such arrays into the port's lane-major
 tensors and back. A per-lane array set (no fleet axis) gains a lane
-axis of one. Used by the parity tests; nothing on the simulation path
-calls it.
+axis of one. ``lm_params_from_arrays`` turns the JAX ``lm_init``
+parameter tree into the port's per-layer modules. Used by the parity
+tests; nothing on the simulation or serving path calls it.
 """
 from __future__ import annotations
 
@@ -62,4 +64,44 @@ def state_to_arrays(state: SimState) -> dict[str, np.ndarray]:
     return {name: getattr(state, name).detach().cpu().numpy() for name in SimState._fields}
 
 
-__all__ = ["workload_from_arrays", "state_from_arrays", "state_to_arrays"]
+def _param_tensor(a) -> torch.Tensor:
+    """A numpy array as a CPU tensor of the same dtype; bfloat16 arrays
+    (the ``ml_dtypes`` type that JAX hands to numpy) keep their bits."""
+    a = np.ascontiguousarray(np.asarray(a))
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16)
+    return torch.from_numpy(a.copy())
+
+
+def lm_params_from_arrays(cfg, tree):
+    """The port's ``LM`` parameters (on the CPU) from the JAX package's
+    ``lm_init`` parameter tree given as numpy arrays. The JAX tree stacks
+    each pattern position over the periods (``stack.periods[i]``,
+    leading axis ``n_periods``): its slice ``p`` becomes layer
+    ``p * period + i``; the ``tail`` layers follow."""
+    from .models.blocks import Block
+    from .models.lm import LM
+
+    def tensors(node, index=None):
+        if isinstance(node, Mapping):
+            return {name: tensors(child, index) for name, child in node.items()}
+        return _param_tensor(node if index is None else np.asarray(node)[index])
+
+    layers = [None] * cfg.n_layers
+    for i, stacked in enumerate(tree["stack"]["periods"]):
+        for p in range(cfg.n_periods):
+            layers[p * cfg.period + i] = Block(cfg.pattern[i], tensors(stacked, p))
+    base = cfg.n_periods * cfg.period
+    for t, layer in enumerate(tree["stack"]["tail"]):
+        layers[base + t] = Block(cfg.pattern[t % cfg.period], tensors(layer))
+    head = tree.get("head")
+    return LM(_param_tensor(tree["embed"]), _param_tensor(tree["final_norm"]),
+              None if head is None else _param_tensor(head), layers)
+
+
+__all__ = [
+    "lm_params_from_arrays",
+    "state_from_arrays",
+    "state_to_arrays",
+    "workload_from_arrays",
+]

@@ -9,15 +9,19 @@ from .types import (
     INF_TICK,
     TICKS_PER_SECOND,
     ContainerStatus,
+    Operator,
+    Pipeline,
     PipeStatus,
     Priority,
 )
-from .workload import generate_workload, get_workload
+from .workload import generate_workload, get_workload, workload_from_pipelines
 
 __all__ = [
     "DEFAULT_POINTS",
     "INF_TICK",
     "N_POLICY_PARAMS",
+    "Operator",
+    "Pipeline",
     "TICKS_PER_SECOND",
     "ContainerStatus",
     "PipeStatus",
@@ -37,4 +41,5 @@ __all__ = [
     "run",
     "summarize",
     "used_resources",
+    "workload_from_pipelines",
 ]

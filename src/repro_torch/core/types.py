@@ -4,9 +4,14 @@ A copy of the value types of ``repro.core.types`` (the port imports
 nothing of the JAX package): the tick length, the priority levels and
 the pipeline / container status codes that every ``SimState`` column
 stores as int32. ``INF_TICK`` marks "never" in tick-valued columns.
+``Operator`` and ``Pipeline`` are the trace records that
+``workload.workload_from_pipelines`` packs (the Python scheduler's retry
+bookkeeping on ``Pipeline`` comes with ``engine="python"``, ROADMAP
+queue 1, item 14).
 """
 from __future__ import annotations
 
+import dataclasses
 import enum
 
 # one loop iteration == 1 tick ~= 10 microseconds (paper §3.2)
@@ -42,6 +47,31 @@ class ContainerStatus(enum.IntEnum):
 
 N_PRIO = len(Priority)
 
+
+# ---------------------------------------------------------------------------
+# Python-facing records of a trace (paper §3.2.1), as in the reference.
+# ---------------------------------------------------------------------------
+@dataclasses.dataclass
+class Operator:
+    """One function node of a pipeline DAG."""
+
+    ram_gb: float          # max RAM required to avoid OOM
+    base_ticks: float      # runtime at exactly 1 CPU (f32 ticks, may be fractional)
+    alpha: float           # CPU-scaling exponent: t(c) = base / c**alpha
+    level: int             # topological depth inside the pipeline DAG
+    out_gb: float = 0.0    # intermediate output dataset size (data plane)
+
+
+@dataclasses.dataclass
+class Pipeline:
+    """User-submitted DAG of operators (paper §3.2.1)."""
+
+    pid: int
+    priority: Priority
+    arrival_tick: int
+    ops: list[Operator]
+
+
 __all__ = [
     "TICK_SECONDS",
     "TICKS_PER_SECOND",
@@ -50,4 +80,6 @@ __all__ = [
     "Priority",
     "PipeStatus",
     "ContainerStatus",
+    "Operator",
+    "Pipeline",
 ]

@@ -1,4 +1,5 @@
-"""Workload generation (paper §3.2.1), drawn with a ``torch.Generator``.
+"""Workloads (paper §3.2.1): drawn with a ``torch.Generator``, or packed
+from a trace of ``Pipeline`` records (``workload_from_pipelines``).
 
 The whole arrival table is drawn up front from one seed, from the same
 distributions as ``repro.core.workload.generate_workload``:
@@ -24,12 +25,14 @@ moved to.
 from __future__ import annotations
 
 import math
+from typing import Sequence
 
+import numpy as np
 import torch
 
 from .params import SimParams
 from .state import Workload
-from .types import INF_TICK, TICKS_PER_SECOND
+from .types import INF_TICK, TICKS_PER_SECOND, Pipeline
 
 GB_QUANTUM = 1.0 / 1024.0
 
@@ -113,6 +116,47 @@ def generate_workload(
     return Workload(*(x[None].to(device) for x in wl[:10]))
 
 
+def _op_out_gb_quantized(out_gb: float) -> float:
+    """An operator's output size on the MiB grid; 0 stays 0 so that
+    data-plane-free traces remain inert."""
+    if out_gb > 0:
+        return max(round(out_gb * 1024.0) / 1024.0, GB_QUANTUM)
+    return 0.0
+
+
+def workload_from_pipelines(pipelines: Sequence[Pipeline], params: SimParams) -> Workload:
+    """Pack a trace of ``Pipeline`` records into a workload, as a fleet
+    of one (``[1, ...]``) on the CPU; ``run`` moves it to its device."""
+    MP, MO = params.max_pipelines, params.max_ops_per_pipeline
+    if len(pipelines) > MP:
+        raise ValueError(f"trace has {len(pipelines)} pipelines > capacity {MP}")
+    arrival = np.full((MP,), INF_TICK, np.int32)
+    prio = np.zeros((MP,), np.int32)
+    n_ops = np.zeros((MP,), np.int32)
+    op_valid = np.zeros((MP, MO), bool)
+    op_level = np.zeros((MP, MO), np.int32)
+    op_ram = np.zeros((MP, MO), np.float32)
+    op_base = np.zeros((MP, MO), np.float32)
+    op_alpha = np.zeros((MP, MO), np.float32)
+    op_out = np.zeros((MP, MO), np.float32)
+    for i, p in enumerate(pipelines):
+        if len(p.ops) > MO:
+            raise ValueError(f"pipeline {p.pid} has {len(p.ops)} ops > {MO}")
+        arrival[i] = p.arrival_tick
+        prio[i] = int(p.priority)
+        n_ops[i] = len(p.ops)
+        for j, o in enumerate(p.ops):
+            op_valid[i, j] = True
+            op_level[i, j] = o.level
+            op_ram[i, j] = o.ram_gb
+            op_base[i, j] = o.base_ticks
+            op_alpha[i, j] = o.alpha
+            op_out[i, j] = _op_out_gb_quantized(o.out_gb)
+    fields = (arrival, prio, n_ops, op_valid, op_level, op_ram, op_base, op_alpha,
+              op_out, op_out.sum(axis=1, dtype=np.float32))
+    return Workload(*(torch.from_numpy(a)[None] for a in fields))
+
+
 def get_workload(params: SimParams, *, device="cpu") -> Workload:
     """The workload ``params`` describes: a trace file (a later slice)
     or the seed generator."""
@@ -123,4 +167,4 @@ def get_workload(params: SimParams, *, device="cpu") -> Workload:
     return generate_workload(params, device=device)
 
 
-__all__ = ["generate_workload", "get_workload", "GB_QUANTUM"]
+__all__ = ["generate_workload", "get_workload", "workload_from_pipelines", "GB_QUANTUM"]

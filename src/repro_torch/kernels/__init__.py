@@ -1,17 +1,27 @@
-"""Hand-written CUDA kernels of the simulator's main path, each beside
-its plain PyTorch version (``<subsystem>/ref.py``) and a wrapper
-(``<subsystem>/ops.py``) that picks one by the device of the data."""
+"""Hand-written CUDA kernels of the port, each beside its plain PyTorch
+version (``<subsystem>/ref.py``) and a wrapper (``<subsystem>/ops.py``)
+that picks one by the device of the data: the simulator's four and the
+LM substrate's two."""
+from .flash_attention import flash_attention
+from .rwkv6_scan import rwkv6_scan
 from .sched_select import masked_lex_argmin
 from .sim_tick import fleet_tick
 from .state_update import assign_gather, retire_land
 
-# every kernel wrapper, by the name its launch counter reports
-KERNELS = {
+# the simulator's kernels (run / fleet_run), by the name each launch
+# counter reports
+SIM_KERNELS = {
     "fleet_tick": fleet_tick,
     "retire_land": retire_land,
     "masked_lex_argmin": masked_lex_argmin,
     "assign_gather": assign_gather,
 }
+# the LM substrate's kernels (serving prefill)
+LM_KERNELS = {
+    "rwkv6_scan": rwkv6_scan,
+    "flash_attention": flash_attention,
+}
+KERNELS = {**SIM_KERNELS, **LM_KERNELS}
 
 
 def reset_launch_counts() -> None:
@@ -25,10 +35,14 @@ def launch_counts() -> dict[str, int]:
 
 __all__ = [
     "KERNELS",
+    "LM_KERNELS",
+    "SIM_KERNELS",
     "assign_gather",
+    "flash_attention",
     "fleet_tick",
     "launch_counts",
     "masked_lex_argmin",
     "reset_launch_counts",
     "retire_land",
+    "rwkv6_scan",
 ]

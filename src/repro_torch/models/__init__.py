@@ -1,0 +1,18 @@
+"""The LM substrate of the port, on the serving path: dense attention
+(GQA, sliding window) and RWKV-6 decoder stacks with their caches."""
+from .common import LayerSpec, MambaConfig, ModelConfig, MoEConfig, RWKVConfig
+from .lm import LM, init_caches, lm_decode_step, lm_init, lm_loss, lm_prefill
+
+__all__ = [
+    "LM",
+    "LayerSpec",
+    "MambaConfig",
+    "MoEConfig",
+    "ModelConfig",
+    "RWKVConfig",
+    "init_caches",
+    "lm_decode_step",
+    "lm_init",
+    "lm_loss",
+    "lm_prefill",
+]

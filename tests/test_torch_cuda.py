@@ -9,12 +9,25 @@ This file imports no JAX, so it runs where only PyTorch is installed.
 The unmarked tests check, on the CPU, the build and argument checks
 that stand between a wrapper and its kernel.
 """
+import copy
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
 from repro_torch import SimParams, fleet_run
-from repro_torch.kernels import KERNELS, cuda_lib, launch_counts, reset_launch_counts
+from repro_torch.configs import get_arch
+from repro_torch.kernels import (
+    KERNELS,
+    LM_KERNELS,
+    SIM_KERNELS,
+    cuda_lib,
+    launch_counts,
+    reset_launch_counts,
+)
+from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.rwkv6_scan import rwkv6_scan
 from repro_torch.kernels.sched_select import masked_lex_argmin, masked_lex_argmin_ref
 from repro_torch.kernels.sim_tick import fleet_tick, fleet_tick_ref
 from repro_torch.kernels.state_update import (
@@ -128,9 +141,97 @@ def test_main_path_goes_through_every_kernel(cuda):
     on_card = fleet_run(params, seeds=[0, 1, 2], device=cuda)
     counts = launch_counts()
     on_cpu = fleet_run(params, seeds=[0, 1, 2], device="cpu")
-    assert all(n > 0 for n in counts.values()), counts
+    assert all(counts[name] > 0 for name in SIM_KERNELS), counts
     for name in ("pipe_status", "pipe_completion", "pool_cpu_free", "done_count"):
         assert torch.equal(getattr(on_card, name).cpu(), getattr(on_cpu, name)), name
+
+
+# ---------------------------------------------------------------------------
+# The LM kernels: float kernels, held to their plain versions (run on the
+# CPU) at the stated tolerance, f32 rtol=atol=2e-4, bf16 2e-2: the sums
+# run in another order, and bf16 outputs round an ulp apart.
+# ---------------------------------------------------------------------------
+TOLS = {torch.float32: dict(rtol=2e-4, atol=2e-4), torch.bfloat16: dict(rtol=2e-2, atol=2e-2)}
+
+
+def _close(got, want, dtype):
+    assert got.dtype == want.dtype and got.shape == want.shape
+    np.testing.assert_allclose(got.float().cpu().numpy(), want.float().numpy(), **TOLS[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("B,S,H,N,chunk", [(2, 64, 3, 16, 16), (1, 45, 2, 64, 32), (1, 20, 4, 16, 8)])
+def test_rwkv6_scan_kernel_matches_plain(cuda, B, S, H, N, chunk, dtype):
+    rng = np.random.default_rng(S)
+    base = np.linspace(-6.0, -0.3, H * N).reshape(H, N)   # the model's decay range
+    w = np.exp(-np.exp(base + 0.1 * rng.standard_normal((B, S, H, N))))
+    arrays = [rng.standard_normal((B, S, H, N)), rng.standard_normal((B, S, H, N)) * 0.5,
+              rng.standard_normal((B, S, H, N))]
+    cpu = [torch.from_numpy(a.astype(np.float32)).to(dtype) for a in arrays]
+    cpu += [torch.from_numpy(w.astype(np.float32)),
+            torch.from_numpy((rng.standard_normal((H, N)) * 0.3).astype(np.float32)),
+            torch.from_numpy((rng.standard_normal((B, H, N, N)) * 0.1).astype(np.float32))]
+    dev = [x.to(cuda) for x in cpu]
+    reset_launch_counts()
+    out, state = rwkv6_scan(*dev, chunk=chunk)
+    torch.cuda.synchronize()
+    assert launch_counts()["rwkv6_scan"] == 1
+    want_out, want_state = rwkv6_scan(*cpu, chunk=chunk)
+    _close(out, want_out, dtype)
+    _close(state, want_state, torch.float32)
+
+
+FLASH_CUDA_CASES = [
+    # B, Sq, Skv, H, KV, D, causal, window, q_offset, kv_len
+    (1, 64, 64, 2, 2, 32, True, 0, 0, None),
+    (2, 128, 128, 4, 1, 64, False, 0, 0, None),      # MQA, not causal
+    (1, 256, 256, 8, 4, 32, True, 64, 0, None),      # sliding window
+    (1, 96, 96, 2, 2, 32, True, 0, 0, None),         # ragged tiles
+    (1, 20, 20, 4, 2, 24, True, 8, 0, None),         # gemma3 smoke local layer
+    (2, 20, 48, 4, 2, 24, True, 0, 0, 20),           # gemma3 smoke global layer
+    (1, 8, 64, 4, 2, 32, True, 8, 20, 28),           # query offset + window
+    (1, 130, 256, 16, 8, 256, True, 64, 0, 130),     # gemma3_12b head width
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("B,Sq,Skv,H,KV,D,causal,window,q_offset,kv_len", FLASH_CUDA_CASES)
+def test_flash_attention_kernel_matches_plain(cuda, B, Sq, Skv, H, KV, D, causal, window,
+                                              q_offset, kv_len, dtype):
+    rng = np.random.default_rng(Sq + D)
+    cpu = [torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dtype)
+           for shape in ((B, Sq, H, D), (B, Skv, KV, D), (B, Skv, KV, D))]
+    kw = dict(causal=causal, window=window, q_offset=q_offset, kv_len=kv_len)
+    reset_launch_counts()
+    got = flash_attention(*(x.to(cuda) for x in cpu), **kw)
+    torch.cuda.synchronize()
+    assert launch_counts()["flash_attention"] == 1
+    _close(got, flash_attention(*cpu, **kw), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["rwkv6_7b", "gemma3_12b"])
+def test_serving_goes_through_the_lm_kernels(cuda, name):
+    from repro_torch.models import lm
+    from repro_torch.serving.batching import ContinuousBatcher, Request
+
+    cfg = dataclasses.replace(get_arch(name).smoke, param_dtype=torch.float32,
+                              compute_dtype=torch.float32)
+    base = lm.lm_init(cfg, 0, device="cpu")
+    outs = {}
+    for dev in (cuda, torch.device("cpu")):
+        b = ContinuousBatcher(cfg, copy.deepcopy(base).to(dev), slots=2, max_len=48)
+        for i, n in enumerate((11, 17, 9)):
+            toks = np.random.default_rng(i).integers(2, cfg.vocab, n).astype(np.int32)
+            b.submit(Request(rid=i, tokens=toks, max_new=4, interactive=i == 2))
+        reset_launch_counts()
+        outs[dev.type] = [(r.rid, r.out) for r in b.run_to_completion()]
+        counts = launch_counts()
+        if dev.type == "cuda":
+            assert counts[{"rwkv6_7b": "rwkv6_scan", "gemma3_12b": "flash_attention"}[name]] > 0
+    assert outs["cuda"] == outs["cpu"]
 
 
 # ---------------------------------------------------------------------------
@@ -138,11 +239,14 @@ def test_main_path_goes_through_every_kernel(cuda):
 # ---------------------------------------------------------------------------
 def test_sources_and_library_name():
     names = {p.name for p in cuda_lib.sources()}
-    assert names == {"sim_tick.cu", "state_update.cu", "sched_select.cu"}
+    assert names == {"sim_tick.cu", "state_update.cu", "sched_select.cu",
+                     "rwkv6_scan.cu", "flash_attention.cu"}
     path = cuda_lib.library_path()
     assert path.parent == cuda_lib.BUILD_DIR and path == cuda_lib.library_path()
     assert "sm_90a" in " ".join(cuda_lib.NVCC_FLAGS)
-    assert set(KERNELS) == {"fleet_tick", "retire_land", "masked_lex_argmin", "assign_gather"}
+    assert set(SIM_KERNELS) == {"fleet_tick", "retire_land", "masked_lex_argmin", "assign_gather"}
+    assert set(LM_KERNELS) == {"rwkv6_scan", "flash_attention"}
+    assert set(KERNELS) == set(SIM_KERNELS) | set(LM_KERNELS)
 
 
 @pytest.mark.parametrize(

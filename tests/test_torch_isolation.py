@@ -38,8 +38,11 @@ def test_no_jax_and_no_reference_package_imports(path):
 
 def test_port_has_files_to_scan():
     names = {p.name for p in PORT_FILES}
-    assert {"engine.py", "scheduler.py", "executor.py", "chip_smoke.py"} <= names
-    assert len(list((REPO / "src" / "repro_torch" / "csrc").glob("*.cu"))) == 3
+    assert {"engine.py", "scheduler.py", "executor.py", "chip_smoke.py",
+            "lm.py", "attention.py", "rwkv.py", "batching.py", "serve.py"} <= names
+    assert {p.name for p in (REPO / "src" / "repro_torch" / "csrc").glob("*.cu")} == {
+        "sim_tick.cu", "state_update.cu", "sched_select.cu", "rwkv6_scan.cu", "flash_attention.cu",
+    }
 
 
 def _small(**kw):
@@ -101,3 +104,70 @@ def test_run_trace_raises():
 def test_unknown_scheduler_is_a_key_error():
     with pytest.raises(KeyError, match="ported"):
         engine.run_lane_major_engine(_small(), None, "no_such_scheduler")
+
+
+# ---------------------------------------------------------------------------
+# The LM substrate: what this slice does not port raises, naming the item
+# ---------------------------------------------------------------------------
+def _tiny_lm_config(**kw):
+    from repro_torch.models import ModelConfig
+
+    return ModelConfig(n_layers=2, d_model=32, n_heads=2, n_kv_heads=2, d_ff=64, vocab=64,
+                       param_dtype=torch.float32, compute_dtype=torch.float32, **kw)
+
+
+@pytest.mark.parametrize("spec", [("mamba", "dense"), ("attn", "moe"), ("attn", "moe_dense"),
+                                  ("mamba", "moe")], ids=lambda s: "-".join(s))
+def test_mamba_and_moe_layers_raise(spec):
+    from repro_torch.models import LayerSpec, MoEConfig, lm
+
+    cfg = _tiny_lm_config(pattern=(LayerSpec(*spec),), moe=MoEConfig(n_experts=4))
+    with pytest.raises(NotImplementedError, match="item 15"):
+        lm.lm_init(cfg, device="cpu")
+    with pytest.raises(NotImplementedError, match="item 15"):
+        lm.init_caches(cfg, 1, 8, "cpu")
+
+
+def test_lm_loss_raises():
+    from repro_torch.models import lm
+
+    cfg = _tiny_lm_config()
+    params = lm.lm_init(cfg, device="cpu")
+    with pytest.raises(NotImplementedError, match="item 15"):
+        lm.lm_loss(cfg, params, {"tokens": torch.zeros((1, 4), dtype=torch.int32)})
+
+
+@pytest.mark.parametrize("family", ["vlm", "audio"])
+def test_frontends_raise(family):
+    from repro_torch.models import lm
+
+    with pytest.raises(NotImplementedError, match="item 15"):
+        lm.lm_init(_tiny_lm_config(family=family), device="cpu")
+
+
+@pytest.mark.parametrize("name", [
+    "arctic_480b", "gemma3_27b", "granite_34b", "internvl2_2b", "jamba_1p5_large_398b",
+    "llama4_maverick_400b_a17b", "phi3_mini_3p8b", "whisper_small",
+])
+def test_archs_not_yet_ported_raise(name):
+    from repro_torch.configs import get_arch
+
+    with pytest.raises(NotImplementedError, match="item 15"):
+        get_arch(name)
+
+
+def test_ported_archs_and_unknown_names():
+    from repro_torch.configs import get_arch, list_archs
+
+    assert list_archs() == ["gemma3_12b", "rwkv6_7b"]
+    assert get_arch("rwkv6-7b").model.n_layers == 32
+    with pytest.raises(KeyError, match="ported"):
+        get_arch("no_such_arch")
+
+
+def test_lm_init_needs_a_card_by_default(monkeypatch):
+    from repro_torch.models import lm
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        lm.lm_init(_tiny_lm_config())

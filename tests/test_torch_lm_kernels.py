@@ -1,0 +1,171 @@
+"""The port's LM kernels (plain versions, on the CPU) against the JAX
+package's: ``rwkv6_scan`` against the Pallas kernel in interpret mode,
+the chunked jnp form and the sequential oracle; ``rwkv6_decode_step``;
+``flash_attention`` against the Pallas kernel in interpret mode and,
+with ``q_offset``/``kv_len``, against ``flash_attention_ref``.
+
+Inputs are drawn with numpy from a seed and handed to both packages
+(bf16 inputs are the same f32 draws rounded to bf16 by each).
+Tolerances as ``tests/test_kernels.py``: f32 ``rtol=atol=2e-4``, bf16
+``2e-2``.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.flash_attention.kernel import flash_attention_kernel
+from repro.kernels.flash_attention.ref import flash_attention_ref as j_flash_ref
+from repro.kernels.rwkv6_scan.kernel import rwkv6_scan_kernel
+from repro.kernels.rwkv6_scan.ops import _rwkv6_chunked
+from repro.kernels.rwkv6_scan.ops import rwkv6_decode_step as j_decode_step
+from repro.kernels.rwkv6_scan.ops import rwkv6_scan as j_rwkv6_scan
+from repro.kernels.rwkv6_scan.ref import rwkv6_ref as j_rwkv6_ref
+from repro_torch.kernels import launch_counts, reset_launch_counts
+from repro_torch.kernels.flash_attention import flash_attention, flash_attention_ref, mha_reference
+from repro_torch.kernels.rwkv6_scan import rwkv6_decode_step, rwkv6_ref, rwkv6_scan
+
+TOL = dict(rtol=2e-2, atol=2e-2)       # bf16 inputs
+TOL32 = dict(rtol=2e-4, atol=2e-4)     # f32 inputs
+DTYPES = {"f32": (torch.float32, jnp.float32, TOL32), "bf16": (torch.bfloat16, jnp.bfloat16, TOL)}
+
+
+def _both(a, dtype):
+    tdt, jdt, _ = DTYPES[dtype]
+    a = np.asarray(a, np.float32)
+    return torch.from_numpy(a.copy()).to(tdt), jnp.asarray(a).astype(jdt)
+
+
+def _np(x):
+    if isinstance(x, torch.Tensor):
+        return x.float().numpy()
+    return np.asarray(x, np.float32)
+
+
+def _rwkv_arrays(seed, B, S, H, N):
+    rng = np.random.default_rng(seed)
+    return dict(
+        r=rng.standard_normal((B, S, H, N)),
+        k=rng.standard_normal((B, S, H, N)) * 0.5,
+        v=rng.standard_normal((B, S, H, N)),
+        w=np.exp(-np.exp(rng.uniform(-3.0, 1.0, (B, S, H, N)))),
+        u=rng.standard_normal((H, N)) * 0.3,
+        s0=rng.standard_normal((B, H, N, N)) * 0.1,
+    )
+
+
+RWKV_SHAPES = [(1, 32, 2, 8, 8), (2, 64, 3, 16, 16), (1, 48, 1, 32, 16), (2, 45, 2, 16, 16)]
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("B,S,H,N,chunk", RWKV_SHAPES, ids=lambda v: str(v))
+def test_rwkv6_scan_matches_pallas_chunked_and_oracle(B, S, H, N, chunk, dtype):
+    a = _rwkv_arrays(B * S + N, B, S, H, N)
+    tol = DTYPES[dtype][2]
+    t, j = {}, {}
+    for name in ("r", "k", "v", "w", "u"):
+        t[name], j[name] = _both(a[name], dtype)
+    t_s0 = torch.from_numpy(a["s0"].astype(np.float32))
+    j_s0 = jnp.asarray(a["s0"].astype(np.float32))
+    args_t = (t["r"], t["k"], t["v"], t["w"], t["u"], t_s0)
+    args_j = (j["r"], j["k"], j["v"], j["w"], j["u"], j_s0)
+
+    out, state = rwkv6_scan(*args_t, chunk=chunk)
+    assert out.dtype == t["r"].dtype and out.shape == (B, S, H, N)
+    assert state.dtype == torch.float32 and state.shape == (B, H, N, N)
+    o_ref, s_ref = j_rwkv6_ref(*args_j)
+    if S % chunk == 0:
+        o_k, s_k = rwkv6_scan_kernel(*args_j, chunk=chunk, interpret=True)
+        o_c, s_c = _rwkv6_chunked(*args_j, chunk=chunk)
+    else:  # the padding of the public wrapper, on the Pallas kernel
+        o_k, s_k = j_rwkv6_scan(*args_j, chunk=chunk, impl="kernel", interpret=True)
+        o_c, s_c = j_rwkv6_scan(*args_j, chunk=chunk, impl="ref")
+    for o_j, s_j in ((o_k, s_k), (o_c, s_c)):
+        np.testing.assert_allclose(_np(out), _np(o_j), **tol)
+        np.testing.assert_allclose(state.numpy(), _np(s_j), **TOL32)
+    np.testing.assert_allclose(_np(out), _np(o_ref), **tol)
+    np.testing.assert_allclose(state.numpy(), _np(s_ref), **TOL32)
+    o_seq, s_seq = rwkv6_ref(*args_t)
+    np.testing.assert_allclose(_np(o_seq), _np(o_ref), **tol)
+    np.testing.assert_allclose(s_seq.numpy(), _np(s_ref), **TOL32)
+
+
+def test_rwkv6_scan_without_state_starts_from_zeros():
+    a = _rwkv_arrays(3, 1, 16, 2, 8)
+    t = {n: torch.from_numpy(a[n].astype(np.float32)) for n in a}
+    out, state = rwkv6_scan(t["r"], t["k"], t["v"], t["w"], t["u"], None, chunk=8)
+    o2, s2 = rwkv6_scan(t["r"], t["k"], t["v"], t["w"], t["u"], torch.zeros(1, 2, 8, 8), chunk=8)
+    assert torch.equal(out, o2) and torch.equal(state, s2)
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_rwkv6_decode_step_matches_jax(dtype):
+    a = _rwkv_arrays(5, 2, 1, 3, 16)
+    tol = DTYPES[dtype][2]
+    t, j = {}, {}
+    for name in ("r", "k", "v", "w", "u"):
+        x = a[name][:, 0] if a[name].ndim == 4 else a[name]
+        t[name], j[name] = _both(x, dtype)
+    s0 = a["s0"].astype(np.float32)
+    out, state = rwkv6_decode_step(t["r"], t["k"], t["v"], t["w"], t["u"], torch.from_numpy(s0))
+    o_j, s_j = j_decode_step(j["r"], j["k"], j["v"], j["w"], j["u"], jnp.asarray(s0))
+    assert out.dtype == t["r"].dtype
+    np.testing.assert_allclose(_np(out), _np(o_j), **tol)
+    np.testing.assert_allclose(state.numpy(), _np(s_j), **TOL32)
+
+
+def _qkv(seed, B, Sq, Skv, H, KV, D, dtype):
+    rng = np.random.default_rng(seed)
+    q = _both(rng.standard_normal((B, Sq, H, D)), dtype)
+    k = _both(rng.standard_normal((B, Skv, KV, D)), dtype)
+    v = _both(rng.standard_normal((B, Skv, KV, D)), dtype)
+    return (q[0], k[0], v[0]), (q[1], k[1], v[1])
+
+
+FLASH_CASES = [
+    (1, 64, 2, 2, 32, True, 0, 16, 16),
+    (2, 128, 4, 2, 64, True, 0, 32, 64),
+    (2, 128, 4, 1, 64, False, 0, 64, 32),     # MQA
+    (1, 256, 8, 4, 32, True, 64, 64, 64),     # sliding window
+    (1, 96, 2, 2, 32, True, 0, 32, 32),       # ragged: S % block != 0
+]
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("B,S,H,KV,D,causal,window,bq,bk", FLASH_CASES, ids=lambda v: str(v))
+def test_flash_attention_matches_pallas_kernel(B, S, H, KV, D, causal, window, bq, bk, dtype):
+    (qt, kt, vt), (qj, kj, vj) = _qkv(S + D, B, S, S, H, KV, D, dtype)
+    out = flash_attention(qt, kt, vt, causal=causal, window=window)
+    want = flash_attention_kernel(qj, kj, vj, causal=causal, window=window,
+                                  block_q=bq, block_k=bk, interpret=True)
+    assert out.dtype == qt.dtype and out.shape == qt.shape
+    np.testing.assert_allclose(_np(out), _np(want), **DTYPES[dtype][2])
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize(
+    "Sq,Skv,q_offset,kv_len,window",
+    [(24, 48, 0, 24, 0), (8, 64, 20, 28, 0), (8, 64, 20, 28, 8), (1, 40, 30, 31, 0), (33, 96, 0, 33, 16)],
+    ids=lambda v: str(v),
+)
+def test_flash_attention_offset_and_kv_len_match_jax_ref(Sq, Skv, q_offset, kv_len, window, dtype):
+    (qt, kt, vt), (qj, kj, vj) = _qkv(Sq * Skv, 2, Sq, Skv, 4, 2, 32, dtype)
+    out = flash_attention(qt, kt, vt, causal=True, window=window, q_offset=q_offset, kv_len=kv_len)
+    want = j_flash_ref(qj, kj, vj, causal=True, window=window,
+                       q_offset=jnp.asarray(q_offset), kv_len=jnp.asarray(kv_len), block_k=16)
+    np.testing.assert_allclose(_np(out), _np(want), **DTYPES[dtype][2])
+    naive = mha_reference(qt.float(), kt.float(), vt.float(), causal=True, window=window,
+                          q_offset=q_offset, kv_len=kv_len)
+    ref = flash_attention_ref(qt.float(), kt.float(), vt.float(), causal=True, window=window,
+                              q_offset=q_offset, kv_len=kv_len, block_k=16)
+    np.testing.assert_allclose(ref.numpy(), naive.numpy(), **TOL32)
+
+
+def test_cpu_tensors_run_the_plain_versions():
+    reset_launch_counts()
+    (qt, kt, vt), _ = _qkv(0, 1, 16, 16, 2, 1, 8, "f32")
+    flash_attention(qt, kt, vt)
+    a = _rwkv_arrays(0, 1, 8, 1, 4)
+    t = {n: torch.from_numpy(a[n].astype(np.float32)) for n in a}
+    rwkv6_scan(t["r"], t["k"], t["v"], t["w"], t["u"], t["s0"], chunk=4)
+    assert launch_counts()["flash_attention"] == 0 and launch_counts()["rwkv6_scan"] == 0
