@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Drive the PyTorch / CUDA port (``src/repro_torch``) on one NVIDIA GPU,
-and check it: the simulator's main path, and serving two LMs at their
+and check it: the simulator's main path, and serving three LMs at their
 published widths under the policy the simulator picks.
 
     python3 chip_smoke.py
@@ -12,10 +12,11 @@ Phases, in order; any failure raises and the script exits non-zero:
 2. build the CUDA kernels from ``src/repro_torch/csrc`` (into
    ``build/repro_torch/``);
 3. each kernel against its plain PyTorch version on the card: the
-   simulator's four at the main path's shapes, exactly; ``rwkv6_scan``
-   and ``flash_attention`` at rwkv6_7b's and gemma3_12b's prefill shapes
-   in bf16, to 2e-2; the time of each, of its plain version and, for
-   attention, of PyTorch's ``scaled_dot_product_attention``;
+   simulator's four at the main path's shapes, exactly; ``rwkv6_scan``,
+   ``flash_attention`` and ``ssm_scan`` at rwkv6_7b's, gemma3_12b's and
+   jamba's prefill shapes, bf16 outputs to 2e-2 and f32 states to 2e-4;
+   the time of each, of its plain version and, for attention, of
+   PyTorch's ``scaled_dot_product_attention``;
 4. ``run(SimParams())`` (the paper's default cluster, ``priority``) on
    CUDA and on the CPU through the plain versions, compared field by
    field;
@@ -28,8 +29,11 @@ Phases, in order; any failure raises and the script exits non-zero:
    every request served, every logit finite, ``rwkv6_scan`` launched;
 8. the same for gemma3_12b (``max_len`` 4096, prompts past the
    1024-token window), ``flash_attention`` launched;
-9. both smoke configs in f32 through the batcher on CUDA and on the CPU
-   port: equal greedy tokens, prefill logits within 2e-4.
+9. the three smoke configs in f32 through the batcher on CUDA and on the
+   CPU port: equal greedy tokens, prefill logits within 2e-4;
+10. the same as 7 for jamba_1p5_large_398b at full width, cut to the first
+   five layers of its period (one H100 holds five, not 72), with
+   ``ssm_scan`` and ``flash_attention`` launched.
 
 Every phase prints its wall time. The last two lines of standard output
 are a JSON object with one entry per kernel and
@@ -54,10 +58,12 @@ ROOT = pathlib.Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 # H100 SXM data sheet: HBM3 rate, the f32 / int32 rate of the CUDA cores
-# and the dense bf16 tensor-core rate
+# and the dense bf16 tensor-core rate; the special-function units' exp
+# rate, 16 per SM per clock on 132 SMs at the 1.98 GHz boost clock
 HBM_BYTES_PER_S = 3.35e12
 CORE_OPS_PER_S = 67e12
 BF16_TENSOR_OPS_PER_S = 989e12
+SFU_EXP_PER_S = 16 * 132 * 1.98e9
 F, MC, MP, K = 64, 64, 256, 16
 
 # fields that are sums taken in another order than the reference's
@@ -284,6 +290,27 @@ def rwkv_ops(S: int, chunk: int, H: int = 64, N: int = 64) -> float:
     return 2.0 * n_chunks * H * (C * (C - 1) * N + 2 * C * N * N)
 
 
+def ssm_inputs(rng, dev, S: int, dim: int = 16384, N: int = 16):
+    """jamba's Mamba prefill operands as ``mamba_apply`` hands them to the
+    scan: x, B, C in bf16; dt = softplus(dt_proj + dt_bias) in f32, with
+    dt_bias the inverse softplus of U(1e-3, 0.1); A = -exp(A_log), A_log
+    in U(0, log 16); D = 1 (its init); a carried state in f32."""
+    import torch
+
+    def f32(x):
+        return torch.tensor(x, dtype=torch.float32, device=dev)
+
+    dt_bias = np.log(np.expm1(rng.uniform(1e-3, 0.1, dim)))
+    pre = 0.5 * rng.standard_normal((1, S, dim)) + dt_bias
+    return (f32(rng.standard_normal((1, S, dim))).to(torch.bfloat16),
+            f32(np.logaddexp(pre, 0.0)),
+            -torch.exp(f32(rng.uniform(0.0, np.log(16.0), (dim, N)))),
+            f32(rng.standard_normal((1, S, N))).to(torch.bfloat16),
+            f32(rng.standard_normal((1, S, N))).to(torch.bfloat16),
+            torch.ones(dim, dtype=torch.float32, device=dev),
+            f32(0.1 * rng.standard_normal((1, dim, N))))
+
+
 def attn_inputs(rng, dev, Sq: int, Skv: int, H: int = 16, KV: int = 8, D: int = 256):
     import torch
 
@@ -316,12 +343,16 @@ def check_kernels(dev) -> dict:
     from repro_torch.kernels.rwkv6_scan import rwkv6_chunked_ref, rwkv6_scan
     from repro_torch.kernels.sched_select import masked_lex_argmin, masked_lex_argmin_ref
     from repro_torch.kernels.sim_tick import fleet_tick, fleet_tick_ref
+    from repro_torch.kernels.ssm_scan import ssm_scan, ssm_scan_ref
     from repro_torch.kernels.state_update import (
         assign_gather, assign_gather_ref, retire_land, retire_land_ref,
     )
 
     rng = np.random.default_rng(0)
-    # name, label, kernel, plain, bytes in, (ops, ops rate), library, tolerances
+    # name, label, kernel, plain, bytes in, {bound: (count, rate)} beside
+    # bytes, library, tolerances, options: "plain_reps" (fewer repeats of
+    # a slow plain version), "represent" (False: the case never stands
+    # for its kernel in the JSON line)
     cases = []
     for NP in (1, 3):
         args = tick_inputs(rng, dev, NP)
@@ -360,15 +391,20 @@ def check_kernels(dev) -> dict:
 
         cases.append(("rwkv6_scan", f"B=1 S={S} H=64 N=64 chunk=32 bf16",
                       lambda a=a: rwkv6_scan(*a, chunk=32), plain, a,
-                      (rwkv_ops(S, 32), CORE_OPS_PER_S), None,
+                      {"operations": (rwkv_ops(S, 32), CORE_OPS_PER_S)}, None,
                       (LM_TOL["bf16"], LM_TOL["f32"])))
 
     # gemma3_12b prefill: H = 16, KV = 8, D = 256, 2048 tokens; the local
     # layers' ring-cache call (window 1024), a full causal call, and the
     # global layers' call against a 4096-slot cache (q_offset 0, kv_len)
-    for label, Skv, window, kv_len in (("W=1024", 2048, 1024, None), ("W=0", 2048, 0, None),
-                                       ("global Skv=4096 kv_len=2048", 4096, 0, 2048)):
-        q, k, v = attn_inputs(rng, dev, 2048, Skv)
+    # jamba's attention layer (H = 64, KV = 8, D = 128) against its
+    # 4096-slot cache; the gemma cases stay the row's representative
+    for label, Skv, window, kv_len, (H, KV, D) in (
+        ("W=1024", 2048, 1024, None, (16, 8, 256)), ("W=0", 2048, 0, None, (16, 8, 256)),
+        ("global Skv=4096 kv_len=2048", 4096, 0, 2048, (16, 8, 256)),
+        ("jamba global Skv=4096 kv_len=2048", 4096, 0, 2048, (64, 8, 128)),
+    ):
+        q, k, v = attn_inputs(rng, dev, 2048, Skv, H, KV, D)
         kw = dict(causal=True, window=window, q_offset=0, kv_len=kv_len)
         n_keys = Skv if kv_len is None else kv_len
         mask = attn_mask(2048, Skv, window, 0, n_keys, dev)
@@ -380,14 +416,36 @@ def check_kernels(dev) -> dict:
         def library(qt=qt, kt=kt, vt=vt, mask=mask):
             return Fn.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, enable_gqa=True)
 
-        cases.append(("flash_attention", f"B=1 Sq=2048 H=16 KV=8 D=256 {label} bf16",
+        cases.append(("flash_attention", f"B=1 Sq=2048 H={H} KV={KV} D={D} {label} bf16",
                       lambda q=q, k=k, v=v, kw=kw: flash_attention(q, k, v, **kw),
                       lambda q=q, k=k, v=v, kw=kw: flash_attention_ref(q, k, v, **kw),
-                      needed, (4.0 * 16 * visible * 256, BF16_TENSOR_OPS_PER_S), library,
-                      (LM_TOL["bf16"],)))
+                      needed, {"operations": (4.0 * H * visible * D, BF16_TENSOR_OPS_PER_S)},
+                      library, (LM_TOL["bf16"],), {"represent": H == 16}))
+
+    # jamba's Mamba prefill: B = 1, dim 16384, N 16, chunk 256; 2048 tokens
+    # and a ragged 2000 (padded to a multiple of the chunk by the wrapper).
+    # Bounds: one exp per (token, channel, state) on the special-function
+    # units, and ~6 f32 operations per (token, channel, state)
+    for S in (2048, 2000):
+        a = ssm_inputs(rng, dev, S)
+        pad = (256 - S % 256) % 256
+
+        def plain(a=a, S=S, pad=pad):
+            # the wrapper's padding (zeros in x, dt, B, C), then the scan
+            p = lambda t: Fn.pad(t, (0, 0, 0, pad))
+            y, h = ssm_scan_ref(p(a[0]), p(a[1]), a[2], p(a[3]), p(a[4]), a[5], a[6], chunk=256)
+            return y[:, :S], h
+
+        per_state = S * 16384 * 16
+        cases.append(("ssm_scan", f"B=1 S={S} dim=16384 N=16 chunk=256 bf16",
+                      lambda a=a: ssm_scan(*a, chunk=256), plain, a,
+                      {"exp": (per_state, SFU_EXP_PER_S),
+                       "operations": (6.0 * per_state, CORE_OPS_PER_S)}, None,
+                      (LM_TOL["bf16"], LM_TOL["f32"]), {"plain_reps": dict(reps=3, inner=1)}))
 
     results = {}
-    for name, label, kernel, plain, ins, ops, library, tols in cases:
+    for name, label, kernel, plain, ins, ops, library, tols, *options in cases:
+        options = options[0] if options else {}
         got = kernel()
         torch.cuda.synchronize()
         want = plain()
@@ -400,30 +458,29 @@ def check_kernels(dev) -> dict:
             kind = f"within {tols} of 1 + |plain| (max |diff| / (1 + |plain|) = {rel:.3g})"
             reps = dict(reps=11, inner=5)   # milliseconds per call: fewer repeats
         ms = timed_ms(kernel, **reps)
-        plain_ms = timed_ms(plain, **reps)
+        plain_ms = timed_ms(plain, **options.get("plain_reps", reps))
         library_ms = None if library is None else timed_ms(library, **reps)
         dev_ms = device_ms(kernel, f"{name}_kernel")
         moved = nbytes(x for x in ins if x is not None) + nbytes(got)
-        bound_bytes_ms = moved / HBM_BYTES_PER_S * 1e3
         if ops is None:
             # a few compares / selects per input element; no tensor-core work
-            bound_ops_ms = 4 * sum(x.numel() for x in ins if x is not None) / CORE_OPS_PER_S * 1e3
-        else:
-            bound_ops_ms = ops[0] / ops[1] * 1e3
-        bound_ms = max(bound_bytes_ms, bound_ops_ms)
-        bound_by = "bytes" if bound_bytes_ms >= bound_ops_ms else "operations"
+            ops = {"operations": (4 * sum(x.numel() for x in ins if x is not None), CORE_OPS_PER_S)}
+        bounds = {"bytes": moved / HBM_BYTES_PER_S * 1e3,
+                  **{what: count / rate * 1e3 for what, (count, rate) in ops.items()}}
+        bound_by = max(bounds, key=bounds.get)
+        bound_ms = bounds[bound_by]
         dev_text = "not measured" if dev_ms is None else f"{dev_ms:.5f}"
         lib_text = "" if library_ms is None else f" library_ms={library_ms:.5f} (sdpa)"
+        bound_text = " ".join(f"bound_{what}_ms={v:.6f}" for what, v in bounds.items())
         print(f"kernel {name} [{label}] {kind} max_abs_err={err} ms={ms:.5f} "
               f"(per wrapper call) device_ms={dev_text} (kernel alone, profiler) "
-              f"plain_ms={plain_ms:.5f}{lib_text} bytes={moved} "
-              f"bound_bytes_ms={bound_bytes_ms:.6f} bound_ops_ms={bound_ops_ms:.6f} "
+              f"plain_ms={plain_ms:.5f}{lib_text} bytes={moved} {bound_text} "
               f"bound_ms={bound_ms:.6f} ({bound_by})")
         row = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                "bound_by": bound_by, "library_ms": library_ms}
         # the case with the largest bound stands for its kernel in the JSON line
         prev = results.get(name)
-        if prev is None or row["bound_ms"] > prev["bound_ms"]:
+        if options.get("represent", True) and (prev is None or row["bound_ms"] > prev["bound_ms"]):
             results[name] = row
     return results
 
@@ -585,10 +642,12 @@ class ServeMeter:
         return False
 
 
-def serve_phase(phase: int, arch_name: str, lm_kernel: str, dev, *, seed: int = 0) -> dict:
+def serve_phase(phase: int, arch_name: str, lm_kernels: tuple, dev, *, seed: int = 0,
+                n_layers: int | None = None) -> dict:
     """Serve 8 requests (512-2048 prompt tokens, 16 new, 40 % interactive)
-    on ``arch_name`` at its published width, under the policy that
-    ``evaluate_policies`` on CUDA picks; returns the launches."""
+    on ``arch_name`` at its published width (and depth, unless
+    ``n_layers`` cuts it), under the policy that ``evaluate_policies`` on
+    CUDA picks; returns the launches; the profile breaks out ``lm_kernels``."""
     import torch
 
     from repro_torch.configs import get_arch
@@ -600,7 +659,7 @@ def serve_phase(phase: int, arch_name: str, lm_kernel: str, dev, *, seed: int = 
     )
 
     arch = get_arch(arch_name)
-    cfg = arch.model
+    cfg = arch.model if n_layers is None else dataclasses.replace(arch.model, n_layers=n_layers)
     rng = np.random.default_rng(seed)
     trace = [
         ServeRequest(arrival_s=float(rng.exponential(0.3) * i),
@@ -613,6 +672,14 @@ def serve_phase(phase: int, arch_name: str, lm_kernel: str, dev, *, seed: int = 
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t_init
     n_params = param_count(params)
+    if n_layers is not None:
+        print(f"phase {phase}: {arch_name} cut from {arch.model.n_layers} to {cfg.n_layers} "
+              f"layers {[f'{sp.kind}+{sp.mlp}' for sp in (cfg.layer_spec(i) for i in range(cfg.n_layers))]}"
+              f", every width as published: {n_params} parameters, "
+              f"{n_params * 2 / 2**30:.2f} GiB in {cfg.param_dtype} (one MoE layer is "
+              f"{3 * cfg.moe.n_experts * cfg.d_model * cfg.moe.expert_ff * 2 / 1e9:.1f} GB, "
+              f"one period of {cfg.period} layers holds "
+              f"{sum(sp.mlp != 'dense' for sp in cfg.pattern)}; the card has 80 GB)")
     prompts = [rng.integers(2, cfg.vocab, r.prompt_tokens).astype(np.int32) for r in trace]
 
     reset_launch_counts()
@@ -635,7 +702,7 @@ def serve_phase(phase: int, arch_name: str, lm_kernel: str, dev, *, seed: int = 
 
     if sorted(r.rid for r in done) != list(range(len(trace))):
         raise AssertionError(f"phase {phase}: served {sorted(r.rid for r in done)} of {len(trace)}")
-    for name in (*SIM_KERNELS, lm_kernel):
+    for name in (*SIM_KERNELS, *lm_kernels):
         if counts[name] <= 0:
             raise AssertionError(f"phase {phase}: {name} was not launched")
     for name, s in sim.items():
@@ -656,14 +723,14 @@ def serve_phase(phase: int, arch_name: str, lm_kernel: str, dev, *, seed: int = 
           f"{[r.interactive for r in trace]}, outputs {[(r.rid, len(r.out)) for r in done]}")
     print(f"phase {phase} launches:", json.dumps(counts))
     longest = max(prompts, key=len)
-    profile_serving(phase, cfg, params, batcher, longest, lm_kernel, dev)
+    profile_serving(phase, cfg, params, batcher, longest, lm_kernels, dev)
     del params, batcher, done
     gc.collect()
     torch.cuda.empty_cache()
     return counts
 
 
-def profile_serving(phase, cfg, params, batcher, prompt, lm_kernel, dev) -> None:
+def profile_serving(phase, cfg, params, batcher, prompt, lm_kernels, dev) -> None:
     """Where a prefill's and a decode step's time goes: one prefill of
     the longest prompt, then 4 decode steps of the 4 slots, each under
     torch.profiler; wall time against the summed device time of every
@@ -695,25 +762,30 @@ def profile_serving(phase, cfg, params, batcher, prompt, lm_kernel, dev) -> None
             print(f"phase {phase} profile {label}: no CUDA kernels in the trace; not measured")
             continue
         busy_ms = sum(e.device_time_total for e in rows) / 1e3
-        mine_ms = sum(e.device_time_total for e in rows if f"{lm_kernel}_kernel" in e.key) / 1e3
+        mine = {k: sum(e.device_time_total for e in rows if f"{k}_kernel" in e.key) / 1e3
+                for k in lm_kernels}
+        mine_text = ", ".join(f"{k} {ms:.1f} ms ({100 * ms / busy_ms:.1f}% of busy)"
+                              for k, ms in mine.items())
         print(f"phase {phase} profile {label} ({len(prompt) if label == 'prefill' else 4 * batcher.slots}"
               f" tokens): wall {wall_ms:.1f} ms (under the profiler), device busy {busy_ms:.1f} ms "
-              f"({100 * busy_ms / wall_ms:.1f}% of wall), {lm_kernel} {mine_ms:.1f} ms "
-              f"({100 * mine_ms / busy_ms:.1f}% of busy), {sum(e.count for e in rows)} kernel launches")
+              f"({100 * busy_ms / wall_ms:.1f}% of wall), {mine_text}, "
+              f"{sum(e.count for e in rows)} kernel launches")
         for e in sorted(rows, key=lambda e: -e.device_time_total)[:6]:
             print(f"  {e.device_time_total / 1e3:9.3f} ms  {e.count:6d}x  {e.key[:90]}")
 
 
 def parity_phase(dev) -> None:
-    """Phase 9: both smoke configs in f32, the batcher on CUDA against the
-    CPU port: equal greedy tokens, prefill logits within 2e-4."""
+    """Phase 9: the three smoke configs in f32, the batcher on CUDA against
+    the CPU port: equal greedy tokens, prefill logits within 2e-4. jamba
+    smoke puts the Mamba prefill (``ssm_scan``) and decode, and the
+    per-row and global MoE, on the card."""
     import torch
 
     from repro_torch.configs import get_arch
     from repro_torch.models import lm
     from repro_torch.serving import ContinuousBatcher, Request
 
-    for name in ("rwkv6_7b", "gemma3_12b"):
+    for name in ("rwkv6_7b", "gemma3_12b", "jamba_1p5_large_398b"):
         cfg = dataclasses.replace(get_arch(name).smoke, param_dtype=torch.float32,
                                   compute_dtype=torch.float32)
         base = lm.lm_init(cfg, 0, device="cpu")
@@ -802,9 +874,13 @@ def main() -> int:
     run_counts = phase(4, run_phase, dev)
     fleet_counts = phase(5, fleet_phase, dev)
     phase(6, sim_launch_phase, run_counts, fleet_counts)
-    rwkv_counts = phase(7, serve_phase, 7, "rwkv6_7b", "rwkv6_scan", dev)
-    gemma_counts = phase(8, serve_phase, 8, "gemma3_12b", "flash_attention", dev)
+    rwkv_counts = phase(7, serve_phase, 7, "rwkv6_7b", ("rwkv6_scan",), dev)
+    gemma_counts = phase(8, serve_phase, 8, "gemma3_12b", ("flash_attention",), dev)
     phase(9, parity_phase, dev)
+    # jamba: the first five layers of its period (M+dense, M+MoE, M+dense,
+    # M+MoE, attn+dense); 72 layers at these widths are ~800 GB of weights
+    jamba_counts = phase(10, serve_phase, 10, "jamba_1p5_large_398b",
+                         ("ssm_scan", "flash_attention"), dev, n_layers=5)
     print("phase walls (s): " + json.dumps({str(k): round(v, 3) for k, v in walls.items()})
           + f", total {time.perf_counter() - t_all:.2f}")
 
@@ -821,8 +897,10 @@ def main() -> int:
                        "src/repro/kernels/rwkv6_scan/kernel.py:87"),
         "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
                             "src/repro/kernels/flash_attention/kernel.py:113"),
+        "ssm_scan": ("src/repro_torch/csrc/ssm_scan.cu",
+                     "src/repro/kernels/ssm_scan/kernel.py:60"),
     }
-    main_runs = (run_counts, fleet_counts, rwkv_counts, gemma_counts)
+    main_runs = (run_counts, fleet_counts, rwkv_counts, gemma_counts, jamba_counts)
     rows = []
     for name in KERNELS:
         m = measured[name]

@@ -27,12 +27,11 @@ class ArchSpec:
 
 _REGISTRY: dict[str, ArchSpec] = {}
 
-ARCH_MODULES = ["gemma3_12b", "rwkv6_7b"]
+ARCH_MODULES = ["gemma3_12b", "jamba_1p5_large_398b", "rwkv6_7b"]
 # the JAX package's other architectures, each waiting for its layers
 LATER_ARCHS = (
     "arctic_480b", "gemma3_27b", "granite_34b", "internvl2_2b",
-    "jamba_1p5_large_398b", "llama4_maverick_400b_a17b", "phi3_mini_3p8b",
-    "whisper_small",
+    "llama4_maverick_400b_a17b", "phi3_mini_3p8b", "whisper_small",
 )
 
 

@@ -1,11 +1,12 @@
 """Hand-written CUDA kernels of the port, each beside its plain PyTorch
 version (``<subsystem>/ref.py``) and a wrapper (``<subsystem>/ops.py``)
 that picks one by the device of the data: the simulator's four and the
-LM substrate's two."""
+LM substrate's three."""
 from .flash_attention import flash_attention
 from .rwkv6_scan import rwkv6_scan
 from .sched_select import masked_lex_argmin
 from .sim_tick import fleet_tick
+from .ssm_scan import ssm_scan
 from .state_update import assign_gather, retire_land
 
 # the simulator's kernels (run / fleet_run), by the name each launch
@@ -20,6 +21,7 @@ SIM_KERNELS = {
 LM_KERNELS = {
     "rwkv6_scan": rwkv6_scan,
     "flash_attention": flash_attention,
+    "ssm_scan": ssm_scan,
 }
 KERNELS = {**SIM_KERNELS, **LM_KERNELS}
 
@@ -45,4 +47,5 @@ __all__ = [
     "reset_launch_counts",
     "retire_land",
     "rwkv6_scan",
+    "ssm_scan",
 ]

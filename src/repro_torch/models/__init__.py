@@ -1,5 +1,6 @@
 """The LM substrate of the port, on the serving path: dense attention
-(GQA, sliding window) and RWKV-6 decoder stacks with their caches."""
+(GQA, sliding window), RWKV-6 and hybrid Mamba / attention decoder
+stacks with dense or Mixture-of-Experts MLPs, and their caches."""
 from .common import LayerSpec, MambaConfig, ModelConfig, MoEConfig, RWKVConfig
 from .lm import LM, init_caches, lm_decode_step, lm_init, lm_loss, lm_prefill
 

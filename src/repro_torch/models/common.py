@@ -6,9 +6,7 @@ the same ``ModelConfig`` fields, except ``attn_impl`` (the kernel is
 chosen by the device of the data alone, ``kernels/dispatch.py``), the
 sharding knob ``seq_shard_decode`` (the port has no sharding) and the
 training knob ``remat`` (training waits for a later slice); dtypes are
-``torch`` dtypes. ``MoEConfig`` and ``MambaConfig`` are kept as data
-types only, so that configs copy across; their layers wait for ROADMAP
-queue 1, item 15.
+``torch`` dtypes.
 
 Initialisation draws from an explicit ``torch.Generator`` with the
 scales of the JAX init (``dense_init`` 1/sqrt(fan_in), embeddings 0.02);

@@ -30,6 +30,8 @@ from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.rwkv6_scan import rwkv6_scan
 from repro_torch.kernels.sched_select import masked_lex_argmin, masked_lex_argmin_ref
 from repro_torch.kernels.sim_tick import fleet_tick, fleet_tick_ref
+from repro_torch.kernels.ssm_scan import ssm_scan
+from repro_torch.kernels.ssm_scan import ops as ssm_ops
 from repro_torch.kernels.state_update import (
     assign_gather,
     assign_gather_ref,
@@ -211,8 +213,60 @@ def test_flash_attention_kernel_matches_plain(cuda, B, Sq, Skv, H, KV, D, causal
     _close(got, flash_attention(*cpu, **kw), dtype)
 
 
+SSM_CUDA_CASES = [
+    # B, S, dim, N, chunk
+    (1, 32, 8, 4, 8),
+    (2, 64, 16, 8, 16),
+    (1, 45, 40, 16, 16),       # ragged S (padded), dim not a multiple of 32
+    (2, 200, 128, 16, 64),     # several 64-token passes, ragged last one
+    (1, 130, 64, 32, 256),     # chunk > S
+    (3, 17, 96, 8, 8),         # jamba smoke's d_state
+]
+
+
+def _ssm_arrays(rng, B, S, dim, N, dtype):
+    """x, B, C in ``dtype``; dt through softplus, A = -exp(A_log), D and
+    the state in f32, as the Mamba mixer hands them over."""
+    f32 = lambda a: torch.from_numpy(np.asarray(a, np.float32))
+    return (
+        f32(rng.standard_normal((B, S, dim))).to(dtype),
+        f32(np.log1p(np.exp(rng.standard_normal((B, S, dim)) - 1.0))),
+        -torch.exp(f32(rng.uniform(0.0, np.log(16.0), (dim, N)))),
+        f32(rng.standard_normal((B, S, N))).to(dtype),
+        f32(rng.standard_normal((B, S, N))).to(dtype),
+        f32(rng.standard_normal(dim)),
+        f32(rng.standard_normal((B, dim, N)) * 0.1),
+    )
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("name", ["rwkv6_7b", "gemma3_12b"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("B,S,dim,N,chunk", SSM_CUDA_CASES)
+def test_ssm_scan_kernel_matches_plain(cuda, B, S, dim, N, chunk, dtype):
+    cpu = _ssm_arrays(np.random.default_rng(S + dim), B, S, dim, N, dtype)
+    reset_launch_counts()
+    y, h = ssm_scan(*(x.to(cuda) for x in cpu), chunk=chunk)
+    torch.cuda.synchronize()
+    assert launch_counts()["ssm_scan"] == 1
+    want_y, want_h = ssm_scan(*cpu, chunk=chunk)
+    _close(y, want_y, dtype)
+    _close(h, want_h, torch.float32)
+
+
+@pytest.mark.cuda
+def test_ssm_scan_kernel_without_state_and_empty_batch(cuda):
+    cpu = _ssm_arrays(np.random.default_rng(0), 2, 24, 32, 16, torch.float32)
+    dev = [x.to(cuda) for x in cpu]
+    y, h = ssm_scan(*dev[:6], None, chunk=8)
+    y0, h0 = ssm_scan(*dev[:6], torch.zeros_like(dev[6]), chunk=8)
+    assert torch.equal(y, y0) and torch.equal(h, h0)
+    empty = [x[:0] if x.dim() == 3 and x.shape[0] == 2 else x for x in dev]
+    y, h = ssm_scan(*empty, chunk=8)
+    assert y.shape == (0, 24, 32) and h.shape == (0, 32, 16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["rwkv6_7b", "gemma3_12b", "jamba_1p5_large_398b"])
 def test_serving_goes_through_the_lm_kernels(cuda, name):
     from repro_torch.models import lm
     from repro_torch.serving.batching import ContinuousBatcher, Request
@@ -230,7 +284,9 @@ def test_serving_goes_through_the_lm_kernels(cuda, name):
         outs[dev.type] = [(r.rid, r.out) for r in b.run_to_completion()]
         counts = launch_counts()
         if dev.type == "cuda":
-            assert counts[{"rwkv6_7b": "rwkv6_scan", "gemma3_12b": "flash_attention"}[name]] > 0
+            kernels = {"rwkv6_7b": ("rwkv6_scan",), "gemma3_12b": ("flash_attention",),
+                       "jamba_1p5_large_398b": ("ssm_scan", "flash_attention")}[name]
+            assert all(counts[k] > 0 for k in kernels), counts
     assert outs["cuda"] == outs["cpu"]
 
 
@@ -240,12 +296,12 @@ def test_serving_goes_through_the_lm_kernels(cuda, name):
 def test_sources_and_library_name():
     names = {p.name for p in cuda_lib.sources()}
     assert names == {"sim_tick.cu", "state_update.cu", "sched_select.cu",
-                     "rwkv6_scan.cu", "flash_attention.cu"}
+                     "rwkv6_scan.cu", "flash_attention.cu", "ssm_scan.cu"}
     path = cuda_lib.library_path()
     assert path.parent == cuda_lib.BUILD_DIR and path == cuda_lib.library_path()
     assert "sm_90a" in " ".join(cuda_lib.NVCC_FLAGS)
     assert set(SIM_KERNELS) == {"fleet_tick", "retire_land", "masked_lex_argmin", "assign_gather"}
-    assert set(LM_KERNELS) == {"rwkv6_scan", "flash_attention"}
+    assert set(LM_KERNELS) == {"rwkv6_scan", "flash_attention", "ssm_scan"}
     assert set(KERNELS) == set(SIM_KERNELS) | set(LM_KERNELS)
 
 
@@ -264,6 +320,34 @@ def test_require_refuses_what_a_kernel_does_not_take(x, error):
         cuda_lib.require("k", "x", x, torch.int32, (2, 3), torch.device("cpu"))
     cuda_lib.require("k", "x", torch.zeros((2, 3), dtype=torch.int32),
                      torch.int32, (2, 3), torch.device("cpu"))
+
+
+def _ssm_launch_args(**change):
+    """Valid ``ssm_scan`` kernel operands (CPU tensors), one replaced."""
+    args = dict(zip(("x", "dt", "A", "B", "C", "D", "h0"),
+                    _ssm_arrays(np.random.default_rng(0), 1, 8, 32, 16, torch.bfloat16)))
+    args.update(change)
+    return args
+
+
+@pytest.mark.parametrize(
+    "change,error",
+    [
+        ({"x": torch.zeros((1, 8, 32), dtype=torch.float16)}, TypeError),
+        ({"dt": torch.zeros((1, 8, 32), dtype=torch.bfloat16)}, TypeError),
+        ({"B": torch.zeros((1, 8, 16), dtype=torch.float32)}, TypeError),
+        ({"A": torch.zeros((32, 12))}, ValueError),
+        ({"C": torch.zeros((1, 16, 8), dtype=torch.bfloat16).transpose(1, 2)}, ValueError),
+        ({"D": torch.zeros(31)}, ValueError),
+        ({"h0": torch.zeros((1, 16, 32)).transpose(1, 2)}, ValueError),
+    ],
+    ids=["x-fp16", "dt-bf16", "B-not-x-dtype", "N-not-built", "C-contiguity", "D-shape",
+         "h0-contiguity"],
+)
+def test_ssm_scan_launch_refuses_what_the_kernel_does_not_take(change, error):
+    """The checks in front of the launch, before anything is built."""
+    with pytest.raises(error):
+        ssm_ops._launch(**_ssm_launch_args(**change))
 
 
 def test_cpu_tensors_never_launch():

@@ -6,7 +6,8 @@ not ported yet.
 * The entry points run on CUDA unless the caller asks for the CPU, and
   without a card the default raises instead of running on the CPU.
 * Every optional layer of a later slice raises ``NotImplementedError``
-  naming its ROADMAP item, never a silent fallback.
+  naming its ROADMAP item, never a silent fallback; the layer kinds that
+  a slice has ported run.
 """
 import ast
 import pathlib
@@ -40,8 +41,10 @@ def test_port_has_files_to_scan():
     names = {p.name for p in PORT_FILES}
     assert {"engine.py", "scheduler.py", "executor.py", "chip_smoke.py",
             "lm.py", "attention.py", "rwkv.py", "batching.py", "serve.py"} <= names
+    assert {"ssm.py", "mlp.py"} <= names
     assert {p.name for p in (REPO / "src" / "repro_torch" / "csrc").glob("*.cu")} == {
         "sim_tick.cu", "state_update.cu", "sched_select.cu", "rwkv6_scan.cu", "flash_attention.cu",
+        "ssm_scan.cu",
     }
 
 
@@ -107,7 +110,8 @@ def test_unknown_scheduler_is_a_key_error():
 
 
 # ---------------------------------------------------------------------------
-# The LM substrate: what this slice does not port raises, naming the item
+# The LM substrate: what the port has not ported raises, naming the item;
+# the mamba mixer and the MoE MLPs run
 # ---------------------------------------------------------------------------
 def _tiny_lm_config(**kw):
     from repro_torch.models import ModelConfig
@@ -119,13 +123,22 @@ def _tiny_lm_config(**kw):
 @pytest.mark.parametrize("spec", [("mamba", "dense"), ("attn", "moe"), ("attn", "moe_dense"),
                                   ("mamba", "moe")], ids=lambda s: "-".join(s))
 def test_mamba_and_moe_layers_raise(spec):
+    """Once refused, these layer kinds are ported: each initialises on
+    the CPU and runs one prefill and one decode step to finite logits
+    (only an unknown kind raises, ``ValueError``)."""
     from repro_torch.models import LayerSpec, MoEConfig, lm
+    from repro_torch.models.blocks import check_spec
 
-    cfg = _tiny_lm_config(pattern=(LayerSpec(*spec),), moe=MoEConfig(n_experts=4))
-    with pytest.raises(NotImplementedError, match="item 15"):
-        lm.lm_init(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 15"):
-        lm.init_caches(cfg, 1, 8, "cpu")
+    cfg = _tiny_lm_config(pattern=(LayerSpec(*spec),), moe=MoEConfig(n_experts=4, top_k=2))
+    params = lm.lm_init(cfg, device="cpu")
+    parts = {name for name, _ in params.layers[0].named_children()}
+    assert parts == {spec[0]} | {"dense": {"mlp"}, "moe": {"moe"}, "moe_dense": {"moe", "mlp"}}[spec[1]]
+    logits, caches = lm.lm_prefill(cfg, params, {"tokens": torch.arange(2, 12)[None]}, max_len=16)
+    assert logits.shape == (1, 64) and bool(torch.isfinite(logits).all())
+    logits, _ = lm.lm_decode_step(cfg, params, caches, torch.tensor([5]), 10)
+    assert logits.shape == (1, 64) and bool(torch.isfinite(logits).all())
+    with pytest.raises(ValueError, match="unknown"):
+        check_spec(LayerSpec(spec[0], "no_such_mlp"))
 
 
 def test_lm_loss_raises():
@@ -146,7 +159,7 @@ def test_frontends_raise(family):
 
 
 @pytest.mark.parametrize("name", [
-    "arctic_480b", "gemma3_27b", "granite_34b", "internvl2_2b", "jamba_1p5_large_398b",
+    "arctic_480b", "gemma3_27b", "granite_34b", "internvl2_2b",
     "llama4_maverick_400b_a17b", "phi3_mini_3p8b", "whisper_small",
 ])
 def test_archs_not_yet_ported_raise(name):
@@ -159,7 +172,8 @@ def test_archs_not_yet_ported_raise(name):
 def test_ported_archs_and_unknown_names():
     from repro_torch.configs import get_arch, list_archs
 
-    assert list_archs() == ["gemma3_12b", "rwkv6_7b"]
+    assert list_archs() == ["gemma3_12b", "jamba_1p5_large_398b", "rwkv6_7b"]
+    assert get_arch("jamba-1.5-large-398b").model.n_layers == 72
     assert get_arch("rwkv6-7b").model.n_layers == 32
     with pytest.raises(KeyError, match="ported"):
         get_arch("no_such_arch")

@@ -2,7 +2,9 @@
 package's: ``rwkv6_scan`` against the Pallas kernel in interpret mode,
 the chunked jnp form and the sequential oracle; ``rwkv6_decode_step``;
 ``flash_attention`` against the Pallas kernel in interpret mode and,
-with ``q_offset``/``kv_len``, against ``flash_attention_ref``.
+with ``q_offset``/``kv_len``, against ``flash_attention_ref``;
+``ssm_scan`` against the Pallas kernel in interpret mode, the chunked
+associative scan and the sequential oracle; ``ssm_decode_step``.
 
 Inputs are drawn with numpy from a seed and handed to both packages
 (bf16 inputs are the same f32 draws rounded to bf16 by each).
@@ -21,9 +23,15 @@ from repro.kernels.rwkv6_scan.ops import _rwkv6_chunked
 from repro.kernels.rwkv6_scan.ops import rwkv6_decode_step as j_decode_step
 from repro.kernels.rwkv6_scan.ops import rwkv6_scan as j_rwkv6_scan
 from repro.kernels.rwkv6_scan.ref import rwkv6_ref as j_rwkv6_ref
+from repro.kernels.ssm_scan.kernel import ssm_scan_kernel
+from repro.kernels.ssm_scan.ops import _ssm_chunked
+from repro.kernels.ssm_scan.ops import ssm_decode_step as j_ssm_decode_step
+from repro.kernels.ssm_scan.ops import ssm_scan as j_ssm_scan
+from repro.kernels.ssm_scan.ref import ssm_scan_ref as j_ssm_scan_ref
 from repro_torch.kernels import launch_counts, reset_launch_counts
 from repro_torch.kernels.flash_attention import flash_attention, flash_attention_ref, mha_reference
 from repro_torch.kernels.rwkv6_scan import rwkv6_decode_step, rwkv6_ref, rwkv6_scan
+from repro_torch.kernels.ssm_scan import ssm_decode_step, ssm_scan, ssm_scan_ref
 
 TOL = dict(rtol=2e-2, atol=2e-2)       # bf16 inputs
 TOL32 = dict(rtol=2e-4, atol=2e-4)     # f32 inputs
@@ -161,6 +169,94 @@ def test_flash_attention_offset_and_kv_len_match_jax_ref(Sq, Skv, q_offset, kv_l
     np.testing.assert_allclose(ref.numpy(), naive.numpy(), **TOL32)
 
 
+# ---------------------------------------------------------------------------
+# ssm_scan (Mamba-1): x, B, C in the model's dtype, dt, A, D and the state
+# in f32, as ``mamba_apply`` hands them over
+# ---------------------------------------------------------------------------
+def _ssm_arrays(seed, B, S, dim, N):
+    rng = np.random.default_rng(seed)
+    return dict(
+        x=rng.standard_normal((B, S, dim)),
+        dt=np.log1p(np.exp(rng.standard_normal((B, S, dim)) - 1.0)),   # softplus
+        A=-np.exp(rng.standard_normal((dim, N))),
+        B=rng.standard_normal((B, S, N)),
+        C=rng.standard_normal((B, S, N)),
+        D=rng.standard_normal((dim,)),
+        h0=rng.standard_normal((B, dim, N)) * 0.1,
+    )
+
+
+def _ssm_both(a, dtype):
+    """(torch args, jax args): x, B, C in ``dtype``, the rest f32."""
+    t, j = [], []
+    for name in ("x", "dt", "A", "B", "C", "D", "h0"):
+        tt, jj = _both(a[name], dtype if name in ("x", "B", "C") else "f32")
+        t.append(tt)
+        j.append(jj)
+    return t, j
+
+
+# the shapes of tests/test_kernels.py::test_ssm_chunked_and_kernel, and a
+# ragged sequence (45 = 2 chunks of 16 and 13 tokens) at jamba smoke's N
+SSM_SHAPES = [(1, 32, 8, 4, 8, 8), (2, 64, 16, 8, 16, 8), (1, 128, 8, 4, 32, 4),
+              (2, 45, 16, 8, 16, 8)]
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("B,S,dim,N,chunk,bd", SSM_SHAPES, ids=lambda v: str(v))
+def test_ssm_scan_matches_pallas_chunked_and_oracle(B, S, dim, N, chunk, bd, dtype):
+    tol = DTYPES[dtype][2]
+    args_t, args_j = _ssm_both(_ssm_arrays(B * S + dim, B, S, dim, N), dtype)
+    y, h = ssm_scan(*args_t, chunk=chunk)
+    assert y.dtype == args_t[0].dtype and y.shape == (B, S, dim)
+    assert h.dtype == torch.float32 and h.shape == (B, dim, N)
+    y_ref, h_ref = j_ssm_scan_ref(*args_j)
+    if S % chunk == 0:
+        y_k, h_k = ssm_scan_kernel(*args_j, chunk=chunk, block_dim=bd, interpret=True)
+        y_c, h_c = _ssm_chunked(*args_j, chunk=chunk)
+    else:  # the padding of the public wrapper, on the Pallas kernel
+        y_k, h_k = j_ssm_scan(*args_j, chunk=chunk, impl="kernel", interpret=True)
+        y_c, h_c = j_ssm_scan(*args_j, chunk=chunk, impl="ref")
+    for y_j, h_j in ((y_ref, h_ref), (y_k, h_k), (y_c, h_c)):
+        np.testing.assert_allclose(_np(y), _np(y_j), **tol)
+        np.testing.assert_allclose(h.numpy(), _np(h_j), **TOL32)
+
+
+def test_ssm_scan_without_state_starts_from_zeros():
+    a = _ssm_arrays(3, 1, 16, 8, 4)
+    t, _ = _ssm_both(a, "f32")
+    y, h = ssm_scan(*t[:6], None, chunk=8)
+    y2, h2 = ssm_scan(*t[:6], torch.zeros(1, 8, 4), chunk=8)
+    assert torch.equal(y, y2) and torch.equal(h, h2)
+
+
+def test_ssm_scan_ref_refuses_a_ragged_sequence():
+    t, _ = _ssm_both(_ssm_arrays(4, 1, 12, 8, 4), "f32")
+    with pytest.raises(ValueError, match="divisible"):
+        ssm_scan_ref(*t, chunk=8)
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_ssm_decode_step_matches_jax_and_the_scan(dtype):
+    a = _ssm_arrays(5, 2, 17, 8, 4)
+    tol = DTYPES[dtype][2]
+    t, j = _ssm_both(a, dtype)
+    last = lambda xs: [x[:, -1] if i in (0, 1, 3, 4) else x for i, x in enumerate(xs)]
+    _, h_prefix = ssm_scan(t[0][:, :-1], t[1][:, :-1], t[2], t[3][:, :-1], t[4][:, :-1],
+                           t[5], t[6], chunk=16)
+    tx, tdt, tA, tB, tC, tD, _ = last(t)
+    y_d, h_d = ssm_decode_step(tx, tdt, tA, tB, tC, tD, h_prefix)
+    jx, jdt, jA, jB, jC, jD, _ = last(j)
+    y_j, h_j = j_ssm_decode_step(jx, jdt, jA, jB, jC, jD, jnp.asarray(h_prefix.numpy()))
+    assert y_d.dtype == t[0].dtype
+    np.testing.assert_allclose(_np(y_d), _np(y_j), **tol)
+    np.testing.assert_allclose(h_d.numpy(), _np(h_j), **TOL32)
+    # the step after the prefix is the scan's last token
+    y_full, h_full = ssm_scan(*t, chunk=17)
+    np.testing.assert_allclose(_np(y_d), _np(y_full[:, -1]), **tol)
+    np.testing.assert_allclose(h_d.numpy(), h_full.numpy(), **TOL32)
+
+
 def test_cpu_tensors_run_the_plain_versions():
     reset_launch_counts()
     (qt, kt, vt), _ = _qkv(0, 1, 16, 16, 2, 1, 8, "f32")
@@ -168,4 +264,6 @@ def test_cpu_tensors_run_the_plain_versions():
     a = _rwkv_arrays(0, 1, 8, 1, 4)
     t = {n: torch.from_numpy(a[n].astype(np.float32)) for n in a}
     rwkv6_scan(t["r"], t["k"], t["v"], t["w"], t["u"], t["s0"], chunk=4)
-    assert launch_counts()["flash_attention"] == 0 and launch_counts()["rwkv6_scan"] == 0
+    ssm_scan(*_ssm_both(_ssm_arrays(0, 1, 8, 8, 4), "f32")[0], chunk=4)
+    counts = launch_counts()
+    assert counts["flash_attention"] == counts["rwkv6_scan"] == counts["ssm_scan"] == 0

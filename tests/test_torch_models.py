@@ -1,5 +1,5 @@
 """The port's LM (``repro_torch.models``) against the JAX package's, on
-the CPU, for the two served architectures at their smoke sizes.
+the CPU, for the three served architectures at their smoke sizes.
 
 The JAX ``lm_init`` parameters are carried across with
 ``repro_torch.bridge.lm_params_from_arrays``; both packages then run
@@ -8,9 +8,21 @@ The JAX ``lm_init`` parameters are carried across with
 every layer's cache are compared after each. gemma3 smoke runs at
 ``max_len=48`` with prompts longer than its window of 8: its local
 layers take the ring-cache path, its global layers the ``q_offset`` /
-``kv_len`` path. Tolerances: f32 ``rtol=atol=2e-4``, bf16 ``2e-2`` (as
+``kv_len`` path. jamba smoke (Mamba and attention mixers, dense and MoE
+MLPs) checks the ``MambaState`` of its Mamba layers as well; its
+prefill takes the per-row MoE dispatch, its decode the global one.
+
+jamba smoke in bf16 is held to the JAX package run op by op
+(``jax.disable_jit()``), where the two agree to the bit on logits and
+to f32 rounding on the Mamba state. Under ``jit`` XLA keeps excess
+precision inside its fusions (``xla_allow_excess_precision`` is on by
+default), so the jitted JAX LM rounds the same bf16 program elsewhere;
+the Mamba state, an f32 sum over bf16 inputs, carries those one-ulp
+differences past 2 % (in norm) over four layers, with the same experts
+chosen on both sides. Tolerances: f32 ``rtol=atol=2e-4``, bf16 ``2e-2`` (as
 ``tests/test_kernels.py``).
 """
+import contextlib
 import dataclasses
 
 import jax
@@ -29,6 +41,8 @@ TOL32 = dict(rtol=2e-4, atol=2e-4)
 TOL16 = dict(rtol=2e-2, atol=2e-2)
 DTYPES = {"f32": (jnp.float32, torch.float32, TOL32), "bf16": (jnp.bfloat16, torch.bfloat16, TOL16)}
 MAX_LEN = 48
+# (arch, dtype) pairs whose JAX reference runs op by op (module docstring)
+OP_BY_OP = {("jamba_1p5_large_398b", "bf16")}
 
 
 def configs(name, dtype):
@@ -44,6 +58,7 @@ def to_numpy(tree):
 
 @pytest.fixture(scope="module", params=[
     ("rwkv6_7b", "f32"), ("rwkv6_7b", "bf16"), ("gemma3_12b", "f32"), ("gemma3_12b", "bf16"),
+    ("jamba_1p5_large_398b", "f32"), ("jamba_1p5_large_398b", "bf16"),
 ], ids=lambda p: "-".join(p))
 def pair(request):
     name, dtype = request.param
@@ -107,7 +122,9 @@ def test_prefill_and_decode_match_jax(pair, B, S):
     tol = DTYPES[dtype][2]
     rng = np.random.default_rng(B * 100 + S)
     toks = rng.integers(2, jcfg.vocab, (B, S)).astype(np.int32)
-    jl, jc = j_lm.lm_prefill(jcfg, jparams, {"tokens": jnp.asarray(toks)}, max_len=MAX_LEN)
+    reference = jax.disable_jit if (name, dtype) in OP_BY_OP else contextlib.nullcontext
+    with reference():
+        jl, jc = j_lm.lm_prefill(jcfg, jparams, {"tokens": jnp.asarray(toks)}, max_len=MAX_LEN)
     tl, tc = lm.lm_prefill(tcfg, tparams, {"tokens": torch.from_numpy(toks)}, max_len=MAX_LEN)
     assert tl.shape == (B, jcfg.vocab) and tl.dtype == DTYPES[dtype][1]
     np.testing.assert_allclose(_f32(tl), _f32(jl), **tol)
@@ -115,7 +132,8 @@ def test_prefill_and_decode_match_jax(pair, B, S):
     pos = S
     nxt = np.asarray(jnp.argmax(jl, axis=-1), np.int32)
     for step in range(3):
-        jl, jc = j_lm.lm_decode_step(jcfg, jparams, jc, jnp.asarray(nxt), pos)
+        with reference():
+            jl, jc = j_lm.lm_decode_step(jcfg, jparams, jc, jnp.asarray(nxt), pos)
         tl, tc = lm.lm_decode_step(tcfg, tparams, tc, torch.from_numpy(nxt.copy()), pos)
         np.testing.assert_allclose(_f32(tl), _f32(jl), err_msg=f"decode {step}", **tol)
         assert_caches_close(jcfg, jc, tc, tol, f"decode {step}")

@@ -6,7 +6,7 @@
   under the comparison contract of ``PERF.md`` §2 (counts and latencies
   exact; utilisation and cost, sums taken in another order, to rtol
   1e-5), and ``pick_policy`` picks the same policy.
-* ``ContinuousBatcher`` in f32 on both smoke models (parameters carried
+* ``ContinuousBatcher`` in f32 on the three smoke models (parameters carried
   across from the JAX ``lm_init``) gives the JAX package's tokens, with
   one slot, and with two slots where an interactive request preempts a
   batch one. The two-slot case serves prompts of different lengths, so
@@ -89,7 +89,7 @@ def test_evaluate_policies_and_pick_match_jax():
     assert bridge.pick_policy(tres) == j_bridge.pick_policy(jres)
 
 
-@pytest.fixture(scope="module", params=["rwkv6_7b", "gemma3_12b"])
+@pytest.fixture(scope="module", params=["rwkv6_7b", "gemma3_12b", "jamba_1p5_large_398b"])
 def models(request):
     name = request.param
     jcfg = dataclasses.replace(j_get_arch(name).smoke, param_dtype=jnp.float32,
