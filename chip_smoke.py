@@ -15,8 +15,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    simulator's four at the main path's shapes, exactly; ``rwkv6_scan``,
    ``flash_attention`` and ``ssm_scan`` at rwkv6_7b's, gemma3_12b's and
    jamba's prefill shapes, bf16 outputs to 2e-2 and f32 states to 2e-4;
-   the time of each, of its plain version and, for attention, of
-   PyTorch's ``scaled_dot_product_attention``;
+   the time of each call, its device time per call (summed over the
+   kernel's launches, with the launches per call), of its plain version
+   and, for attention, of PyTorch's ``scaled_dot_product_attention``;
+   for the LM kernels the achieved TFLOP/s and the share of the bound;
 4. ``run(SimParams())`` (the paper's default cluster, ``priority``) on
    CUDA and on the CPU through the plain versions, compared field by
    field;
@@ -47,6 +49,7 @@ import gc
 import json
 import math
 import pathlib
+import re
 import statistics
 import subprocess
 import sys
@@ -108,9 +111,12 @@ def timed_ms(fn, reps: int = 21, inner: int = 20) -> float:
 
 
 def device_ms(fn, kernel: str, calls: int = 20):
-    """Mean device time of the CUDA kernel named ``kernel`` over
-    ``calls`` calls of ``fn``, from a torch.profiler trace (CUPTI);
-    None when the trace holds no such kernel."""
+    """Device time per call of ``fn`` of the CUDA kernels whose names
+    hold ``kernel`` (summed over every launch of a call: a kernel of two
+    passes launches two), their launches per call, and the time per
+    call of each such kernel by name, over ``calls`` calls, from a
+    torch.profiler trace (CUPTI); (None, 0, {}) when the trace holds no
+    such kernel."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -119,12 +125,12 @@ def device_ms(fn, kernel: str, calls: int = 20):
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    total_us, count = 0.0, 0
-    for evt in prof.key_averages():
-        if kernel in evt.key:
-            total_us += evt.device_time_total
-            count += evt.count
-    return total_us / count / 1e3 if count else None
+    per_kernel = {evt.key: evt.device_time_total / calls / 1e3
+                  for evt in prof.key_averages() if kernel in evt.key}
+    count = sum(evt.count for evt in prof.key_averages() if kernel in evt.key)
+    if not count:
+        return None, 0, {}
+    return sum(per_kernel.values()), count / calls, per_kernel
 
 
 def nbytes(tensors) -> int:
@@ -339,6 +345,7 @@ def check_kernels(dev) -> dict:
     import torch
     import torch.nn.functional as Fn
 
+    from repro_torch.kernels import LM_KERNELS
     from repro_torch.kernels.flash_attention import flash_attention, flash_attention_ref
     from repro_torch.kernels.rwkv6_scan import rwkv6_chunked_ref, rwkv6_scan
     from repro_torch.kernels.sched_select import masked_lex_argmin, masked_lex_argmin_ref
@@ -460,7 +467,7 @@ def check_kernels(dev) -> dict:
         ms = timed_ms(kernel, **reps)
         plain_ms = timed_ms(plain, **options.get("plain_reps", reps))
         library_ms = None if library is None else timed_ms(library, **reps)
-        dev_ms = device_ms(kernel, f"{name}_kernel")
+        dev_ms, dev_launches, dev_split = device_ms(kernel, f"{name}_kernel")
         moved = nbytes(x for x in ins if x is not None) + nbytes(got)
         if ops is None:
             # a few compares / selects per input element; no tensor-core work
@@ -469,15 +476,29 @@ def check_kernels(dev) -> dict:
                   **{what: count / rate * 1e3 for what, (count, rate) in ops.items()}}
         bound_by = max(bounds, key=bounds.get)
         bound_ms = bounds[bound_by]
-        dev_text = "not measured" if dev_ms is None else f"{dev_ms:.5f}"
+        dev_text = ("not measured" if dev_ms is None else
+                    f"{dev_ms:.5f} ({dev_launches:g} device launches per call)")
+        if len(dev_split) > 1:
+            # a kernel of several passes: each pass's share, by its name
+            passes = {re.search(rf"\w*{name}_kernel\w*", key).group(0): v
+                      for key, v in dev_split.items()}
+            dev_text += " [" + ", ".join(f"{k} {v:.5f}" for k, v in passes.items()) + "]"
         lib_text = "" if library_ms is None else f" library_ms={library_ms:.5f} (sdpa)"
         bound_text = " ".join(f"bound_{what}_ms={v:.6f}" for what, v in bounds.items())
+        rate_text = ""
+        if name in LM_KERNELS and dev_ms is not None:
+            # achieved rate of the kernel's operations over its device time,
+            # and its share of the bound
+            rate_text = (f" achieved={ops['operations'][0] / dev_ms / 1e9:.2f} TFLOP/s, "
+                         f"{100 * bound_ms / dev_ms:.1f}% of the bound")
+            if library_ms is not None:
+                rate_text += f", {dev_ms / library_ms:.3f}x the library's time"
         print(f"kernel {name} [{label}] {kind} max_abs_err={err} ms={ms:.5f} "
               f"(per wrapper call) device_ms={dev_text} (kernel alone, profiler) "
               f"plain_ms={plain_ms:.5f}{lib_text} bytes={moved} {bound_text} "
-              f"bound_ms={bound_ms:.6f} ({bound_by})")
-        row = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-               "bound_by": bound_by, "library_ms": library_ms}
+              f"bound_ms={bound_ms:.6f} ({bound_by}){rate_text}")
+        row = {"max_abs_err": err, "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+               "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms}
         # the case with the largest bound stands for its kernel in the JSON line
         prev = results.get(name)
         if options.get("represent", True) and (prev is None or row["bound_ms"] > prev["bound_ms"]):
@@ -827,8 +848,16 @@ def card_phase():
     return torch.device("cuda", 0)
 
 
+SASS_OPS = ("HGMMA", "HMMA", "FFMA", "MUFU.EX2", "MUFU.LG2", "LDGSTS", "BAR.SYNC", "STL", "LDL")
+
+
 def build_phase() -> None:
-    """Phase 2: build the kernels; print what ptxas says of each."""
+    """Phase 2: build the kernels; print what ptxas says of each, and the
+    instruction mix of the LM kernels' SASS (cuobjdump, where the toolkit
+    has it). Fails if a bf16 attention kernel holds no tensor-core
+    instruction."""
+    import shutil
+
     from repro_torch.kernels import cuda_lib
 
     lib = cuda_lib.build()
@@ -836,6 +865,32 @@ def build_phase() -> None:
     for line in lib.with_suffix(".log").read_text().splitlines():
         if "registers" in line or "spill" in line or line.startswith("=="):
             print("  ptxas:", line.strip())
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not pathlib.Path(tool).exists():
+        print("phase 2: SASS instruction mix not measured (no cuobjdump)")
+        return
+    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True).stdout
+    mix, fn = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :")[1].strip()
+            if not any(k in fn for k in ("flash_attention_kernel", "rwkv6_scan_kernel",
+                                         "ssm_scan_kernel")):
+                fn = None
+        elif fn:
+            parts = line.split("*/")
+            # "/*addr*/ [@P] OPCODE operands ; /* encoding */"
+            words = parts[1].split() if len(parts) > 2 else []
+            words = words[1:] if words and words[0].startswith("@") else words
+            op = words[0] if words else ""
+            for want in SASS_OPS:
+                if op == want or op.startswith(want + "."):
+                    mix.setdefault(fn, dict.fromkeys(SASS_OPS, 0))[want] += 1
+    for fn, counts in mix.items():
+        print(f"  sass: {fn[:110]} " + " ".join(f"{k}={v}" for k, v in counts.items() if v))
+    for fn, counts in mix.items():
+        if "flash_attention_kernel_bf16" in fn and counts["HGMMA"] + counts["HMMA"] == 0:
+            raise AssertionError(f"{fn}: no tensor-core instruction in its SASS")
 
 
 def sim_launch_phase(run_counts, fleet_counts) -> None:
@@ -908,7 +963,7 @@ def main() -> int:
             "name": name, "route": "cuda", "source": sources[name][0],
             "replaces": sources[name][1],
             "launches": sum(c[name] for c in main_runs),
-            "max_abs_err": m["max_abs_err"], "ms": m["ms"],
+            "max_abs_err": m["max_abs_err"], "ms": m["ms"], "device_ms": m["device_ms"],
             "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
             "bound_by": m["bound_by"], "library_ms": m["library_ms"],
         })

@@ -1,8 +1,9 @@
 """``flash_attention``: the kernel of ``csrc/flash_attention.cu`` for CUDA
 tensors (each launch counted in ``flash_attention.launches``), for every
 call: the full-sequence case and the ``q_offset``/``kv_len`` case of a
-prefill against a cache alike; ``ref.flash_attention_ref`` for CPU
-tensors."""
+prefill against a cache alike. bf16 goes to the tensor-core kernel
+(``wgmma``), f32 to the CUDA-core one. ``ref.flash_attention_ref`` for
+CPU tensors."""
 from __future__ import annotations
 
 import ctypes
@@ -31,10 +32,12 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     kv_len = Skv if kv_len is None else int(kv_len)
     if q.dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"flash_attention: q has dtype {q.dtype}; the kernel takes bf16 or f32")
-    if D % 4 or D > MAX_HEAD_DIM or H % KV:
+    # bf16 copies 16-byte rows of 8 values, f32 reads float4s
+    multiple = 8 if q.dtype == torch.bfloat16 else 4
+    if D % multiple or D > MAX_HEAD_DIM or H % KV:
         raise ValueError(
-            f"flash_attention: the kernel takes head_dim % 4 == 0, head_dim <= "
-            f"{MAX_HEAD_DIM} and H % KV == 0, got D={D}, H={H}, KV={KV}"
+            f"flash_attention: the kernel takes head_dim % {multiple} == 0 ({q.dtype}), "
+            f"head_dim <= {MAX_HEAD_DIM} and H % KV == 0, got D={D}, H={H}, KV={KV}"
         )
     if not 0 <= kv_len <= Skv:
         raise ValueError(f"flash_attention: kv_len {kv_len} outside [0, {Skv}]")

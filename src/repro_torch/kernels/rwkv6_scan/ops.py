@@ -1,6 +1,7 @@
-"""``rwkv6_scan``: pad to a multiple of the chunk, then the kernel of
-``csrc/rwkv6_scan.cu`` for CUDA tensors (each launch counted in
-``rwkv6_scan.launches``) or ``ref.rwkv6_chunked_ref`` for CPU tensors."""
+"""``rwkv6_scan``: pad to a multiple of the chunk, then the kernels of
+``csrc/rwkv6_scan.cu`` for CUDA tensors (the intra-chunk pass and the
+carry, one call counted once in ``rwkv6_scan.launches``) or
+``ref.rwkv6_chunked_ref`` for CPU tensors."""
 from __future__ import annotations
 
 import ctypes
@@ -13,7 +14,7 @@ from ..dispatch import use_kernel
 from .ref import rwkv6_chunked_ref
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_ARGTYPES = [_P] * 8 + [_I] * 6 + [_P, _I]
+_ARGTYPES = [_P] * 9 + [_I] * 6 + [_P, _I]
 MAX_HEAD_DIM = 64
 MAX_CHUNK = 64
 
@@ -45,10 +46,10 @@ def _launch(r, k, v, w, u, state0, C: int):
     dev = r.device
     if r.dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"rwkv6_scan: r has dtype {r.dtype}; the kernel takes bf16 or f32")
-    if N > MAX_HEAD_DIM or C > MAX_CHUNK:
+    if N > MAX_HEAD_DIM or N % 8 or C > MAX_CHUNK:
         raise ValueError(
-            f"rwkv6_scan: the kernel takes head_dim <= {MAX_HEAD_DIM} and chunk "
-            f"<= {MAX_CHUNK}, got {N} and {C}"
+            f"rwkv6_scan: the kernel takes head_dim % 8 == 0 (rows of 16-byte "
+            f"copies), head_dim <= {MAX_HEAD_DIM} and chunk <= {MAX_CHUNK}, got {N} and {C}"
         )
     r, k, v = r.contiguous(), k.contiguous(), v.contiguous()
     for name, x in (("r", r), ("k", k), ("v", v)):
@@ -62,10 +63,12 @@ def _launch(r, k, v, w, u, state0, C: int):
     cuda_lib.require("rwkv6_scan", "state0", state0, torch.float32, (B, H, N, N), dev)
     out = torch.empty_like(r)
     state = torch.empty((B, H, N, N), dtype=torch.float32, device=dev)
+    # scratch: the intra-chunk output A V + d V in f32, B S H N floats
+    intra = torch.empty((B, S, H, N), dtype=torch.float32, device=dev)
     fn = cuda_lib.function("repro_rwkv6_scan", _ARGTYPES)
     code = fn(
         r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(), u.data_ptr(),
-        state0.data_ptr(), out.data_ptr(), state.data_ptr(),
+        state0.data_ptr(), out.data_ptr(), state.data_ptr(), intra.data_ptr(),
         B, S, H, N, C, int(r.dtype == torch.bfloat16), *cuda_lib.stream_args(dev),
     )
     cuda_lib.check_launch("rwkv6_scan", code)

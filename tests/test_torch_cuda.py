@@ -163,7 +163,8 @@ def _close(got, want, dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
-@pytest.mark.parametrize("B,S,H,N,chunk", [(2, 64, 3, 16, 16), (1, 45, 2, 64, 32), (1, 20, 4, 16, 8)])
+@pytest.mark.parametrize("B,S,H,N,chunk", [(2, 64, 3, 16, 16), (1, 45, 2, 64, 32), (1, 20, 4, 16, 8),
+                                            (2, 77, 3, 64, 32)])   # ragged, B = 2, two column slices
 def test_rwkv6_scan_kernel_matches_plain(cuda, B, S, H, N, chunk, dtype):
     rng = np.random.default_rng(S)
     base = np.linspace(-6.0, -0.3, H * N).reshape(H, N)   # the model's decay range
@@ -194,6 +195,9 @@ FLASH_CUDA_CASES = [
     (2, 20, 48, 4, 2, 24, True, 0, 0, 20),           # gemma3 smoke global layer
     (1, 8, 64, 4, 2, 32, True, 8, 20, 28),           # query offset + window
     (1, 130, 256, 16, 8, 256, True, 64, 0, 130),     # gemma3_12b head width
+    (1, 256, 256, 16, 2, 128, True, 0, 0, None),     # jamba's head width, G = 8
+    (1, 100, 384, 4, 2, 256, True, 96, 150, 250),    # D 256: q_offset, kv_len and window
+    (2, 200, 200, 8, 4, 64, True, 0, 0, None),       # Sq not a multiple of the query tile
 ]
 
 

@@ -267,3 +267,112 @@ def test_cpu_tensors_run_the_plain_versions():
     ssm_scan(*_ssm_both(_ssm_arrays(0, 1, 8, 8, 4), "f32")[0], chunk=4)
     counts = launch_counts()
     assert counts["flash_attention"] == counts["rwkv6_scan"] == counts["ssm_scan"] == 0
+
+
+# ---------------------------------------------------------------------------
+# The algebra of the CUDA kernels, in plain PyTorch on the CPU: the
+# two-pass split of rwkv6_scan (csrc/rwkv6_scan.cu) and the bf16
+# tensor-core rounding of flash_attention (csrc/flash_attention.cu)
+# ---------------------------------------------------------------------------
+def _rwkv6_two_pass(r, k, v, w, u, s0, chunk, slice_cols=32):
+    """Pass 1 per chunk, from that chunk alone: the intra-chunk output
+    y = A V + d V. Pass 2 per slice of value columns, chunk after chunk:
+    the decay again, out = (r E) S_in + y, S = diag(E_C) S + (k/E'.E_C)^T V."""
+    B, S, H, N = r.shape
+    C = chunk
+    f32 = torch.float32
+    rc, kc, vc, wc = (x.to(f32).reshape(B, S // C, C, H, N).permute(1, 0, 3, 2, 4)
+                      for x in (r, k, v, w))                          # [n, B, H, C, N]
+    lower = torch.tril(torch.ones(C, C, dtype=torch.bool), diagonal=-1)
+
+    def decay(w_):
+        logw = torch.clamp_min(torch.log(torch.clamp_min(w_, 1e-30)), -5.0)
+        li = torch.cumsum(logw, dim=-2)
+        return li - logw, li, torch.exp(li[..., -1:, :])               # Lx, Li, E_C
+
+    ys = []
+    for c in range(S // C):                                           # pass 1
+        lx, li, _ = decay(wc[c])
+        q_, kd = rc[c] * torch.exp(lx), kc[c] * torch.exp(-li)
+        A = torch.where(lower, q_ @ kd.transpose(-1, -2), 0.0)
+        d = ((rc[c] * kc[c]) * u.to(f32)[None, :, None, :]).sum(-1)
+        ys.append(A @ vc[c] + d[..., None] * vc[c])
+    out = torch.empty((S // C, B, H, C, N), dtype=f32)
+    state = torch.empty((B, H, N, N), dtype=f32)
+    for m0 in range(0, N, slice_cols):                                # pass 2
+        cols = slice(m0, min(m0 + slice_cols, N))
+        st = s0.to(f32)[..., cols]
+        for c in range(S // C):
+            lx, li, etot = decay(wc[c])
+            out[c][..., cols] = rc[c] * torch.exp(lx) @ st + ys[c][..., cols]
+            k_carry = (kc[c] * torch.exp(-li)) * etot
+            st = etot[..., 0, :, None] * st + k_carry.transpose(-1, -2) @ vc[c][..., cols]
+        state[..., cols] = st
+    return out.permute(1, 0, 3, 2, 4).reshape(B, S, H, N).to(r.dtype), state
+
+
+@pytest.mark.parametrize("B,S,H,N,chunk", [(2, 64, 2, 16, 16), (1, 96, 1, 64, 32), (1, 32, 2, 40, 8)],
+                         ids=lambda v: str(v))
+def test_rwkv6_two_pass_split_matches_pallas(B, S, H, N, chunk):
+    a = _rwkv_arrays(S + N, B, S, H, N)
+    t, j = {}, {}
+    for name in ("r", "k", "v", "w", "u", "s0"):
+        t[name], j[name] = _both(a[name], "f32")
+    out, state = _rwkv6_two_pass(t["r"], t["k"], t["v"], t["w"], t["u"], t["s0"], chunk)
+    o_k, s_k = rwkv6_scan_kernel(j["r"], j["k"], j["v"], j["w"], j["u"], j["s0"],
+                                 chunk=chunk, interpret=True)
+    np.testing.assert_allclose(out.numpy(), _np(o_k), **TOL32)
+    np.testing.assert_allclose(state.numpy(), _np(s_k), **TOL32)
+
+
+def _flash_bf16_tensor_core(q, k, v, *, causal, window, q_offset, kv_len, block_k=64):
+    """bf16 operands, f32 sums, the scores scaled by 1/sqrt(D) after the
+    product, P rounded to bf16 before P V; the online softmax over
+    64-key tiles in log2 units, as the kernel runs it."""
+    B, Sq, H, D = q.shape
+    Skv, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    f32, bf = torch.float32, torch.bfloat16
+    qf = q.to(bf).to(f32).reshape(B, Sq, KV, G, D)
+    kf, vf = k.to(bf).to(f32), v.to(bf).to(f32)
+    scale_log2 = (1.0 / D ** 0.5) * 1.4426950408889634
+    q_pos = q_offset + torch.arange(Sq)
+    m = torch.full((B, Sq, KV, G), -1e30)
+    l = torch.zeros((B, Sq, KV, G))
+    acc = torch.zeros((B, Sq, KV, G, D))
+    for start in range(0, Skv, block_k):
+        k_pos = start + torch.arange(min(block_k, Skv - start))
+        s = torch.einsum("bqkgd,bckd->bqkgc", qf, kf[:, start:start + block_k]) * scale_log2
+        ok = (k_pos < kv_len)[None, :] & (k_pos[None, :] <= q_pos[:, None] if causal else True)
+        if window > 0:
+            ok = ok & (k_pos[None, :] > q_pos[:, None] - window)
+        s = torch.where(ok[None, :, None, None, :], s, -1e30)
+        m_new = torch.maximum(m, s.amax(-1))
+        p = torch.exp2(s - m_new[..., None])
+        corr = torch.exp2(m - m_new)
+        l = l * corr + p.sum(-1)
+        acc = acc * corr[..., None] + torch.einsum(
+            "bqkgc,bckd->bqkgd", p.to(bf).to(f32), vf[:, start:start + block_k])
+        m = m_new
+    return (acc / torch.clamp_min(l[..., None], 1e-30)).reshape(B, Sq, H, D)
+
+
+@pytest.mark.parametrize(
+    "B,Sq,Skv,H,KV,D,window,q_offset,kv_len",
+    [(1, 192, 192, 4, 2, 256, 0, 0, 192), (1, 160, 160, 16, 2, 128, 48, 0, 160),
+     (2, 40, 200, 4, 1, 64, 32, 100, 140), (1, 70, 70, 4, 2, 24, 0, 0, 70)],
+    ids=lambda v: str(v),
+)
+def test_flash_attention_bf16_tensor_core_rounding_matches_jax_ref(B, Sq, Skv, H, KV, D, window,
+                                                                   q_offset, kv_len):
+    rng = np.random.default_rng(Sq + D)
+    q, k, v = (rng.standard_normal(shape).astype(np.float32)
+               for shape in ((B, Sq, H, D), (B, Skv, KV, D), (B, Skv, KV, D)))
+    # both sides see the same bf16-rounded operands; JAX computes in f32
+    q, k, v = (torch.from_numpy(x).to(torch.bfloat16) for x in (q, k, v))
+    got = _flash_bf16_tensor_core(q, k, v, causal=True, window=window, q_offset=q_offset,
+                                  kv_len=kv_len)
+    want = _np(j_flash_ref(*(jnp.asarray(x.float().numpy()) for x in (q, k, v)), causal=True,
+                           window=window, q_offset=jnp.asarray(q_offset),
+                           kv_len=jnp.asarray(kv_len), block_k=64))
+    assert np.all(np.abs(got.numpy() - want) <= 2e-2 * (1 + np.abs(want)))
