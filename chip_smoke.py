@@ -14,7 +14,9 @@ Phases, in order; any failure raises and the script exits non-zero:
 3. each kernel against its plain PyTorch version on the card: the
    simulator's four at the main path's shapes, exactly; ``rwkv6_scan``,
    ``flash_attention`` and ``ssm_scan`` at rwkv6_7b's, gemma3_12b's and
-   jamba's prefill shapes, bf16 outputs to 2e-2 and f32 states to 2e-4;
+   jamba's prefill shapes (``ssm_scan`` at 2048 tokens, a ragged 2000
+   and the served prompt's 1838), bf16 outputs to 2e-2 and f32 states
+   to 2e-4;
    the time of each call, its device time per call (summed over the
    kernel's launches, with the launches per call), of its plain version
    and, for attention, of PyTorch's ``scaled_dot_product_attention``;
@@ -37,8 +39,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    five layers of its period (one H100 holds five, not 72), with
    ``ssm_scan`` and ``flash_attention`` launched.
 
-Every phase prints its wall time. The last two lines of standard output
-are a JSON object with one entry per kernel and
+Every phase prints its wall time, and every line with a measurement
+names the card and its power limit. The last two lines of standard
+output are a JSON object with one entry per kernel and
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -79,6 +82,9 @@ RTOL = 1e-5
 # the LM kernels against their plain versions: bf16 outputs 2e-2 (an
 # ulp of bf16 apart after sums in another order), f32 2e-4
 LM_TOL = {"bf16": 2e-2, "f32": 2e-4}
+# the card's name and power limit (nvidia-smi), set by phase 1, named
+# beside every measurement
+CARD = "card not read"
 
 
 def gpu_line() -> str:
@@ -429,22 +435,23 @@ def check_kernels(dev) -> dict:
                       needed, {"operations": (4.0 * H * visible * D, BF16_TENSOR_OPS_PER_S)},
                       library, (LM_TOL["bf16"],), {"represent": H == 16}))
 
-    # jamba's Mamba prefill: B = 1, dim 16384, N 16, chunk 256; 2048 tokens
-    # and a ragged 2000 (padded to a multiple of the chunk by the wrapper).
+    # jamba's Mamba prefill: B = 1, dim 16384, N 16; 2048 tokens, a ragged
+    # 2000 and the served prompt's 1838, each handed to the kernel unpadded.
     # Bounds: one exp per (token, channel, state) on the special-function
     # units, and ~6 f32 operations per (token, channel, state)
-    for S in (2048, 2000):
+    for S in (2048, 2000, 1838):
         a = ssm_inputs(rng, dev, S)
         pad = (256 - S % 256) % 256
 
         def plain(a=a, S=S, pad=pad):
-            # the wrapper's padding (zeros in x, dt, B, C), then the scan
+            # the plain version's chunked form: zeros in x, dt, B, C up to
+            # a multiple of the chunk, then the scan (the kernel pads nothing)
             p = lambda t: Fn.pad(t, (0, 0, 0, pad))
             y, h = ssm_scan_ref(p(a[0]), p(a[1]), a[2], p(a[3]), p(a[4]), a[5], a[6], chunk=256)
             return y[:, :S], h
 
         per_state = S * 16384 * 16
-        cases.append(("ssm_scan", f"B=1 S={S} dim=16384 N=16 chunk=256 bf16",
+        cases.append(("ssm_scan", f"B=1 S={S} dim=16384 N=16 bf16 (plain: chunk 256)",
                       lambda a=a: ssm_scan(*a, chunk=256), plain, a,
                       {"exp": (per_state, SFU_EXP_PER_S),
                        "operations": (6.0 * per_state, CORE_OPS_PER_S)}, None,
@@ -493,12 +500,14 @@ def check_kernels(dev) -> dict:
                          f"{100 * bound_ms / dev_ms:.1f}% of the bound")
             if library_ms is not None:
                 rate_text += f", {dev_ms / library_ms:.3f}x the library's time"
-        print(f"kernel {name} [{label}] {kind} max_abs_err={err} ms={ms:.5f} "
+        print(f"{CARD}: kernel {name} [{label}] {kind} max_abs_err={err} ms={ms:.5f} "
               f"(per wrapper call) device_ms={dev_text} (kernel alone, profiler) "
               f"plain_ms={plain_ms:.5f}{lib_text} bytes={moved} {bound_text} "
               f"bound_ms={bound_ms:.6f} ({bound_by}){rate_text}")
+        # the exps of ssm_scan are operations of the special-function units
         row = {"max_abs_err": err, "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
-               "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms}
+               "bound_ms": bound_ms, "bound_by": "bytes" if bound_by == "bytes" else "operations",
+               "library_ms": library_ms}
         # the case with the largest bound stands for its kernel in the JSON line
         prev = results.get(name)
         if options.get("represent", True) and (prev is None or row["bound_ms"] > prev["bound_ms"]):
@@ -544,7 +553,7 @@ def run_phase(dev) -> dict:
     summary = res.summary()
     if summary["submitted"] <= 0 or summary["done"] <= 0:
         raise AssertionError(f"run(SimParams()) did no work: {summary}")
-    print(f"phase 4: run(SimParams()) on {dev}: wall {wall:.3f} s, "
+    print(f"{CARD}: phase 4: run(SimParams()) on {dev}: wall {wall:.3f} s, "
           f"{res.events} events, equal to the CPU port under the contract")
     print("phase 4 summary:", json.dumps(summary, sort_keys=True))
     print("phase 4 launches:", json.dumps(counts))
@@ -577,7 +586,7 @@ def fleet_phase(dev) -> dict:
     if int(done.min()) <= 0:
         raise AssertionError("a fleet lane completed nothing")
     sim_s = len(seeds) * params.duration
-    print(f"phase 5: fleet_run of {len(seeds)} lanes on {dev}: wall {wall:.3f} s, "
+    print(f"{CARD}: phase 5: fleet_run of {len(seeds)} lanes on {dev}: wall {wall:.3f} s, "
           f"{sim_s / wall:.3f} simulated s per wall s, done per lane "
           f"mean {float(done.float().mean()):.2f}, equal to the CPU port lane by lane")
     print("phase 5 launches:", json.dumps(counts))
@@ -607,7 +616,7 @@ def profile_fleet(params, wls, dev) -> None:
         return
     busy_ms = sum(e.device_time_total for e in rows) / 1e3
     launches = sum(e.count for e in rows)
-    print(f"phase 5 profile: wall {wall * 1e3:.1f} ms (under the profiler), device busy "
+    print(f"{CARD}: phase 5 profile: wall {wall * 1e3:.1f} ms (under the profiler), device busy "
           f"{busy_ms:.1f} ms ({100 * busy_ms / (wall * 1e3):.1f}% of wall), "
           f"{launches} kernel launches")
     for e in sorted(rows, key=lambda e: -e.device_time_total)[:8]:
@@ -731,7 +740,7 @@ def serve_phase(phase: int, arch_name: str, lm_kernels: tuple, dev, *, seed: int
         print(f"phase {phase} simulator: {name:14s} thr={s['throughput_per_s']:.3f}/s "
               f"inter_lat={inter['mean_latency_s']} pre={s['preempt_events']} oom={s['oom_events']}")
     prefill_s = sum(meter.prefill_s)
-    print(f"phase {phase}: {arch_name} at full width ({n_params} parameters, "
+    print(f"{CARD}: phase {phase}: {arch_name} at full width ({n_params} parameters, "
           f"{cfg.param_dtype}, drawn on the card in {init_s:.2f} s): policy {policy} "
           f"(simulator {sim_s:.2f} s), served {len(done)} requests in {serve_s:.2f} s; "
           f"{len(meter.prefill_s)} prefills of {meter.prefill_tokens} tokens in "
@@ -787,7 +796,7 @@ def profile_serving(phase, cfg, params, batcher, prompt, lm_kernels, dev) -> Non
                 for k in lm_kernels}
         mine_text = ", ".join(f"{k} {ms:.1f} ms ({100 * ms / busy_ms:.1f}% of busy)"
                               for k, ms in mine.items())
-        print(f"phase {phase} profile {label} ({len(prompt) if label == 'prefill' else 4 * batcher.slots}"
+        print(f"{CARD}: phase {phase} profile {label} ({len(prompt) if label == 'prefill' else 4 * batcher.slots}"
               f" tokens): wall {wall_ms:.1f} ms (under the profiler), device busy {busy_ms:.1f} ms "
               f"({100 * busy_ms / wall_ms:.1f}% of wall), {mine_text}, "
               f"{sum(e.count for e in rows)} kernel launches")
@@ -826,7 +835,7 @@ def parity_phase(dev) -> None:
             raise AssertionError(f"phase 9: {name} prefill logits differ by {err}")
         if outs["cuda"] != outs["cpu"]:
             raise AssertionError(f"phase 9: {name} tokens differ: {outs['cuda']} vs {outs['cpu']}")
-        print(f"phase 9: {cfg.name} f32, CUDA == CPU: {len(outs['cpu'])} requests, "
+        print(f"{CARD}: phase 9: {cfg.name} f32, CUDA == CPU: {len(outs['cpu'])} requests, "
               f"{sum(len(o) for _, o in outs['cpu'])} greedy tokens equal, prefill logits "
               f"max |diff| {err:.3g} (<= 2e-4)")
 
@@ -835,7 +844,9 @@ def card_phase():
     """Phase 1: the card, its capability, TF32 off; returns the device."""
     import torch
 
-    print(gpu_line())
+    global CARD
+    CARD = gpu_line()
+    print(CARD)
     cap = torch.cuda.get_device_capability(0)
     if cap != (9, 0):
         raise AssertionError(f"compute capability {cap}, the kernels are built for sm_90a")
@@ -848,7 +859,8 @@ def card_phase():
     return torch.device("cuda", 0)
 
 
-SASS_OPS = ("HGMMA", "HMMA", "FFMA", "MUFU.EX2", "MUFU.LG2", "LDGSTS", "BAR.SYNC", "STL", "LDL")
+SASS_OPS = ("HGMMA", "HMMA", "FFMA", "FMUL", "FADD", "MUFU.EX2", "MUFU.LG2", "SHFL", "LDS",
+            "LDGSTS", "BAR.SYNC", "STL", "LDL")
 
 
 def build_phase() -> None:
@@ -863,7 +875,9 @@ def build_phase() -> None:
     lib = cuda_lib.build()
     print(f"phase 2: built {lib.relative_to(ROOT)}")
     for line in lib.with_suffix(".log").read_text().splitlines():
-        if "registers" in line or "spill" in line or line.startswith("=="):
+        if "Compiling entry function" in line:
+            print("  ptxas:", line.split("'")[1][:100] if "'" in line else line.strip())
+        elif "registers" in line or "spill" in line or line.startswith("=="):
             print("  ptxas:", line.strip())
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not pathlib.Path(tool).exists():
@@ -888,6 +902,13 @@ def build_phase() -> None:
                     mix.setdefault(fn, dict.fromkeys(SASS_OPS, 0))[want] += 1
     for fn, counts in mix.items():
         print(f"  sass: {fn[:110]} " + " ".join(f"{k}={v}" for k, v in counts.items() if v))
+        if "ssm_scan_kernel" in fn and counts["MUFU.EX2"]:
+            # a thread's token step is 4 states, one MUFU.EX2 each; the static
+            # counts of the unrolled group loop, its prologue included
+            steps = counts["MUFU.EX2"] / 4
+            print("    per token step and thread: " + " ".join(
+                f"{k}={counts[k] / steps:.2f}" for k in ("MUFU.EX2", "FFMA", "FMUL", "FADD",
+                                                         "SHFL", "LDS")))
     for fn, counts in mix.items():
         if "flash_attention_kernel_bf16" in fn and counts["HGMMA"] + counts["HMMA"] == 0:
             raise AssertionError(f"{fn}: no tensor-core instruction in its SASS")
@@ -920,7 +941,7 @@ def main() -> int:
         t = time.perf_counter()
         out = fn(*args, **kw)
         walls[n] = time.perf_counter() - t
-        print(f"phase {n} wall: {walls[n]:.2f} s")
+        print(f"{CARD}: phase {n} wall: {walls[n]:.2f} s")
         return out
 
     dev = phase(1, card_phase)
@@ -936,7 +957,7 @@ def main() -> int:
     # M+MoE, attn+dense); 72 layers at these widths are ~800 GB of weights
     jamba_counts = phase(10, serve_phase, 10, "jamba_1p5_large_398b",
                          ("ssm_scan", "flash_attention"), dev, n_layers=5)
-    print("phase walls (s): " + json.dumps({str(k): round(v, 3) for k, v in walls.items()})
+    print(f"{CARD}: phase walls (s): " + json.dumps({str(k): round(v, 3) for k, v in walls.items()})
           + f", total {time.perf_counter() - t_all:.2f}")
 
     sources = {

@@ -18,23 +18,36 @@
 // at most one writer and the writes are exact.
 //
 // Bound on the H100: bytes and launch latency. At the main-path shapes
-// (F = 64, MC = 64, MP = 256, K = 16) retire_land moves ~160 KB and
-// assign_gather ~140 KB per call, a few hundredths of a microsecond at
+// (F = 64, MC = 64, MP = 256, K = 16) retire_land moves ~290 KB and
+// assign_gather ~310 KB per call, under a tenth of a microsecond at
 // 3.35 TB/s against a launch of a few microseconds; the work is integer
 // compares and at most MP float adds per lane.
 // Design: one block per lane. The TPU kernel materialises an [MC, MP]
 // one-hot in VMEM; here retire_land instead lands each retired container
 // with integer atomicOr / atomicMax into shared [MP] rows (the integer
-// result does not depend on order), then folds the f32 latency sums in
-// a fixed ascending-pid order (one thread per sum, the run order of
-// common.cuh), so the sums are the same from run to run. assign_gather
-// zeroes its rows, synchronises, and lets one thread per valid row write
-// its slot and pipe.
+// result does not depend on order). The f32 latency sums keep the fixed
+// order of common.cuh: a left fold over each run of kFoldChunk pipelines,
+// then the run totals in order. Only that order is fixed, and the runs
+// are independent, so the fold runs in parallel: the pass over the
+// pipelines puts each completed pipeline's term (the same IEEE division
+// as the reference's) and the sums it enters into shared memory, one
+// thread per (sum, run) left-folds its run (a warp at MP = 256: 4 sums of
+// 8 runs), and after a barrier one thread per sum adds its run totals in
+// order. The first design walked all MP pipelines in 4 threads, with two
+// device-memory loads and a division each, while the other 124 waited
+// (14.8 us a call on the H100). assign_gather zeroes its rows,
+// synchronises, and lets one thread per valid row write its slot and
+// pipe.
 #include "common.cuh"
 
 namespace {
 
 using namespace repro;
+
+// shared slot of pipeline p in the [runs][kFoldChunk + 1] layout of the
+// fold: lanes reading the same position of 32 different runs read 32
+// different banks
+__device__ __forceinline__ int run_slot(int p) { return p + p / kFoldChunk; }
 
 __global__ void retire_land_kernel(
     const int32_t* __restrict__ ctr_pipe, const int32_t* __restrict__ ctr_end,
@@ -45,10 +58,18 @@ __global__ void retire_land_kernel(
     int32_t* __restrict__ wasted, float* __restrict__ lat_sum,
     float* __restrict__ lat_prio, int32_t* __restrict__ done_prio,
     int32_t* __restrict__ n_done, int32_t* __restrict__ n_oom) {
+  constexpr int kSums = 1 + kNumPrio;  // the total, then priority q
+  const int runs = (MP + kFoldChunk - 1) / kFoldChunk;
+  const int slots = runs * (kFoldChunk + 1);
   extern __shared__ int smem[];
   int* s_oom = smem;            // [MP] any OOM retirement
   int* s_done = smem + MP;      // [MP] any completion
   int* s_end = smem + 2 * MP;   // [MP] max end tick of the completions
+  // [slots] a completed pipeline's latency term, and the sums it enters:
+  // -1 none, q the total and priority q, kNumPrio the total alone
+  float* s_lat = reinterpret_cast<float*>(smem + 3 * MP);
+  int* s_sel = smem + 3 * MP + slots;
+  float* s_run = reinterpret_cast<float*>(s_sel + slots);  // [kSums][runs]
   __shared__ int s_count[2 + kNumPrio];  // n_done, n_oom, done_prio[3]
   const int f = blockIdx.x;
   const size_t co = (size_t)f * MC;
@@ -86,7 +107,12 @@ __global__ void retire_land_kernel(
     my_done += d;
     my_oom += s_oom[p] != 0;
     const int32_t pr = prio[po + p];
-    if (d && pr >= 0 && pr < kNumPrio) atomicAdd(&s_count[2 + pr], 1);
+    const bool known = pr >= 0 && pr < kNumPrio;
+    if (d && known) atomicAdd(&s_count[2 + pr], 1);
+    s_sel[run_slot(p)] = d ? (known ? pr : kNumPrio) : -1;
+    if (d)
+      s_lat[run_slot(p)] = (float)wrap_sub(s_end[p], arrival[po + p]) /
+                           (float)kTicksPerSecond;
   }
   my_done = warp_sum(my_done);
   my_oom = warp_sum(my_oom);
@@ -94,29 +120,32 @@ __global__ void retire_land_kernel(
     atomicAdd(&s_count[0], my_done);
     atomicAdd(&s_count[1], my_oom);
   }
+  __syncthreads();
 
-  // f32 latency sums: thread 0 the total, thread 1 + q priority q, each
-  // folded over the pipelines in the fixed order of common.cuh
-  if ((int)threadIdx.x <= kNumPrio) {
-    const int q = (int)threadIdx.x - 1;
-    float acc = 0.0f;
-    for (int p0 = 0; p0 < MP; p0 += kFoldChunk) {
-      float run = 0.0f;
-      const int p1 = min(MP, p0 + kFoldChunk);
-      for (int p = p0; p < p1; ++p) {
-        if (s_done[p] == 0 || (q >= 0 && prio[po + p] != q)) continue;
-        run += (float)wrap_sub(s_end[p], arrival[po + p]) /
-               (float)kTicksPerSecond;
-      }
-      acc += run;
+  // sum s (0 the total, 1 + q priority q) over run r: a left fold of its
+  // pipelines' terms in order, a pipeline outside the sum skipped
+  for (int j = threadIdx.x; j < kSums * runs; j += blockDim.x) {
+    const int s = j / runs, r = j % runs;
+    const int p1 = min(MP, (r + 1) * kFoldChunk);
+    float run = 0.0f;
+    for (int p = r * kFoldChunk; p < p1; ++p) {
+      const int sel = s_sel[run_slot(p)];
+      if (sel < 0 || (s > 0 && sel != s - 1)) continue;
+      run += s_lat[run_slot(p)];
     }
-    if (q < 0) {
-      lat_sum[f] = acc;
-    } else {
-      lat_prio[(size_t)f * kNumPrio + q] = acc;
-    }
+    s_run[j] = run;
   }
   __syncthreads();
+  if ((int)threadIdx.x < kSums) {
+    const int s = threadIdx.x;
+    float acc = 0.0f;
+    for (int r = 0; r < runs; ++r) acc += s_run[s * runs + r];
+    if (s == 0) {
+      lat_sum[f] = acc;
+    } else {
+      lat_prio[(size_t)f * kNumPrio + s - 1] = acc;
+    }
+  }
   if (threadIdx.x == 0) {
     n_done[f] = s_count[0];
     n_oom[f] = s_count[1];
@@ -196,7 +225,17 @@ REPRO_EXPORT int repro_retire_land(
     void* n_done, void* n_oom, void* stream, int device) {
   cudaSetDevice(device);
   if (F > 0) {
-    const size_t smem = (size_t)3 * MP * sizeof(int);
+    // the [MP] landing rows, the fold's [runs][kFoldChunk + 1] terms and
+    // sums, and the [1 + kNumPrio][runs] run totals
+    using repro::kFoldChunk;
+    const int runs = (MP + kFoldChunk - 1) / kFoldChunk;
+    const size_t smem = ((size_t)3 * MP + 2 * runs * (kFoldChunk + 1) +
+                         (1 + repro::kNumPrio) * runs) * sizeof(int);
+    if (smem > 48 * 1024) {
+      const cudaError_t err = cudaFuncSetAttribute(
+          retire_land_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      if (err != cudaSuccess) return (int)err;
+    }
     retire_land_kernel<<<F, 128, smem, (cudaStream_t)stream>>>(
         (const int32_t*)ctr_pipe, (const int32_t*)ctr_end,
         (const bool*)oomed, (const bool*)done, (const int32_t*)arrival,

@@ -1,6 +1,7 @@
-"""``ssm_scan``: pad to a multiple of the chunk, then the kernel of
-``csrc/ssm_scan.cu`` for CUDA tensors (each launch counted in
-``ssm_scan.launches``) or ``ref.ssm_scan_ref`` for CPU tensors."""
+"""``ssm_scan``: the kernel of ``csrc/ssm_scan.cu`` for CUDA tensors, at
+their own sequence length (each launch counted in
+``ssm_scan.launches``), or ``ref.ssm_scan_ref`` for CPU tensors, whose
+chunked form needs the sequence padded to a multiple of the chunk."""
 from __future__ import annotations
 
 import ctypes
@@ -22,11 +23,11 @@ STATE_SIZES = (4, 8, 16, 32)
 def ssm_scan(x, dt, A, B, C, D, h0=None, *, chunk: int = 256):
     """x [B,S,dim] (bf16 or f32), dt [B,S,dim] f32, A [dim,N] f32, B/C
     [B,S,N] in x's dtype, D [dim] f32, h0 [B,dim,N] f32 or None (zeros).
-    Returns (y [B,S,dim] in x's dtype, h [B,dim,N] f32)."""
-    Bsz, S, dim = x.shape
-    N = A.shape[1]
-    if h0 is None:
-        h0 = torch.zeros((Bsz, dim, N), dtype=torch.float32, device=x.device)
+    Returns (y [B,S,dim] in x's dtype, h [B,dim,N] f32). ``chunk`` is
+    the plain version's; the kernel takes any S."""
+    S = x.shape[1]
+    if use_kernel(x):
+        return _launch(x, dt, A, B, C, D, h0)
     # pad ragged sequences to a chunk multiple; dt = 0, x = 0 is the
     # identity update (a = exp(0) = 1, b = 0), so the carried state is
     # untouched
@@ -37,10 +38,7 @@ def ssm_scan(x, dt, A, B, C, D, h0=None, *, chunk: int = 256):
             return F.pad(t, (0, 0, 0, pad))
 
         x, dt, B, C = zpad(x), zpad(dt), zpad(B), zpad(C)
-    if use_kernel(x):
-        y, h = _launch(x, dt, A, B, C, D, h0)
-    else:
-        y, h = ssm_scan_ref(x, dt, A, B, C, D, h0, chunk=Cn)
+    y, h = ssm_scan_ref(x, dt, A, B, C, D, h0, chunk=Cn)
     return (y[:, :S], h) if pad else (y, h)
 
 
@@ -61,13 +59,14 @@ def _launch(x, dt, A, B, C, D, h0):
         ("D", D, torch.float32, (dim,)),
         ("h0", h0, torch.float32, (Bsz, dim, N)),
     ):
-        cuda_lib.require("ssm_scan", name, t, dtype, shape, dev)
+        if t is not None or name != "h0":    # no h0: the kernel starts from zeros
+            cuda_lib.require("ssm_scan", name, t, dtype, shape, dev)
     y = torch.empty_like(x)
     h = torch.empty((Bsz, dim, N), dtype=torch.float32, device=dev)
     fn = cuda_lib.function("repro_ssm_scan", _ARGTYPES)
     code = fn(
         x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(), C.data_ptr(),
-        D.data_ptr(), h0.data_ptr(), y.data_ptr(), h.data_ptr(),
+        D.data_ptr(), None if h0 is None else h0.data_ptr(), y.data_ptr(), h.data_ptr(),
         Bsz, S, dim, N, int(x.dtype == torch.bfloat16), *cuda_lib.stream_args(dev),
     )
     cuda_lib.check_launch("ssm_scan", code)

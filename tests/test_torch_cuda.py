@@ -84,20 +84,25 @@ def test_fleet_tick_kernel_matches_plain(cuda, NP):
 
 
 @pytest.mark.cuda
-def test_retire_land_kernel_matches_plain(cuda):
-    rng = np.random.default_rng(0)
+@pytest.mark.parametrize("mp", [32, 200, 256, 1024])
+def test_retire_land_kernel_matches_plain(cuda, mp):
+    rng = np.random.default_rng(mp)
     t = rng.integers(10_000, 50_000, F).astype(np.int32)
     end = (t[:, None] - rng.integers(0, 4, (F, MC))).astype(np.int32)
     u = rng.random((F, MC))
     arrays = (
-        rng.integers(-1, MP // 4, (F, MC)).astype(np.int32), end,
+        rng.integers(-1, max(mp // 4, 2), (F, MC)).astype(np.int32), end,
         (end - rng.integers(1, 5_000, (F, MC))).astype(np.int32),
         u < 0.25, (u >= 0.25) & (u < 0.7), None,
-        (t[:, None] - rng.integers(5_000, 9_000, (F, MP))).astype(np.int32),
-        rng.integers(0, 3, (F, MP)).astype(np.int32), t,
+        (t[:, None] - rng.integers(5_000, 9_000, (F, mp))).astype(np.int32),
+        rng.integers(-1, 4, (F, mp)).astype(np.int32), t,    # priorities outside 0..2 too
     )
     cpu, dev = _pair(arrays, cuda)
-    _equal(retire_land(*dev), retire_land_ref(*cpu))
+    reset_launch_counts()
+    got = retire_land(*dev)
+    torch.cuda.synchronize()
+    assert launch_counts()["retire_land"] == 1
+    _equal(got, retire_land_ref(*cpu))
 
 
 @pytest.mark.cuda
@@ -221,13 +226,18 @@ SSM_CUDA_CASES = [
     # B, S, dim, N, chunk
     (1, 32, 8, 4, 8),
     (2, 64, 16, 8, 16),
-    (1, 45, 40, 16, 16),       # ragged S (padded), dim not a multiple of 32
-    (2, 200, 128, 16, 64),     # several 64-token passes, ragged last one
+    (1, 45, 40, 16, 16),       # ragged S, dim not a multiple of 32
+    (2, 200, 128, 16, 64),     # several tiles, ragged last one
     (1, 130, 64, 32, 256),     # chunk > S
     (3, 17, 96, 8, 8),         # jamba smoke's d_state
+    # ragged S that the wrapper hands over unpadded
+    (2, 1, 40, 4, 256),
+    (1, 63, 72, 16, 256),
+    (2, 65, 200, 32, 256),
+    (1, 300, 104, 16, 256),
+    (1, 65, 20, 16, 256),      # 40 bytes of bf16 a row: staged without 16-byte copies
+    (2, 63, 13, 4, 256),       # odd dim: plain loads in both dtypes
 ]
-
-
 def _ssm_arrays(rng, B, S, dim, N, dtype):
     """x, B, C in ``dtype``; dt through softplus, A = -exp(A_log), D and
     the state in f32, as the Mamba mixer hands them over."""
@@ -252,9 +262,31 @@ def test_ssm_scan_kernel_matches_plain(cuda, B, S, dim, N, chunk, dtype):
     y, h = ssm_scan(*(x.to(cuda) for x in cpu), chunk=chunk)
     torch.cuda.synchronize()
     assert launch_counts()["ssm_scan"] == 1
+    # not padded: y at its own length, as the kernel wrote it
+    assert y.shape == (B, S, dim) and y.is_contiguous() and h.shape == (B, dim, N)
     want_y, want_h = ssm_scan(*cpu, chunk=chunk)
     _close(y, want_y, dtype)
     _close(h, want_h, torch.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("state", [True, False], ids=["state", "no-state"])
+def test_ssm_scan_ragged_call_is_one_kernel(cuda, state):
+    """A ragged call runs the scan kernel and nothing else on the card:
+    no pad, fill or copy kernel beside it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    dev = [x.to(cuda) for x in _ssm_arrays(np.random.default_rng(1), 1, 1838, 256, 16,
+                                           torch.bfloat16)]
+    if not state:
+        dev[6] = None
+    ssm_scan(*dev, chunk=256)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        ssm_scan(*dev, chunk=256)
+        torch.cuda.synchronize()
+    kernels = [e.key for e in prof.key_averages() if e.device_time_total > 0]
+    assert len(kernels) == 1 and "ssm_scan_kernel" in kernels[0], kernels
 
 
 @pytest.mark.cuda

@@ -29,6 +29,7 @@ from repro.kernels.state_update.ref import (
     assign_gather_ref as j_assign_ref,
     retire_land_ref as j_retire_ref,
 )
+from repro_torch.core.state import seconds
 from repro_torch.kernels.fold import ordered_sum
 from repro_torch.kernels.sched_select import (
     masked_lex_argmin,
@@ -273,3 +274,62 @@ def test_ordered_sum_matches_xla_reduction(N):
     port = ordered_sum(_t(x), _t(mask)).numpy()
     xla = np.asarray(jnp.sum(jnp.where(jnp.asarray(mask), jnp.asarray(x)[:, None, :], 0.0), axis=2))
     np.testing.assert_array_equal(port, xla)
+
+
+def _parallel_runs_fold(values, sel):
+    """The fold schedule of ``csrc/state_update.cu`` (retire_land_kernel)
+    in numpy f32: per (sum, run) a left fold of the run's terms that
+    enter the sum (sum 0 takes every ``sel >= 0``, sum 1 + q takes
+    ``sel == q``; any other term is skipped, not added as 0), then per
+    sum its run totals added in order. ``values``, ``sel`` ``[F, MP]``;
+    returns ``[F, 4]``."""
+    F, MP = values.shape
+    runs = -(-MP // 32)
+    out = np.zeros((F, 4), np.float32)
+    for f in range(F):
+        for s in range(4):
+            totals = []
+            for r in range(runs):
+                run = np.float32(0.0)
+                for p in range(32 * r, min(MP, 32 * r + 32)):
+                    if sel[f, p] < 0 or (s > 0 and sel[f, p] != s - 1):
+                        continue
+                    run = np.float32(run + values[f, p])
+                totals.append(run)
+            acc = np.float32(0.0)
+            for run in totals:
+                acc = np.float32(acc + run)
+            out[f, s] = acc
+    return out
+
+
+def _bits(x):
+    return np.ascontiguousarray(x, np.float32).view(np.int32)
+
+
+@pytest.mark.parametrize("MP", [32, 200, 256, 1024])
+def test_retire_fold_in_parallel_runs_matches_ordered_sum_and_ref(MP):
+    rng = np.random.default_rng(MP)
+    F = 3
+    # signed terms with zeros and -0.0, and runs of which no term enters
+    values = (rng.standard_normal((F, MP)) * 10.0 ** rng.integers(-3, 4, (F, MP))).astype(np.float32)
+    values[rng.random((F, MP)) < 0.1] = 0.0
+    values[rng.random((F, MP)) < 0.1] = -0.0
+    sel = rng.integers(-1, 4, (F, MP))
+    sel[:, 32:64] = -1
+    sel[1, :] = np.where(sel[1] == 0, 1, sel[1])
+    masks = np.stack([sel >= 0] + [sel == q for q in range(3)], axis=1)
+    model = _parallel_runs_fold(values, sel)
+    np.testing.assert_array_equal(_bits(model), _bits(ordered_sum(_t(values), _t(masks)).numpy()))
+
+    # on retire_land's own terms: the plain version's latency sums
+    args = _retire_tables(rng, F, 64, MP)
+    port = retire_land(*map(_t, args))
+    end_of, done_hit, arrival, prio = port[3], port[1], _t(args[6]), _t(args[7])
+    terms = seconds(end_of - arrival).numpy()
+    known = (prio >= 0) & (prio < 3)
+    sel = np.where(done_hit.numpy(), np.where(known.numpy(), prio.numpy(), 3), -1)
+    model = _parallel_runs_fold(terms, sel)
+    np.testing.assert_array_equal(_bits(model[:, 0]), _bits(port[5].numpy()))
+    np.testing.assert_array_equal(_bits(model[:, 1:]), _bits(port[6].numpy()))
+    assert int(done_hit.sum()) > 0

@@ -15,6 +15,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from repro.kernels.flash_attention.kernel import flash_attention_kernel
 from repro.kernels.flash_attention.ref import flash_attention_ref as j_flash_ref
@@ -31,6 +32,7 @@ from repro.kernels.ssm_scan.ref import ssm_scan_ref as j_ssm_scan_ref
 from repro_torch.kernels import launch_counts, reset_launch_counts
 from repro_torch.kernels.flash_attention import flash_attention, flash_attention_ref, mha_reference
 from repro_torch.kernels.rwkv6_scan import rwkv6_decode_step, rwkv6_ref, rwkv6_scan
+from repro_torch.kernels.ssm_scan import ops as ssm_ops
 from repro_torch.kernels.ssm_scan import ssm_decode_step, ssm_scan, ssm_scan_ref
 
 TOL = dict(rtol=2e-2, atol=2e-2)       # bf16 inputs
@@ -271,8 +273,9 @@ def test_cpu_tensors_run_the_plain_versions():
 
 # ---------------------------------------------------------------------------
 # The algebra of the CUDA kernels, in plain PyTorch on the CPU: the
-# two-pass split of rwkv6_scan (csrc/rwkv6_scan.cu) and the bf16
-# tensor-core rounding of flash_attention (csrc/flash_attention.cu)
+# two-pass split of rwkv6_scan (csrc/rwkv6_scan.cu), the bf16
+# tensor-core rounding of flash_attention (csrc/flash_attention.cu), and
+# the unpadded steps of ssm_scan (csrc/ssm_scan.cu)
 # ---------------------------------------------------------------------------
 def _rwkv6_two_pass(r, k, v, w, u, s0, chunk, slice_cols=32):
     """Pass 1 per chunk, from that chunk alone: the intra-chunk output
@@ -376,3 +379,55 @@ def test_flash_attention_bf16_tensor_core_rounding_matches_jax_ref(B, Sq, Skv, H
                            window=window, q_offset=jnp.asarray(q_offset),
                            kv_len=jnp.asarray(kv_len), block_k=64))
     assert np.all(np.abs(got.numpy() - want) <= 2e-2 * (1 + np.abs(want)))
+
+
+def _ssm_steps(x, dt, A, B, C, D, h0):
+    """The recurrence token by token over exactly the given tokens, one
+    ``ssm_decode_step`` a token."""
+    h, ys = h0, []
+    for t in range(x.shape[1]):
+        y, h = ssm_decode_step(x[:, t], dt[:, t], A, B[:, t], C[:, t], D, h)
+        ys.append(y)
+    return torch.stack(ys, dim=1), h
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("S,dim", [(1, 8), (45, 16), (1838, 8)])
+def test_ssm_zero_rows_are_exact_identity_steps(S, dim, dtype):
+    """The kernel steps a ragged tail on zero rows (x, dt, B, C = 0) and
+    drops their y: the plain scan over the zero-padded sequence, cut to
+    S, equals the recurrence over the S tokens alone, bit for bit."""
+    t, _ = _ssm_both(_ssm_arrays(S + dim, 1, S, dim, 4), dtype)
+    pad = -S % 64
+    padded = [F.pad(a, (0, 0, 0, pad)) if i in (0, 1, 3, 4) else a for i, a in enumerate(t)]
+    y_pad, h_pad = ssm_scan_ref(*padded, chunk=64)
+    y, h = _ssm_steps(*t)
+    assert torch.equal(y_pad[:, :S], y) and torch.equal(h_pad, h)
+
+
+def test_ssm_scan_hands_the_kernel_its_own_sequence(monkeypatch):
+    """On the CUDA path the wrapper copies nothing: the kernel gets the
+    unpadded, contiguous operands, and its contiguous y is returned as
+    it is."""
+    calls = []
+
+    def launch(x, dt, A, B, C, D, h0):
+        calls.append([None if a is None else (tuple(a.shape), a.is_contiguous())
+                      for a in (x, dt, B, C, h0)])
+        y, h = ssm_scan_ref(x, dt, A, B, C, D, h0, chunk=max(x.shape[1], 1))
+        return y.contiguous(), h
+
+    monkeypatch.setattr(ssm_ops, "use_kernel", lambda x: True)
+    monkeypatch.setattr(ssm_ops, "_launch", launch)
+    for S in (1, 45, 300):
+        t, _ = _ssm_both(_ssm_arrays(S, 2, S, 16, 8), "bf16")
+        y, h = ssm_scan(*t, chunk=256)
+        assert calls[-1] == [((2, S, 16), True), ((2, S, 16), True), ((2, S, 8), True),
+                             ((2, S, 8), True), ((2, 16, 8), True)]
+        assert y.shape == (2, S, 16) and y.is_contiguous() and h.shape == (2, 16, 8)
+        y_ref, h_ref = ssm_scan_ref(*[F.pad(a, (0, 0, 0, -S % 256)) if i in (0, 1, 3, 4)
+                                     else a for i, a in enumerate(t)], chunk=256)
+        assert torch.equal(y, y_ref[:, :S]) and torch.equal(h, h_ref)
+    ssm_scan(*t[:6], None, chunk=256)
+    assert calls[-1][-1] is None       # no state: nothing allocated, the kernel starts from zeros
+    assert len(calls) == 4
