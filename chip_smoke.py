@@ -10,9 +10,15 @@ Phases, in order; any failure raises and the script exits non-zero:
 1. the card (name and power limit from nvidia-smi), compute capability
    9.0, TF32 off for matmul and cuDNN;
 2. build the CUDA kernels from ``src/repro_torch/csrc`` (into
-   ``build/repro_torch/``);
+   ``build/repro_torch/``); ptxas's registers and spills (``fleet_tick``
+   and ``masked_lex_argmin`` must not spill) and a SASS mix;
 3. each kernel against its plain PyTorch version on the card: the
-   simulator's four at the main path's shapes, exactly; ``rwkv6_scan``,
+   simulator's four at the main path's shapes, exactly, and
+   ``masked_lex_argmin`` and ``fleet_tick`` also on edge keys (NaN,
+   signed zeros, infinities, keys at their sentinels), real f32 leads,
+   ragged and unaligned rows, 4,096 lanes, ragged runs of containers and
+   8 pools, exactly; the card's launch floor (``torch.Tensor.fill_`` of
+   one element) beside them; ``rwkv6_scan``,
    ``flash_attention`` and ``ssm_scan`` at rwkv6_7b's, gemma3_12b's and
    jamba's prefill shapes (``ssm_scan`` at 2048 tokens, a ragged 2000
    and the served prompt's 1838), bf16 outputs to 2e-2 and f32 states
@@ -249,6 +255,65 @@ def select_inputs(rng, dev, mixed: bool):
     return mask_t, keys
 
 
+F32_SPECIAL = np.array([0.0, -0.0, 1.0, -1.0, np.inf, -np.inf, np.nan, 2.0**31, 2.0**32,
+                        2.0**31 - 128, 3e9], np.float32)
+I32_SPECIAL = np.array([0, 1, -1, 2**31 - 1, 2**31 - 2, -(2**31 - 1), -(2**31)], np.int32)
+
+
+def select_edge_inputs(rng, dev, lanes, N, dtypes, special=0.2, offset=False):
+    """Rows of ``len(dtypes)`` keys ("f4" / "i4") with real f32 leads
+    (a weighted sum of op counts, entry ticks and priorities, as the
+    scheduler forms them) or small ties, a ``special`` share of them
+    drawn from NaN, signed zeros, infinities and the sentinels; empty,
+    sparse and full lanes. ``offset``: each row one row into a
+    contiguous table (a ``big[1:]`` view), so rows start unaligned
+    when N % 4 != 0."""
+    import torch
+
+    rows = lanes + 1 if offset else lanes
+    mask = rng.random((rows, N)) < np.resize([0.0, 0.05, 0.35, 1.0], rows)[:, None]
+    keys = []
+    for dt in dtypes:
+        odd = rng.random((rows, N)) < special
+        if dt == "f4":
+            lead = (0.37 * rng.integers(1, 9, (rows, N)) + 1e-3 * rng.integers(0, 40, (rows, N)) * 1_000
+                    - 2.5 * rng.integers(0, 3, (rows, N))).astype(np.float32)
+            keys.append(np.where(odd, rng.choice(F32_SPECIAL, (rows, N)), lead).astype(np.float32))
+        else:
+            small = rng.integers(-1, 3, (rows, N)).astype(np.int32)
+            keys.append(np.where(odd, rng.choice(I32_SPECIAL, (rows, N)), small).astype(np.int32))
+    out = [torch.tensor(x, device=dev) for x in (mask, *keys)]
+    if offset:
+        out = [x[1:] for x in out]
+    return out[0], tuple(out[1:])
+
+
+def tick_edge_inputs(rng, dev, mc, mp, NP):
+    """``tick_inputs`` at other sizes: wide exponents in the freed terms
+    (their order shows in the last bits), lane 0 with every container
+    retiring."""
+    import torch
+
+    t = rng.integers(1_000, 90_000, F)
+    status = rng.integers(0, 2, (F, mc))
+    end = t[:, None] + rng.integers(-50, 50, (F, mc))
+    status[0], end[0] = 1, t[0]
+    oom = np.where(rng.random((F, mc)) < 0.3, t[:, None] + rng.integers(-50, 50, (F, mc)), 2**31 - 1)
+    cpus = rng.random((F, mc)) * 10.0 ** rng.integers(-3, 4, (F, mc))
+    ram = rng.random((F, mc)) * 10.0 ** rng.integers(-3, 4, (F, mc))
+    pstatus = rng.integers(0, 7, (F, mp))
+    release = np.where(pstatus == 4, t[:, None] + rng.integers(-3, 3, (F, mp)), 2**31 - 1)
+
+    def i32(x):
+        return torch.tensor(x, dtype=torch.int32, device=dev)
+
+    def f32(x):
+        return torch.tensor(x, dtype=torch.float32, device=dev)
+
+    return (i32(status), i32(end), i32(oom), f32(cpus), f32(ram), i32(rng.integers(0, NP, (F, mc))),
+            i32(pstatus), i32(t[:, None] + rng.integers(-100, 100, (F, mp))), i32(release), i32(t))
+
+
 def assign_inputs(rng, dev):
     import torch
 
@@ -385,6 +450,32 @@ def check_kernels(dev) -> dict:
                       lambda m=mask, k=keys: masked_lex_argmin(m, k),
                       lambda m=mask, k=keys: masked_lex_argmin_ref(m, k),
                       (mask, *keys), None, None, None))
+    # exactly, beside the main path's shapes (none stands for its kernel):
+    # keys that take the sweeps off the tuple minimum (NaN, signed zeros,
+    # infinities, sentinels), real f32 leads, ragged and unaligned rows,
+    # a wide fleet; ragged runs of containers, 8 pools
+    extra = {"represent": False}
+    for label, lanes, N, dtypes, special, offset in (
+        ("K=3 f32/i32/i32 N=MP real leads", F, MP, ("f4", "i4", "i4"), 0.0, False),
+        ("K=3 f32/i32/i32 N=MP edge keys", F, MP, ("f4", "i4", "i4"), 0.2, False),
+        ("K=3 i32/f32/f32 N=MP edge keys", F, MP, ("i4", "f4", "f4"), 0.2, False),
+        ("K=2 i32/i32 N=MC edge keys", F, MC, ("i4", "i4"), 0.2, False),
+        ("K=1 f32 N=33 edge keys", F, 33, ("f4",), 0.2, False),
+        ("K=3 f32/i32/i32 N=201 edge keys, rows one row in (unaligned)", F, 201, ("f4", "i4", "i4"),
+         0.2, True),
+        ("K=2 f32/i32 N=1024 edge keys", F, 1024, ("f4", "i4"), 0.2, False),
+        ("K=3 f32/i32/i32 N=MP F=4096 real leads", 4096, MP, ("f4", "i4", "i4"), 0.0, False),
+    ):
+        mask, keys = select_edge_inputs(rng, dev, lanes, N, dtypes, special, offset)
+        cases.append(("masked_lex_argmin", label,
+                      lambda m=mask, k=keys: masked_lex_argmin(m, k),
+                      lambda m=mask, k=keys: masked_lex_argmin_ref(m, k),
+                      (mask, *keys), None, None, None, extra))
+    for mc, mp in ((33, 200), (200, 1024), (1000, 1024)):
+        args = tick_edge_inputs(rng, dev, mc, mp, 8)
+        cases.append(("fleet_tick", f"MC={mc} MP={mp} NP=8, lane 0 all retiring",
+                      lambda a=args: fleet_tick(*a, num_pools=8),
+                      lambda a=args: fleet_tick_ref(*a, num_pools=8), args, None, None, None, extra))
     args = assign_inputs(rng, dev)
     sizes = dict(max_containers=MC, max_pipelines=MP)
     cases.append(("assign_gather", "", lambda a=args: assign_gather(*a, **sizes),
@@ -512,7 +603,28 @@ def check_kernels(dev) -> dict:
         prev = results.get(name)
         if options.get("represent", True) and (prev is None or row["bound_ms"] > prev["bound_ms"]):
             results[name] = row
+    results["launch_floor"] = launch_floor(dev)
     return results
+
+
+def launch_floor(dev) -> float | None:
+    """The card's launch floor, a yardstick beside the simulator kernels
+    that the port never calls: the device time per call (torch.profiler)
+    of ``torch.Tensor.fill_`` on a one-element tensor, and its time per
+    call (CUDA events); returns the device time (None: not measured)."""
+    import torch
+
+    x = torch.zeros(1, device=dev)
+
+    def fill():
+        x.fill_(1.0)
+
+    ms = timed_ms(fill)
+    dev_ms, launches, _ = device_ms(fill, "FillFunctor")
+    dev_text = "not measured" if dev_ms is None else f"{dev_ms:.5f} ({launches:g} launches per call)"
+    print(f"{CARD}: launch floor: torch.Tensor.fill_ of 1 element: device_ms={dev_text} "
+          f"(profiler) ms={ms:.5f} (per call); a yardstick, not a kernel of the port")
+    return dev_ms
 
 
 # ---------------------------------------------------------------------------
@@ -860,7 +972,9 @@ def card_phase():
 
 
 SASS_OPS = ("HGMMA", "HMMA", "FFMA", "FMUL", "FADD", "MUFU.EX2", "MUFU.LG2", "SHFL", "LDS",
-            "LDGSTS", "BAR.SYNC", "STL", "LDL")
+            "LDGSTS", "BAR.SYNC", "STL", "LDL", "REDUX", "VOTE", "LDG")
+# kernels whose registers must not spill (phase 2 fails otherwise)
+NO_SPILL = ("masked_lex_argmin_kernel", "fleet_tick_kernel")
 
 
 def build_phase() -> None:
@@ -874,11 +988,18 @@ def build_phase() -> None:
 
     lib = cuda_lib.build()
     print(f"phase 2: built {lib.relative_to(ROOT)}")
+    entry, spilled = "", []
     for line in lib.with_suffix(".log").read_text().splitlines():
         if "Compiling entry function" in line:
-            print("  ptxas:", line.split("'")[1][:100] if "'" in line else line.strip())
+            entry = line.split("'")[1] if "'" in line else line.strip()
+            print("  ptxas:", entry[:100])
         elif "registers" in line or "spill" in line or line.startswith("=="):
             print("  ptxas:", line.strip())
+            stores = re.search(r"(\d+) bytes spill stores", line)
+            if stores and int(stores.group(1)) and any(k in entry for k in NO_SPILL):
+                spilled.append(entry)
+    if spilled:
+        raise AssertionError(f"ptxas spills registers in {spilled}")
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not pathlib.Path(tool).exists():
         print("phase 2: SASS instruction mix not measured (no cuobjdump)")
@@ -889,7 +1010,7 @@ def build_phase() -> None:
         if "Function :" in line:
             fn = line.split("Function :")[1].strip()
             if not any(k in fn for k in ("flash_attention_kernel", "rwkv6_scan_kernel",
-                                         "ssm_scan_kernel")):
+                                         "ssm_scan_kernel", *NO_SPILL)):
                 fn = None
         elif fn:
             parts = line.split("*/")
@@ -932,7 +1053,7 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "drives the port on a GPU", file=sys.stderr)
         return 1
-    from repro_torch.kernels import KERNELS
+    from repro_torch.kernels import KERNELS, SIM_KERNELS
 
     walls = {}
     t_all = time.perf_counter()
@@ -987,6 +1108,8 @@ def main() -> int:
             "max_abs_err": m["max_abs_err"], "ms": m["ms"], "device_ms": m["device_ms"],
             "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
             "bound_by": m["bound_by"], "library_ms": m["library_ms"],
+            # the launch floor beside the simulator kernels (bound by launches)
+            **({"floor_ms": measured["launch_floor"]} if name in SIM_KERNELS else {}),
         })
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

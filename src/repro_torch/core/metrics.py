@@ -1,6 +1,7 @@
-"""Execution statistics of a finished simulation (paper Fig. 2): the
-main-path keys of ``repro.core.metrics.summarize``. The statistics of the
-later slices' layers (chaos, closed loop, telemetry) come with them."""
+"""Execution statistics of a finished simulation (paper Fig. 2): the keys
+of ``repro.core.metrics.summarize``. The layers the port has not ported
+yet (data plane, chaos, closed loop) run at their zero defaults, so
+their keys read the values the reference gives with the layer off."""
 from __future__ import annotations
 
 import numpy as np
@@ -27,12 +28,63 @@ def _jain(x) -> float:
     return float(np.sum(x)) ** 2 / (x.size * s2)
 
 
+def _slo_attainment(params, prio, arrival, completion, done) -> dict:
+    """Per priority, the fraction of submitted pipelines that completed
+    within ``params.slo_latency_s``; NaN for a class without a target
+    (0) or without submissions."""
+    out = {}
+    lat_s = (completion - arrival) / TICKS_PER_SECOND
+    for p in Priority:
+        target = params.slo_latency_s[int(p)] if int(p) < len(params.slo_latency_s) else 0.0
+        sel = (arrival < INF_TICK) & (prio == int(p))
+        n = int(np.sum(sel))
+        if target <= 0 or n == 0:
+            out[p.name.lower()] = float("nan")
+        else:
+            out[p.name.lower()] = float(np.sum(sel & done & (lat_s <= target))) / n
+    return out
+
+
+def _closed_loop_stats(state: SimState, params: SimParams, dur_s: float) -> dict:
+    """The overload statistics: zero counters and NaN ratios with the
+    closed loop off."""
+    offered = int(state.offered_total)
+    unique = int(state.offered_unique)
+    admitted = int(state.admitted_total)
+    last_fault = int(state.last_fault_tick)
+    drain = int(state.drain_tick)
+    had_fault = last_fault < INF_TICK
+    drained = drain < INF_TICK
+    window = params.metastable_window_ticks
+    if not had_fault:
+        metastable = False
+    elif window > 0:
+        metastable = (not drained) or (drain - last_fault > window)
+    else:
+        metastable = not drained
+    return {
+        "offered": offered,
+        "admitted": admitted,
+        "shed": int(state.shed_total),
+        "deferred": int(state.deferred_total),
+        "client_retries": int(state.client_retry_events),
+        "offered_load_per_s": offered / dur_s,
+        "admitted_fraction": admitted / offered if offered else float("nan"),
+        "retry_amplification": offered / unique if unique else float("nan"),
+        "time_to_drain_s": (drain - last_fault) / TICKS_PER_SECOND
+        if had_fault and drained else float("nan"),
+        "metastable": bool(metastable),
+    }
+
+
 def summarize(state: SimState, wl: Workload, params: SimParams) -> dict:
     """Statistics of one lane (per-lane shapes, no fleet axis)."""
     status = _np(state.pipe_status)
     arrival = _np(wl.arrival).astype(np.int64)
     completion = _np(state.pipe_completion).astype(np.int64)
     prio = _np(wl.prio)
+    offered_prio = _np(state.offered_prio)
+    admitted_prio = _np(state.admitted_prio)
 
     submitted = arrival < INF_TICK
     done = status == int(PipeStatus.DONE)
@@ -51,6 +103,8 @@ def summarize(state: SimState, wl: Workload, params: SimParams) -> dict:
             "submitted": int(np.sum(submitted & (prio == int(p)))),
             "mean_latency_s": stat(np.mean, sel_lat),
             "p99_latency_s": stat(lambda v: np.percentile(v, 99), sel_lat),
+            "admitted_fraction": float(admitted_prio[int(p)]) / float(offered_prio[int(p)])
+            if offered_prio[int(p)] > 0 else float("nan"),
         }
 
     dur_s = params.duration
@@ -58,7 +112,9 @@ def summarize(state: SimState, wl: Workload, params: SimParams) -> dict:
     cap_ram_s = float(np.sum(_np(state.pool_ram_cap))) * dur_s
     util_cpu = float(np.sum(_np(state.util_cpu_s)))
     util_ram = float(np.sum(_np(state.util_ram_s)))
-    return {
+    hit_gb, moved_gb = float(state.cache_hit_gb), float(state.bytes_moved_gb)
+    outages = int(state.outage_events)
+    out = {
         "submitted": int(np.sum(submitted)),
         "done": int(np.sum(done)),
         "failed": int(np.sum(failed)),
@@ -75,13 +131,37 @@ def summarize(state: SimState, wl: Workload, params: SimParams) -> dict:
         "ram_utilization": util_ram / cap_ram_s if cap_ram_s else 0.0,
         "cost_dollars": float(state.cost_dollars),
         "per_priority": per_prio,
-        "bytes_moved_gb": float(state.bytes_moved_gb),
+        # data plane
+        "cache_hit_gb": hit_gb,
+        "bytes_moved_gb": moved_gb,
+        "cache_hit_rate": hit_gb / (hit_gb + moved_gb) if hit_gb + moved_gb > 0 else 0.0,
+        "cache_hits": int(state.cache_hits),
         "cache_lookups": int(state.cache_lookups),
+        "cache_resident_gb": float(np.sum(_np(state.pool_cache_used))),
         "cold_starts": int(state.cold_starts),
         "warm_starts": int(state.warm_starts),
+        "cold_start_ticks": int(state.cold_start_tick_total),
+        "cold_start_s": float(state.cold_start_tick_total) / TICKS_PER_SECOND,
+        # chaos layer
+        "faults_injected": int(state.crash_events) + outages,
+        "crash_events": int(state.crash_events),
+        "outage_events": outages,
+        "fault_kills": int(state.fault_kills),
+        "timeouts": int(state.timeout_events),
+        "retries": int(state.retry_events),
+        "wasted_work_s": float(state.wasted_ticks) / TICKS_PER_SECOND,
+        "pool_down_s": float(state.pool_down_s),
+        "mttr_s": float(state.pool_down_s) / outages if outages > 0 else float("nan"),
         "goodput_per_s": float(np.sum(done)) / dur_s,
-        "fairness_jain_latency": _jain(lat_s),
+        "slo_attainment": _slo_attainment(params, prio, arrival, completion, done),
     }
+    out.update(_closed_loop_stats(state, params, dur_s))
+    out["fairness_jain_latency"] = _jain(lat_s)
+    offered = offered_prio > 0
+    out["fairness_jain_admission"] = _jain(
+        admitted_prio[offered] / np.maximum(offered_prio[offered], 1)
+    )
+    return out
 
 
 __all__ = ["summarize"]

@@ -8,7 +8,8 @@ empty. One narrowing sweep per key: unmasked entries read the sentinel
 ``BIG = 2**31 - 1`` converted to the key's dtype (2**31 for an f32 key),
 the minimum narrows the mask, emptiness is the first key's minimum
 equalling that sentinel, and the first index achieving the last key's
-minimum wins.
+minimum wins (the first NaN, where one remains, as ``jnp.argmin`` picks
+it).
 
 Keys keep their own dtypes (f32 or int32); they are never stacked into
 one tensor, which would round int32 keys above 2**24 in f32.
@@ -38,12 +39,11 @@ def masked_lex_argmin_ref(mask, keys):
         m = km == b
     big = sentinel(keys[-1])
     km = torch.where(m, keys[-1], big)
-    b = km.amin(-1, keepdim=True)
     if empty is None:
-        empty = b[..., 0] == big
-    n = km.shape[-1]
-    iota = torch.arange(n, dtype=torch.int32, device=km.device)
-    idx = torch.where(km == b, iota, n).amin(-1)
+        empty = km.amin(-1) == big
+    # the first index of the minimum, or of the first NaN where one
+    # remains (torch.argmin picks it, as jnp.argmin does)
+    idx = km.argmin(-1)
     return torch.where(empty, -1, idx).to(torch.int32)
 
 

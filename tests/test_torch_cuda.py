@@ -84,6 +84,40 @@ def test_fleet_tick_kernel_matches_plain(cuda, NP):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("mp", [200, 1024])
+@pytest.mark.parametrize("mc", [33, 200, 1000])
+def test_fleet_tick_kernel_matches_plain_at_ragged_sizes(cuda, mc, mp):
+    """Ragged runs of containers (a partial last run), 8 pools, wide
+    exponents in the freed terms, and lane 0 with every container
+    retiring."""
+    NP = 8
+    rng = np.random.default_rng(mc + mp)
+    t = rng.integers(0, 100, F).astype(np.int32)
+    status = rng.integers(0, 2, (F, mc)).astype(np.int32)
+    end = rng.integers(0, 100, (F, mc)).astype(np.int32)
+    status[0], end[0] = 1, t[0]
+    arrays = (
+        status, end,
+        np.where(rng.random((F, mc)) < 0.3, rng.integers(0, 100, (F, mc)), INF).astype(np.int32),
+        (rng.random((F, mc)) * 10.0 ** rng.integers(-3, 4, (F, mc))).astype(np.float32),
+        (rng.random((F, mc)) * 10.0 ** rng.integers(-3, 4, (F, mc))).astype(np.float32),
+        rng.integers(0, NP, (F, mc)).astype(np.int32),
+        np.asarray([0, 2, 4], np.int32)[rng.integers(0, 3, (F, mp))],
+        rng.integers(0, 150, (F, mp)).astype(np.int32),
+        rng.integers(0, 150, (F, mp)).astype(np.int32),
+        t,
+    )
+    cpu, dev = _pair(arrays, cuda)
+    reset_launch_counts()
+    got = fleet_tick(*dev, num_pools=NP)
+    torch.cuda.synchronize()
+    assert launch_counts()["fleet_tick"] == 1
+    want = fleet_tick_ref(*cpu, num_pools=NP)
+    assert bool(want[1][0].logical_or(want[0][0]).all())   # lane 0: all retire
+    _equal(got, want)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("mp", [32, 200, 256, 1024])
 def test_retire_land_kernel_matches_plain(cuda, mp):
     rng = np.random.default_rng(mp)
@@ -117,6 +151,123 @@ def test_masked_lex_argmin_kernel_matches_plain(cuda, mixed):
     keys = ((rng.integers(0, 3, (F, N)) * 0.5).astype(np.float32), -prio, ticks) if mixed else (prio, -ticks)
     cpu, dev = _pair((mask, *keys), cuda)
     _equal([masked_lex_argmin(dev[0], dev[1:])], [masked_lex_argmin_ref(cpu[0], cpu[1:])])
+
+
+NAN, INF_F = float("nan"), float("inf")
+# rows whose keys take the sweeps off the tuple minimum: NaN, signed
+# zeros, infinities, keys at and above their sentinel
+SELECT_EDGE_ROWS = {
+    "nan-last-key": ([1, 1, 1], [("i4", [0, 0, 0]), ("f4", [2, NAN, 1])]),
+    "nan-first-key": ([1, 1, 0], [("f4", [NAN, 1, 0]), ("i4", [2, 3, 1])]),
+    "nan-k1": ([0, 1, 1, 1], [("f4", [NAN, 1, NAN, NAN])]),
+    "zero-signs": ([1, 1, 1, 1], [("f4", [0.0, -0.0, 0.0, -0.0]), ("i4", [5, 3, 3, 4])]),
+    "inf": ([1, 1, 1, 1], [("f4", [INF_F, -INF_F, -INF_F, 1.0]), ("i4", [0, 2, 1, 0])]),
+    "inf-full-row": ([1, 1, 1], [("f4", [INF_F, INF_F, INF_F]), ("i4", [1, 0, 2])]),
+    "f32-at-sentinel": ([1, 0], [("f4", [2.0**31, 0.0]), ("i4", [0, 0])]),
+    "f32-above-sentinel-full-row": ([1, 1, 1], [("f4", [2.0**32, 2.0**32, 3e9]),
+                                                ("i4", [1, 0, 2])]),
+    "i32-at-sentinel-later-key": ([1, 1, 0, 0], [("i4", [0, 0, 5, 0]), ("i4", [INF, INF, 1, 0]),
+                                                 ("i4", [5, 4, 3, 9])]),
+    "i32-at-sentinel-first-key": ([1, 1, 1], [("i4", [INF, INF, INF]), ("i4", [2, 1, 0])]),
+    "k1": ([0, 1, 1, 1], [("i4", [0, 4, 2, 2])]),
+}
+
+
+def _select_on_card(cuda, mask, keys):
+    """The kernel on the card (one launch) and the plain version on the
+    CPU, on the same rows; their answers must be equal."""
+    cpu, dev = _pair((mask, *keys), cuda)
+    reset_launch_counts()
+    got = masked_lex_argmin(dev[0], dev[1:])
+    torch.cuda.synchronize()
+    assert launch_counts()["masked_lex_argmin"] == 1
+    _equal([got], [masked_lex_argmin_ref(cpu[0], cpu[1:])])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", [None, 256], ids=["own-width", "in-256"])
+@pytest.mark.parametrize("name", list(SELECT_EDGE_ROWS))
+def test_masked_lex_argmin_kernel_matches_plain_on_edge_keys(cuda, name, width):
+    """Each edge row alone, and set at the start of rows of 256 entries
+    (16-byte loads) beside unmasked and masked zero keys."""
+    mask, keys = SELECT_EDGE_ROWS[name]
+    m = np.asarray([mask, mask], bool)
+    ks = [np.asarray([v, v[::-1]], np.dtype(dt)) for dt, v in keys]
+    if width:
+        pad = width - m.shape[1]
+        m = np.concatenate([m, np.arange(2 * pad).reshape(2, pad) % 3 == 0], axis=1)
+        ks = [np.concatenate([k, np.zeros((2, pad), k.dtype)], axis=1) for k in ks]
+    _select_on_card(cuda, m, ks)
+
+
+F32_SPECIAL = np.array([0.0, -0.0, 1.0, -1.0, np.inf, -np.inf, np.nan, 2.0**31, 2.0**32,
+                        2.0**31 - 128, 3e9], np.float32)
+I32_SPECIAL = np.array([0, 1, -1, INF, INF - 1, -INF, -(2**31)], np.int32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N", [1, 33, 64, 200, 256, 1024])
+@pytest.mark.parametrize("kind", ["main-path", "adversarial"])
+def test_masked_lex_argmin_kernel_matches_plain_at_widths(cuda, N, kind):
+    """The head's keys with real f32 leads (a weighted sum of op counts,
+    entry ticks and priorities, as the scheduler forms them), and keys
+    drawn a fifth of the time from NaN, signed zeros, infinities and
+    the sentinels, at K = 1, 2, 3 in every dtype mix; some lanes empty,
+    some full."""
+    rng = np.random.default_rng(N)
+    mask = rng.random((F, N)) < np.resize([0.0, 0.05, 0.35, 1.0], F)[:, None]
+    if kind == "main-path":
+        n_ops = rng.integers(1, 9, (F, N))
+        entered = rng.integers(0, 40, (F, N)) * 1_000
+        prio = rng.integers(0, 3, (F, N))
+        lead = (0.37 * n_ops + 1e-3 * entered - 2.5 * prio).astype(np.float32)
+        _select_on_card(cuda, mask, (lead, (-prio).astype(np.int32), entered.astype(np.int32)))
+        return
+    for K in (1, 2, 3):
+        for f32_keys in range(2**K):
+            keys = []
+            for j in range(K):
+                odd = rng.random((F, N)) < 0.2
+                if (f32_keys >> j) & 1:
+                    small = (rng.integers(0, 3, (F, N)) * 0.5).astype(np.float32)
+                    keys.append(np.where(odd, rng.choice(F32_SPECIAL, (F, N)), small).astype(np.float32))
+                else:
+                    small = rng.integers(-1, 3, (F, N)).astype(np.int32)
+                    keys.append(np.where(odd, rng.choice(I32_SPECIAL, (F, N)), small).astype(np.int32))
+            _select_on_card(cuda, mask, keys)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,shift", [(201, "row"), (256, "element")])
+def test_masked_lex_argmin_kernel_on_unaligned_rows(cuda, N, shift):
+    """Rows whose starts are not 16-byte aligned go through the scalar
+    loads: a contiguous ``big[1:]`` with N % 4 != 0, and a view one
+    element into its storage with N % 4 == 0."""
+    rng = np.random.default_rng(N)
+    mask = rng.random((F + 1, N)) < 0.4
+    keys = (rng.standard_normal((F + 1, N)).astype(np.float32),
+            rng.integers(0, 3, (F + 1, N)).astype(np.int32))
+    cpu = [torch.from_numpy(x) for x in (mask, *keys)]
+    if shift == "row":
+        dev = [x.to(cuda)[1:] for x in cpu]
+        cpu = [x[1:] for x in cpu]
+    else:
+        dev = [x.to(cuda).flatten()[1:1 + F * N].view(F, N) for x in cpu]
+        cpu = [x.flatten()[1:1 + F * N].view(F, N) for x in cpu]
+    assert all(x.is_contiguous() and x.data_ptr() % 16 for x in dev[1:])
+    _equal([masked_lex_argmin(dev[0], dev[1:])], [masked_lex_argmin_ref(cpu[0], cpu[1:])])
+
+
+@pytest.mark.cuda
+def test_masked_lex_argmin_kernel_on_a_wide_fleet(cuda):
+    rng = np.random.default_rng(4096)
+    Fw, N = 4096, 256
+    mask = rng.random((Fw, N)) < 0.3
+    mask[::7] = False
+    keys = ((rng.integers(0, 5, (Fw, N)) * 0.25).astype(np.float32),
+            -rng.integers(0, 3, (Fw, N)).astype(np.int32),
+            rng.integers(0, 50, (Fw, N)).astype(np.int32))
+    _select_on_card(cuda, mask, keys)
 
 
 @pytest.mark.cuda

@@ -29,6 +29,7 @@ from repro_torch.core import engine
 from repro_torch.core.executor import bucket_edges
 from repro_torch.core.scheduler import get_scheduler
 from repro_torch.core.state import init_state
+from test_torch_serving import _assert_summary_equal
 
 TOLERANT = {
     "sum_latency_s", "sum_latency_s_prio", "util_cpu_s", "util_ram_s",
@@ -148,3 +149,19 @@ def test_fleet_run_from_seeds_is_reproducible():
     assert a.done_count.shape == (2,) and int(a.done_count.sum()) > 0
     with pytest.raises(ValueError, match="exactly one"):
         fleet_run(params, device="cpu")
+
+
+def test_summary_has_the_reference_keys_and_slo_attainment():
+    """Every key of ``repro.core.summarize`` (nested ``per_priority`` and
+    ``slo_attainment`` included) at the reference's values, on the
+    reference's seed-0 workload with a nonzero SLO target."""
+    kw = dict(slo_latency_s=(0.5, 0.5, 0.5))
+    wl = j_generate(JParams(**kw))
+    ref = j_run(JParams(**kw), workload=wl)
+    arrays = {f: np.asarray(getattr(wl, f)) for f in wl._fields if getattr(wl, f) is not None}
+    port = run(SimParams(**kw), workload_from_arrays(arrays), device="cpu")
+    mine, theirs = port.summary(), j_summarize(ref.state, ref.workload, ref.params)
+    _assert_summary_equal(mine, theirs, "summary")
+    np.testing.assert_allclose(
+        [mine["slo_attainment"][p] for p in ("batch", "query", "interactive")],
+        [1 / 6, 1 / 6, 0.5])

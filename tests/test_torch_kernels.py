@@ -17,6 +17,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings, strategies as st
 
 from repro.core import scheduler as jsched
 from repro.kernels.sched_select import masked_lex_argmin as j_select
@@ -33,10 +34,11 @@ from repro_torch.core.state import seconds
 from repro_torch.kernels.fold import ordered_sum
 from repro_torch.kernels.sched_select import (
     masked_lex_argmin,
+    masked_lex_argmin_ref,
     select_next_pipe,
     select_victim,
 )
-from repro_torch.kernels.sim_tick import fleet_tick
+from repro_torch.kernels.sim_tick import fleet_tick, fleet_tick_ref
 from repro_torch.kernels.state_update import assign_gather, retire_land
 
 INF = 2**31 - 1
@@ -211,6 +213,148 @@ def test_mixed_keys_are_never_stacked():
     assert int(stacked[0]) == 0  # the JAX-side fault this test pins
 
 
+NAN, INF_F = float("nan"), float("inf")
+F32_BIG = 2.0**31          # BIG as f32, the sentinel of an f32 key
+# (mask row, keys as (dtype, values)) and the index JAX's reference picks
+SELECT_EDGE_CASES = {
+    "nan-last-key": ([1, 1, 1], [("i4", [0, 0, 0]), ("f4", [2, NAN, 1])], 1),
+    "nan-first-key": ([1, 1, 0], [("f4", [NAN, 1, 0]), ("i4", [2, 3, 1])], 0),
+    "nan-unmasked": ([1, 0, 1], [("f4", [2, NAN, 1]), ("i4", [0, 0, 0])], 2),
+    "nan-k1": ([0, 1, 1, 1], [("f4", [NAN, 1, NAN, NAN])], 2),
+    "zero-signs-tie": ([1, 1, 1, 1], [("f4", [0.0, -0.0, 0.0, -0.0]), ("i4", [5, 3, 3, 4])], 1),
+    "zero-signs-k1": ([1, 1], [("f4", [-0.0, 0.0])], 0),
+    "zero-signs-last": ([1, 1, 1], [("i4", [1, 0, 0]), ("f4", [0.0, 0.0, -0.0])], 1),
+    "inf": ([1, 1, 1, 1], [("f4", [INF_F, -INF_F, -INF_F, 1.0]), ("i4", [0, 2, 1, 0])], 2),
+    "inf-beside-unmasked": ([1, 1, 0], [("f4", [INF_F, INF_F, 0.0]), ("i4", [1, 0, 0])], -1),
+    "inf-full-row": ([1, 1, 1], [("f4", [INF_F, INF_F, INF_F]), ("i4", [1, 0, 2])], 1),
+    "f32-at-sentinel": ([1, 0], [("f4", [F32_BIG, 0.0]), ("i4", [0, 0])], -1),
+    "f32-above-sentinel-full-row": (
+        [1, 1, 1], [("f4", [2.0**32, 2.0**32, 3e9]), ("i4", [1, 0, 2])], 2),
+    "f32-above-sentinel-later-key": (
+        [1, 1, 0, 1], [("i4", [0, 0, 0, 1]), ("f4", [2.0**32, 2.0**33, 0.0, 0.0]),
+                       ("i4", [4, 3, 2, 1])], 3),
+    "f32-just-below-sentinel": ([1, 1, 0], [("f4", [2.0**31 - 128, 2.0**31 - 128, 0.0])], 0),
+    "i32-at-sentinel-later-key-widens": (
+        [1, 1, 0, 0], [("i4", [0, 0, 5, 0]), ("i4", [INF, INF, 1, 0]), ("i4", [5, 4, 3, 9])], 2),
+    "i32-at-sentinel-last-key": ([1, 1, 0], [("i4", [0, 0, 0]), ("i4", [INF, INF, 7])], 0),
+    "i32-at-sentinel-first-key": ([1, 1, 1], [("i4", [INF, INF, INF]), ("i4", [2, 1, 0])], -1),
+    "i32-extremes": ([1, 1, 1], [("i4", [-(2**31), -(2**31), INF - 1]), ("i4", [3, 2, 1])], 1),
+    "k1-f32": ([1, 1, 1, 0], [("f4", [3.0, 1.0, 1.0, 0.0])], 1),
+    "k1-i32": ([0, 1, 1, 1], [("i4", [0, 4, 2, 2])], 2),
+    "k1-empty": ([0, 0, 0], [("i4", [0, 1, 2])], -1),
+}
+
+
+def _edge_case(mask, keys):
+    m = np.asarray([mask], bool)
+    return m, tuple(np.asarray([v], np.dtype(dt)) for dt, v in keys)
+
+
+@pytest.mark.parametrize("name", list(SELECT_EDGE_CASES))
+def test_masked_lex_argmin_plain_matches_jax_ref_on_edge_keys(name):
+    """NaN (the first NaN of the last key wins, as ``jnp.argmin``
+    picks it), signed zeros, infinities and keys at and above their
+    sentinel (an empty first key, a widening later key)."""
+    mask, keys, want = SELECT_EDGE_CASES[name]
+    m, keys = _edge_case(mask, keys)
+    port = masked_lex_argmin(_t(m), tuple(map(_t, keys)))
+    ref = j_select_ref(jnp.asarray(m), tuple(map(jnp.asarray, keys)))
+    assert int(np.asarray(ref)[0]) == want
+    np.testing.assert_array_equal(port.numpy(), np.asarray(ref))
+
+
+F32_SPECIAL = np.array([0.0, -0.0, 1.0, -1.0, 0.5, np.inf, -np.inf, np.nan, 2.0**31,
+                        2.0**32, 2.0**31 - 128, -(2.0**31), 3e9], np.float32)
+I32_SPECIAL = np.array([0, 1, -1, 2, INF, INF - 1, -INF, -(2**31), 7], np.int32)
+
+
+def _order_key(bits):
+    """``order_key`` of ``csrc/sched_select.cu`` on f32 bit patterns:
+    int32 values in the float order, -0 equal to +0."""
+    b = np.where(bits == np.int32(-(2**31)), 0, bits).astype(np.int64)
+    return np.where(b < 0, b ^ 0x7FFFFFFF, b)
+
+
+def _register_pass_model(mask, keys, vec):
+    """The algorithm of ``csrc/sched_select.cu`` in numpy: each of a
+    warp's 32 threads takes the lexicographic minimum of (order keys,
+    index) over its masked entries in ascending index (thread
+    ``(i // 4) % 32`` of entry ``i`` on the 16-byte path, ``i % 32`` on
+    the scalar one); the warp reduces the tuples one component at a
+    time; the tuple's index is the answer unless the mask is empty (-1),
+    a masked f32 key is NaN, or a component of the winner reaches its
+    key's sentinel, where the kernel runs the sweeps (``ref.py``)."""
+    m = mask.numpy()
+    F, N = m.shape
+    comps = np.zeros((3, F, N), np.int64)
+    nan = np.zeros((F, N), bool)
+    bigs = [INF] * 3
+    for j, k in enumerate(keys):
+        k = k.numpy()
+        if k.dtype == np.float32:
+            comps[j], bigs[j] = _order_key(k.view(np.int32)), 0x4F000000
+            nan |= np.isnan(k)
+        else:
+            comps[j] = k
+    entry = np.arange(N)
+    thread = (entry // 4) % 32 if vec else entry % 32
+    sweeps = masked_lex_argmin_ref(mask, keys).numpy()
+    out = np.empty(F, np.int32)
+    for f in range(F):
+        if not m[f].any():
+            out[f] = -1
+            continue
+        best = []
+        for th in range(32):
+            t = (INF,) * 4
+            for i in entry[(thread == th) & m[f]]:
+                a = tuple(int(c) for c in comps[:, f, i])
+                if a < t[:3]:
+                    t = (*a, int(i))
+            best.append(t)
+        tie, w = np.ones(32, bool), []
+        for c in range(4):
+            vals = np.array([b[c] for b in best])
+            w.append(np.where(tie, vals, INF).min())
+            tie &= vals == w[-1]
+        fast = not (nan[f] & m[f]).any() and all(w[j] < bigs[j] for j in range(3))
+        out[f] = w[3] if fast else sweeps[f]
+    return out
+
+
+@settings(max_examples=60, deadline=None)
+@given(
+    seed=st.integers(0, 100_000),
+    N=st.sampled_from([1, 2, 3, 5, 7, 11, 31, 33, 64, 200, 256, 257, 520]),
+    K=st.integers(1, 3),
+    f32_keys=st.integers(0, 7),
+    special=st.sampled_from([0.0, 0.2, 0.6]),
+)
+def test_register_pass_with_guard_matches_sweeps(seed, N, K, f32_keys, special):
+    """The kernel's one pass over registers, its guard and its slow path
+    equal the sweeps of ``masked_lex_argmin_ref`` (and JAX's) on keys
+    drawn from NaN, signed zeros, infinities, values at and above the
+    sentinels and small ties, with empty, sparse and full masks."""
+    rng = np.random.default_rng(seed)
+    F = 4
+    mask = rng.random((F, N)) < np.array([0.0, 0.1, 0.5, 1.0])[:, None]
+    keys = []
+    for j in range(K):
+        odd = rng.random((F, N)) < special
+        if (f32_keys >> j) & 1:
+            small = (rng.integers(0, 3, (F, N)) * 0.5).astype(np.float32)
+            keys.append(np.where(odd, rng.choice(F32_SPECIAL, (F, N)), small).astype(np.float32))
+        else:
+            small = rng.integers(-1, 3, (F, N)).astype(np.int32)
+            keys.append(np.where(odd, rng.choice(I32_SPECIAL, (F, N)), small).astype(np.int32))
+    tm, tk = _t(mask), tuple(map(_t, keys))
+    want = masked_lex_argmin_ref(tm, tk).numpy()
+    np.testing.assert_array_equal(
+        want, np.asarray(j_select_ref(jnp.asarray(mask), tuple(map(jnp.asarray, keys)))))
+    for vec in (True, False):
+        np.testing.assert_array_equal(_register_pass_model(tm, tk, vec), want, err_msg=f"vec={vec}")
+
+
 def test_select_helpers_match_scheduler_oracles():
     rng = np.random.default_rng(3)
     F, MP, MC = 6, 32, 32
@@ -333,3 +477,54 @@ def test_retire_fold_in_parallel_runs_matches_ordered_sum_and_ref(MP):
     np.testing.assert_array_equal(_bits(model[:, 0]), _bits(port[5].numpy()))
     np.testing.assert_array_equal(_bits(model[:, 1:]), _bits(port[6].numpy()))
     assert int(done_hit.sum()) > 0
+
+
+def _ballot_fold(values, retired, pool, num_pools):
+    """The freed-sum fold of ``csrc/sim_tick.cu`` in numpy f32: per run
+    of 32 containers (one warp) and pool q, the ballot of the run's
+    retiring containers of pool q, its set bits walked in ascending
+    order, each term added to the run's sum; then per pool the runs'
+    sums added in run order."""
+    F, MC = values.shape
+    runs = -(-MC // 32)
+    out = np.zeros((F, num_pools), np.float32)
+    for f in range(F):
+        for q in range(num_pools):
+            acc = np.float32(0.0)
+            for r in range(runs):
+                bits = 0
+                for lane in range(min(32, MC - 32 * r)):
+                    c = 32 * r + lane
+                    if retired[f, c] and pool[f, c] == q:
+                        bits |= 1 << lane
+                run = np.float32(0.0)
+                while bits:
+                    src = (bits & -bits).bit_length() - 1
+                    bits &= bits - 1
+                    run = np.float32(run + values[f, 32 * r + src])
+                acc = np.float32(acc + run)
+            out[f, q] = acc
+    return out
+
+
+@pytest.mark.parametrize("NP", [1, 3, 8])
+@pytest.mark.parametrize("MC", [1, 31, 32, 33, 64, 200, 1000])
+def test_fleet_tick_ballot_fold_matches_ordered_sum_and_ref(MC, NP):
+    rng = np.random.default_rng(MC * 10 + NP)
+    F, MP = 3, 32
+    args = list(_tick_tables(rng, F, MC, MP, NP, exact_sizes=False))
+    # wide exponents: the order of the sums shows in their last bits
+    args[3] = (rng.random((F, MC)) * 10.0 ** rng.integers(-3, 4, (F, MC))).astype(np.float32)
+    args[4] = (rng.random((F, MC)) * 10.0 ** rng.integers(-3, 4, (F, MC))).astype(np.float32)
+    # lane 0: every container retires
+    args[0][0], args[1][0] = 1, args[9][0]
+    status, end, oom, cpus, ram, pool, *_, t = args
+    running = status == 1
+    retired = running & ((oom <= t[:, None]) | (end <= t[:, None]))
+    assert retired[0].all()
+    port = fleet_tick_ref(*map(_t, args), num_pools=NP)
+    onehot = (pool[:, None, :] == np.arange(NP)[None, :, None]) & retired[:, None, :]
+    for values, got in ((cpus, port[3]), (ram, port[4])):
+        model = _ballot_fold(values, retired, pool, NP)
+        np.testing.assert_array_equal(_bits(model), _bits(ordered_sum(_t(values), _t(onehot)).numpy()))
+        np.testing.assert_array_equal(_bits(model), _bits(got.numpy()))

@@ -64,9 +64,8 @@ def test_pipelines_and_workload_arrays_equal_jax():
 
 
 def _assert_summary_equal(got: dict, want: dict, ctx: str):
+    assert set(got) == set(want), (ctx, set(got) ^ set(want))
     for key, w in want.items():
-        if key not in got:
-            continue  # a key of a layer the port has not ported yet
         g = got[key]
         if isinstance(w, dict):
             _assert_summary_equal(g, w, f"{ctx}.{key}")
