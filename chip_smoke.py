@@ -14,7 +14,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    and ``masked_lex_argmin`` must not spill) and a SASS mix;
 3. each kernel against its plain PyTorch version on the card: the
    simulator's four at the main path's shapes, exactly, and
-   ``masked_lex_argmin`` and ``fleet_tick`` also on edge keys (NaN,
+   ``retire_land`` also with its timeout branch on (beside the
+   timeout-off case in its JSON row), ``masked_lex_argmin`` and
+   ``fleet_tick`` also on edge keys (NaN,
    signed zeros, infinities, keys at their sentinels), real f32 leads,
    ragged and unaligned rows, 4,096 lanes, ragged runs of containers and
    8 pools, exactly; the card's launch floor (``torch.Tensor.fill_`` of
@@ -33,6 +35,13 @@ Phases, in order; any failure raises and the script exits non-zero:
 5. ``fleet_run`` of 64 seeds at the engine-throughput configuration,
    on CUDA and on the CPU, compared lane by lane;
 6. the simulator kernels' launches in phases 4 and 5, each > 0;
+6b. the chaos layer at phase 5's configuration with two pools,
+   ``priority_pool`` and crashes, outages, stragglers, timeouts and
+   retries on: ``run`` at seed 0 and the 64-lane ``fleet_run`` on CUDA
+   against the CPU port, every fault class firing over the fleet,
+   ``retire_land`` launched with its timeout branch; wall time,
+   simulated s per wall s, launches and the device's busy share beside
+   phase 5's;
 7. serving rwkv6_7b at full width (random weights from a seed):
    ``evaluate_policies`` on CUDA picks the policy, then a 4-slot
    ``ContinuousBatcher`` serves 8 requests of 512-2048 prompt tokens;
@@ -82,8 +91,15 @@ F, MC, MP, K = 64, 64, 256, 16
 # (stated tolerance rtol 1e-5); every other field must be equal exactly
 TOLERANT_FIELDS = {
     "sum_latency_s", "sum_latency_s_prio", "util_cpu_s", "util_ram_s",
-    "cost_dollars", "util_log",
+    "cost_dollars", "util_log", "pool_down_s",
 }
+# the chaos layer's knobs (phase 6b): tools/record_telemetry_capture.py's
+# CHAOS set, scaled to a 1 s horizon
+CHAOS = dict(
+    crash_mtbf_ticks=5_000.0, outage_mtbf_ticks=20_000.0, outage_duration_ticks=5_000.0,
+    straggler_prob=0.15, straggler_factor=4.0, timeout_ticks=10_000, max_retries=3,
+    base_backoff_ticks=500,
+)
 RTOL = 1e-5
 # the LM kernels against their plain versions: bf16 outputs 2e-2 (an
 # ulp of bf16 apart after sums in another order), f32 2e-4
@@ -213,7 +229,11 @@ def tick_inputs(rng, dev, NP):
             i32(pstatus), i32(arrival), i32(release), i32(t))
 
 
-def retire_inputs(rng, dev):
+def retire_inputs(rng, dev, timeout: bool = False):
+    """The landing's rows; with ``timeout``, a quarter of the containers
+    flagged timed (so about a quarter of the completing ones time out,
+    several timed and done on one pipeline at once), and the branch's
+    ``ctr_start``, ``timed`` and ``tick`` in place."""
     import torch
 
     t = rng.integers(10_000, 90_000, F)
@@ -232,8 +252,9 @@ def retire_inputs(rng, dev):
     def b(x):
         return torch.tensor(x, dtype=torch.bool, device=dev)
 
+    timed = b(rng.random((F, MC)) < 0.25) if timeout else None
     return (i32(ctr_pipe), i32(ctr_end), i32(ctr_start), b(oomed), b(done),
-            None, i32(arrival), i32(prio), i32(t))
+            timed, i32(arrival), i32(prio), i32(t))
 
 
 def select_inputs(rng, dev, mixed: bool):
@@ -440,9 +461,16 @@ def check_kernels(dev) -> dict:
     args = retire_inputs(rng, dev)
     # timeout off: the landing reads ctr_pipe, ctr_end, the two masks,
     # arrival and prio (not ctr_start, timed or tick)
-    cases.append(("retire_land", "", lambda a=args: retire_land(*a),
+    cases.append(("retire_land", "timeout off", lambda a=args: retire_land(*a),
                   lambda a=args: retire_land_ref(*a),
                   (args[0], args[1], args[3], args[4], args[6], args[7]), None, None, None))
+    # timeout on (its own inputs, so the other cases draw what they drew):
+    # it reads every input; its row rides in the timeout-off row's JSON
+    args = retire_inputs(np.random.default_rng(17), dev, timeout=True)
+    cases.append(("retire_land", "timeout on",
+                  lambda a=args: retire_land(*a, timeout_on=True),
+                  lambda a=args: retire_land_ref(*a, timeout_on=True),
+                  args, None, None, None, {"represent": False, "attach": "timeout_on"}))
     for mixed in (False, True):
         mask, keys = select_inputs(rng, dev, mixed)
         label = "K=3 f32/i32/i32 N=MP" if mixed else "K=2 i32/i32 N=MC"
@@ -548,7 +576,7 @@ def check_kernels(dev) -> dict:
                        "operations": (6.0 * per_state, CORE_OPS_PER_S)}, None,
                       (LM_TOL["bf16"], LM_TOL["f32"]), {"plain_reps": dict(reps=3, inner=1)}))
 
-    results = {}
+    results, attached = {}, {}
     for name, label, kernel, plain, ins, ops, library, tols, *options in cases:
         options = options[0] if options else {}
         got = kernel()
@@ -598,11 +626,16 @@ def check_kernels(dev) -> dict:
         # the exps of ssm_scan are operations of the special-function units
         row = {"max_abs_err": err, "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
                "bound_ms": bound_ms, "bound_by": "bytes" if bound_by == "bytes" else "operations",
-               "library_ms": library_ms}
-        # the case with the largest bound stands for its kernel in the JSON line
+               "library_ms": library_ms, "bytes": moved}
+        # the case with the largest bound stands for its kernel in the JSON
+        # line; an attached case rides in that row under its own key
         prev = results.get(name)
-        if options.get("represent", True) and (prev is None or row["bound_ms"] > prev["bound_ms"]):
+        if "attach" in options:
+            attached.setdefault(name, {})[options["attach"]] = row
+        elif options.get("represent", True) and (prev is None or row["bound_ms"] > prev["bound_ms"]):
             results[name] = row
+    for name, extra in attached.items():
+        results[name].update(extra)
     results["launch_floor"] = launch_floor(dev)
     return results
 
@@ -672,26 +705,45 @@ def run_phase(dev) -> dict:
     return counts
 
 
-def fleet_phase(dev) -> dict:
-    import torch
+def fleet_params(**kw):
+    """Phase 5's configuration: benchmarks/engine_throughput.py's fleet."""
+    from repro_torch import SimParams
 
-    from repro_torch import SimParams, fleet_run, make_workload_batch
-    from repro_torch.kernels import launch_counts, reset_launch_counts
-
-    params = SimParams(
+    base = dict(
         duration=1.0, waiting_ticks_mean=5_000, op_base_seconds_mean=0.03,
         op_base_seconds_sigma=1.2, op_ram_gb_mean=2.0, max_pipelines=128,
         max_containers=64, scheduling_algo="priority",
     )
-    seeds = list(range(64))
-    wls = make_workload_batch(params, seeds)
+    return SimParams(**{**base, **kw})
+
+
+def timed_fleet(params, wls, dev):
+    """``fleet_run`` of ``wls`` on ``dev`` with the launch counts set to 0
+    just before it and read just after; returns (states, wall s, counts,
+    retire_land's launches with the timeout branch on)."""
+    import torch
+
+    from repro_torch import fleet_run
+    from repro_torch.kernels import launch_counts, reset_launch_counts, retire_land
+
     reset_launch_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     states = fleet_run(params, workloads=wls, device=dev)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    counts = launch_counts()
+    return states, wall, launch_counts(), retire_land.timeout_launches
+
+
+def fleet_phase(dev) -> tuple[dict, dict]:
+    """Phase 5; returns the launches and the numbers phase 6b prints
+    beside its own."""
+    from repro_torch import fleet_run, make_workload_batch
+
+    params = fleet_params()
+    seeds = list(range(64))
+    wls = make_workload_batch(params, seeds)
+    states, wall, counts, _ = timed_fleet(params, wls, dev)
     ref = fleet_run(params, workloads=wls, device="cpu")
     compare_states(states, ref, "fleet_run(64 seeds)")
     done = states.done_count.cpu()
@@ -702,14 +754,16 @@ def fleet_phase(dev) -> dict:
           f"{sim_s / wall:.3f} simulated s per wall s, done per lane "
           f"mean {float(done.float().mean()):.2f}, equal to the CPU port lane by lane")
     print("phase 5 launches:", json.dumps(counts))
-    profile_fleet(params, wls, dev)
-    return counts
+    busy = profile_fleet(params, wls, dev, "phase 5")
+    return counts, {"wall_s": wall, "sim_s_per_wall_s": sim_s / wall,
+                    "launches": sum(counts.values()), **busy}
 
 
-def profile_fleet(params, wls, dev) -> None:
+def profile_fleet(params, wls, dev, label: str) -> dict:
     """Where the fleet run's time goes: one more run under torch.profiler,
     its wall time against the summed device time of every CUDA kernel
-    (the device's busy share), and the kernels that take the most."""
+    (the device's busy share), and the kernels that take the most;
+    returns the busy share and the kernel launches (empty: not measured)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -724,15 +778,80 @@ def profile_fleet(params, wls, dev) -> None:
     rows = [e for e in prof.key_averages()
             if str(getattr(e, "device_type", "")).endswith("CUDA")]
     if not rows:
-        print("phase 5 profile: the trace holds no CUDA kernels; device busy share not measured")
-        return
+        print(f"{label} profile: the trace holds no CUDA kernels; device busy share not measured")
+        return {}
     busy_ms = sum(e.device_time_total for e in rows) / 1e3
     launches = sum(e.count for e in rows)
-    print(f"{CARD}: phase 5 profile: wall {wall * 1e3:.1f} ms (under the profiler), device busy "
+    print(f"{CARD}: {label} profile: wall {wall * 1e3:.1f} ms (under the profiler), device busy "
           f"{busy_ms:.1f} ms ({100 * busy_ms / (wall * 1e3):.1f}% of wall), "
           f"{launches} kernel launches")
     for e in sorted(rows, key=lambda e: -e.device_time_total)[:8]:
         print(f"  {e.device_time_total / 1e3:9.3f} ms  {e.count:6d}x  {e.key[:90]}")
+    return {"busy_share": busy_ms / (wall * 1e3), "device_launches": launches}
+
+
+def chaos_phase(dev, faults_off: dict) -> tuple[dict, dict]:
+    """Phase 6b: the chaos layer at phase 5's configuration with two pools
+    and ``priority_pool``: ``run`` at seed 0 and the 64-lane
+    ``fleet_run``, each on CUDA against the CPU port; every fault class
+    fires over the fleet and ``retire_land`` runs its timeout branch.
+    Returns the launches of the run and of the fleet."""
+    import torch
+
+    from repro_torch import fleet_run, generate_workload, make_workload_batch, run
+    from repro_torch.kernels import SIM_KERNELS, launch_counts, reset_launch_counts, retire_land
+
+    params = fleet_params(num_pools=2, scheduling_algo="priority_pool", **CHAOS)
+    wl = generate_workload(params)
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = run(params, wl, device=dev)
+    torch.cuda.synchronize()
+    run_wall = time.perf_counter() - t0
+    run_counts, run_timeout = launch_counts(), retire_land.timeout_launches
+    compare_states(res.state, run(params, wl, device="cpu").state, "chaos run(seed 0)")
+    summary = res.summary()
+    keys = ("done", "failed", "faults_injected", "crash_events", "outage_events",
+            "fault_kills", "timeouts", "retries", "wasted_work_s", "pool_down_s", "mttr_s")
+    print(f"{CARD}: phase 6b: chaos run(seed 0) on {dev}: wall {run_wall:.3f} s, {res.events} "
+          f"events, equal to the CPU port under the contract; "
+          + json.dumps({k: summary[k] for k in keys}))
+    print("phase 6b run launches:", json.dumps(run_counts), f"retire_land with the timeout "
+          f"branch: {run_timeout}")
+
+    seeds = list(range(64))
+    wls = make_workload_batch(params, seeds)
+    states, wall, counts, timeout_launches = timed_fleet(params, wls, dev)
+    compare_states(states, fleet_run(params, workloads=wls, device="cpu"),
+                   "chaos fleet_run(64 seeds)")
+    fired = {name: int(getattr(states, name).sum()) for name in (
+        "crash_events", "outage_events", "timeout_events", "retry_events", "fault_kills",
+        "failed_count")}
+    fired["stragglers"] = int((wls.faults.straggler > 1).sum())
+    quiet = [name for name, n in fired.items() if n <= 0]
+    if quiet:
+        raise AssertionError(f"phase 6b: fault classes that never fired: {quiet}")
+    for name in SIM_KERNELS:
+        if counts[name] <= 0 or run_counts[name] <= 0:
+            raise AssertionError(f"phase 6b: {name} was not launched")
+    if timeout_launches <= 0 or timeout_launches != counts["retire_land"]:
+        raise AssertionError(f"phase 6b: retire_land ran its timeout branch {timeout_launches} "
+                             f"of {counts['retire_land']} times")
+    sim_s = len(seeds) * params.duration
+    print(f"{CARD}: phase 6b: chaos fleet_run of {len(seeds)} lanes on {dev}: wall {wall:.3f} s "
+          f"({faults_off['wall_s']:.3f} s faults off, phase 5), {sim_s / wall:.3f} simulated s "
+          f"per wall s ({faults_off['sim_s_per_wall_s']:.3f}), {sum(counts.values())} wrapper "
+          f"launches ({faults_off['launches']}), equal to the CPU port lane by lane; fired over "
+          f"the fleet: " + json.dumps(fired))
+    print("phase 6b fleet launches:", json.dumps(counts),
+          f"retire_land with the timeout branch: {timeout_launches}")
+    busy = profile_fleet(params, wls, dev, "phase 6b")
+    if busy and faults_off.get("busy_share") is not None:
+        print(f"{CARD}: phase 6b: device busy {100 * busy['busy_share']:.1f}% of wall under the "
+              f"profiler ({100 * faults_off['busy_share']:.1f}% faults off, phase 5), "
+              f"{busy['device_launches']} kernel launches ({faults_off['device_launches']})")
+    return run_counts, counts
 
 
 # ---------------------------------------------------------------------------
@@ -972,15 +1091,16 @@ def card_phase():
 
 
 SASS_OPS = ("HGMMA", "HMMA", "FFMA", "FMUL", "FADD", "MUFU.EX2", "MUFU.LG2", "SHFL", "LDS",
-            "LDGSTS", "BAR.SYNC", "STL", "LDL", "REDUX", "VOTE", "LDG")
+            "LDGSTS", "BAR.SYNC", "STL", "LDL", "REDUX", "VOTE", "LDG", "ATOMS")
 # kernels whose registers must not spill (phase 2 fails otherwise)
 NO_SPILL = ("masked_lex_argmin_kernel", "fleet_tick_kernel")
 
 
 def build_phase() -> None:
     """Phase 2: build the kernels; print what ptxas says of each, and the
-    instruction mix of the LM kernels' SASS (cuobjdump, where the toolkit
-    has it). Fails if a bf16 attention kernel holds no tensor-core
+    instruction mix of the LM kernels', the two simulator kernels' that
+    must not spill and both ``retire_land`` instantiations' SASS
+    (cuobjdump, where the toolkit has it). Fails if a bf16 attention kernel holds no tensor-core
     instruction."""
     import shutil
 
@@ -1010,7 +1130,7 @@ def build_phase() -> None:
         if "Function :" in line:
             fn = line.split("Function :")[1].strip()
             if not any(k in fn for k in ("flash_attention_kernel", "rwkv6_scan_kernel",
-                                         "ssm_scan_kernel", *NO_SPILL)):
+                                         "ssm_scan_kernel", "retire_land_kernel", *NO_SPILL)):
                 fn = None
         elif fn:
             parts = line.split("*/")
@@ -1018,9 +1138,12 @@ def build_phase() -> None:
             words = parts[1].split() if len(parts) > 2 else []
             words = words[1:] if words and words[0].startswith("@") else words
             op = words[0] if words else ""
+            if op:
+                # every instruction, beside the classes below
+                mix.setdefault(fn, dict.fromkeys(("ALL", *SASS_OPS), 0))["ALL"] += 1
             for want in SASS_OPS:
                 if op == want or op.startswith(want + "."):
-                    mix.setdefault(fn, dict.fromkeys(SASS_OPS, 0))[want] += 1
+                    mix[fn][want] += 1
     for fn, counts in mix.items():
         print(f"  sass: {fn[:110]} " + " ".join(f"{k}={v}" for k, v in counts.items() if v))
         if "ssm_scan_kernel" in fn and counts["MUFU.EX2"]:
@@ -1069,8 +1192,9 @@ def main() -> int:
     phase(2, build_phase)
     measured = phase(3, check_kernels, dev)
     run_counts = phase(4, run_phase, dev)
-    fleet_counts = phase(5, fleet_phase, dev)
+    fleet_counts, faults_off = phase(5, fleet_phase, dev)
     phase(6, sim_launch_phase, run_counts, fleet_counts)
+    chaos_counts = phase("6b", chaos_phase, dev, faults_off)
     rwkv_counts = phase(7, serve_phase, 7, "rwkv6_7b", ("rwkv6_scan",), dev)
     gemma_counts = phase(8, serve_phase, 8, "gemma3_12b", ("flash_attention",), dev)
     phase(9, parity_phase, dev)
@@ -1097,7 +1221,8 @@ def main() -> int:
         "ssm_scan": ("src/repro_torch/csrc/ssm_scan.cu",
                      "src/repro/kernels/ssm_scan/kernel.py:60"),
     }
-    main_runs = (run_counts, fleet_counts, rwkv_counts, gemma_counts, jamba_counts)
+    main_runs = (run_counts, fleet_counts, *chaos_counts, rwkv_counts, gemma_counts,
+                 jamba_counts)
     rows = []
     for name in KERNELS:
         m = measured[name]
@@ -1110,6 +1235,8 @@ def main() -> int:
             "bound_by": m["bound_by"], "library_ms": m["library_ms"],
             # the launch floor beside the simulator kernels (bound by launches)
             **({"floor_ms": measured["launch_floor"]} if name in SIM_KERNELS else {}),
+            # retire_land's timeout branch, beside its timeout-off case
+            **({"timeout_on": m["timeout_on"]} if "timeout_on" in m else {}),
         })
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -1,13 +1,14 @@
 """repro_torch: the Eudoxia FaaS scheduling simulator on PyTorch and CUDA.
 
 A port of the JAX package ``repro`` for one NVIDIA H100, with the same
-layout. It runs the simulator's main path — ``run()`` and
-``fleet_run()`` with every optional layer at its zero default, under the
-``naive``, ``priority`` and ``priority_pool`` schedulers — through four
+layout. It runs the simulator — ``run()`` and ``fleet_run()`` under the
+``naive``, ``priority`` and ``priority_pool`` schedulers, with the chaos
+layer (crashes, outages, stragglers, timeouts, retries) on or off and
+the other optional layers at their zero defaults — through four
 hand-written CUDA kernels, and serving (``launch/serve.py``: the
 simulator picks the policy, ``serving/`` batches requests through
-``models/`` for ``rwkv6_7b`` and ``gemma3_12b``) through two more
-(``kernels/``, sources in ``csrc/``). Entry points run on CUDA unless
+``models/`` for ``rwkv6_7b``, ``gemma3_12b`` and jamba) through three
+more (``kernels/``, sources in ``csrc/``). Entry points run on CUDA unless
 the caller passes ``device="cpu"``, which runs the kernels' plain
 PyTorch versions instead.
 """

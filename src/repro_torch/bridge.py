@@ -16,7 +16,7 @@ from typing import Mapping
 import numpy as np
 import torch
 
-from .core.state import SimState, Workload
+from .core.state import FaultTrace, SimState, Workload
 
 _DTYPES = {
     np.dtype(np.int32): torch.int32,
@@ -34,17 +34,23 @@ def _tensor(name: str, x, device) -> torch.Tensor:
 
 def workload_from_arrays(arrays: Mapping[str, np.ndarray], device="cpu") -> Workload:
     """A port ``Workload`` from the reference's workload fields, with
-    (``arrival`` is ``[F, MP]``) or without (``[MP]``) a lane axis."""
-    for extra in ("faults", "policy"):
-        if arrays.get(extra) is not None:
-            raise NotImplementedError(
-                f"workload field {extra!r} waits for ROADMAP queue 1, items 9 and 10"
-            )
+    (``arrival`` is ``[F, MP]``) or without (``[MP]``) a lane axis.
+    ``faults``, where given, is the reference's fault trace: a mapping of
+    its five fields by name, with the same lane axis as the workload."""
+    if arrays.get("policy") is not None:
+        raise NotImplementedError("workload field 'policy' waits for ROADMAP queue 1, item 9")
     lane = np.asarray(arrays["arrival"]).ndim == 1
-    fields = {}
-    for name in Workload._fields[:10]:
-        t = _tensor(name, arrays[name], device)
-        fields[name] = t[None] if lane else t
+
+    def tensors(names, source):
+        out = {}
+        for name in names:
+            t = _tensor(name, source[name], device)
+            out[name] = t[None] if lane else t
+        return out
+
+    fields = tensors(Workload._fields[:10], arrays)
+    if arrays.get("faults") is not None:
+        fields["faults"] = FaultTrace(**tensors(FaultTrace._fields, arrays["faults"]))
     return Workload(**fields)
 
 

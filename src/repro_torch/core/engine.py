@@ -5,12 +5,14 @@ step. Here every field is a ``[F, ...]`` tensor and the loop is Python:
 
 * each iteration is one event for every lane still running: the
   ``fleet_tick`` phase-1 read, :func:`executor.apply_fused_phase1`, the
-  scheduler, :func:`executor.apply_decision`, the jump to the lane's
-  next event from the ``nxt_retire`` / ``nxt_release`` registers and
-  the sorted arrivals, and the utilisation integral over the jump;
+  fault pass (:func:`executor.apply_faults`, crashes and outages), the
+  scheduler (on a view with down pools masked), the down-pool filter,
+  :func:`executor.apply_decision`, the jump to the lane's next event
+  from the ``nxt_retire`` / ``nxt_release`` / ``nxt_fault`` registers
+  and the sorted arrivals, and the integrals over the jump;
 * finished lanes pass through untouched (the reference's ``keep`` mask);
 * the loop ends when no lane has ``tick < horizon``: one host read per
-  event.
+  event, which also reads the fault pass's gate.
 
 ``run()`` is a fleet of one; ``sweep.fleet_run`` the F-lane case.
 """
@@ -23,8 +25,9 @@ import torch
 
 from . import executor
 from .params import SimParams, load_params
-from .scheduler import SchedDecision, get_scheduler
-from .state import SimState, Workload, init_state
+from .faults import attach_fault_trace
+from .scheduler import SchedDecision, get_scheduler, mask_down_pools
+from .state import SimState, Workload, init_state, workload_lane, workload_to
 from .types import INF_TICK, ContainerStatus, PipeStatus
 from .workload import get_workload
 from ..kernels.sim_tick import fleet_tick
@@ -49,15 +52,10 @@ def _raise_later(what: str, slice_: str):
 
 # the knobs of the layers later slices bring, by their ROADMAP item; any
 # of them away from its default raises, even where the reference would
-# leave it inert (a retry budget with no fault source)
+# leave it inert
 _LATER_KNOBS = {
     "item 9 (the data plane)": (
         "cache_gb_per_pool", "scan_ticks_per_gb", "cold_start_ticks",
-    ),
-    "item 10 (chaos layer)": (
-        "crash_mtbf_ticks", "outage_mtbf_ticks", "outage_duration_ticks",
-        "straggler_prob", "straggler_factor", "timeout_ticks", "max_retries",
-        "base_backoff_ticks", "max_fault_events",
     ),
     "item 11 (closed loop)": (
         "client_max_inflight", "client_think_ticks", "client_max_retries",
@@ -135,6 +133,12 @@ def _next_event(state: SimState, wl: Workload, tick: torch.Tensor,
     suspended = state.pipe_status == int(PipeStatus.SUSPENDED)
     next_release = torch.where(suspended, state.pipe_release, INF_TICK).amin(-1)
     nxt = torch.minimum(torch.minimum(next_arrival, next_retire), next_release)
+    if wl.faults is not None:
+        # the next crash and outage start past ``tick`` (the sorted trace's
+        # first entry beyond it), and the next pool recovery
+        ft = wl.faults
+        for times in (ft.crash_time, ft.outage_start, state.pool_down_until):
+            nxt = torch.minimum(nxt, torch.where(times > t, times, INF_TICK).amin(-1))
     nxt = torch.where(acted, torch.minimum(nxt, tick + 1), nxt)
     return torch.maximum(nxt, tick + 1)
 
@@ -145,9 +149,15 @@ def _acted(dec: SchedDecision) -> torch.Tensor:
 
 def _lane_decide(params, scheduler_fn, state, wl, arr_sorted, tick, active,
                  edges):
-    """From the scheduler on, for every lane: decide, apply, jump to the
-    next event and integrate over the jump. Returns ``(state, dec)``."""
-    dec = scheduler_fn(state, wl, params, active)
+    """From the scheduler on, for every lane: decide (on a view with the
+    down pools masked, and without assignments onto them), apply, jump
+    to the next event and integrate over the jump. Returns
+    ``(state, dec)``."""
+    if params.outage_mtbf_ticks > 0:
+        dec = scheduler_fn(mask_down_pools(state, tick), wl, params, active)
+        dec = _filter_down_pool_assignments(dec, state, tick, params)
+    else:
+        dec = scheduler_fn(state, wl, params, active)
     state = executor.apply_decision(state, wl, dec, tick, params)
     nxt, cursor = _next_event_registers(state, arr_sorted, tick, _acted(dec))
     nxt = torch.clamp_max(nxt, params.horizon_ticks)
@@ -155,8 +165,32 @@ def _lane_decide(params, scheduler_fn, state, wl, arr_sorted, tick, active,
     return state._replace(tick=nxt, nxt_arrival_cursor=cursor), dec
 
 
-def event_step(params, scheduler_fn, state, wl, arr_sorted, edges, active):
-    """One event for every lane: phase 1, then :func:`_lane_decide`.
+def _filter_down_pool_assignments(dec: SchedDecision, state: SimState,
+                                  tick: torch.Tensor, params: SimParams) -> SchedDecision:
+    """Drop the assignments onto a down pool (schedulers that size by
+    pool caps would commit onto dead capacity otherwise)."""
+    down = tick[:, None] < state.pool_down_until
+    pool = dec.assign_pool.clamp(0, params.num_pools - 1).long()
+    bad = (dec.assign_pipe >= 0) & torch.gather(down, 1, pool)
+    return dec._replace(assign_pipe=torch.where(bad, -1, dec.assign_pipe))
+
+
+def fault_gate(states: SimState, active: torch.Tensor, params: SimParams):
+    """``(any lane active, fault pass due)`` in one host read. The pass
+    is due when some active lane's ``nxt_fault`` has come; on the lanes
+    where it has not, the pass changes nothing, so running it for the
+    whole fleet (or not at all) is exact."""
+    if not params.fault_events_active:
+        return bool(active.any()), False
+    due = active & (states.tick >= states.nxt_fault)
+    go, due = torch.stack([active.any(), due.any()]).tolist()
+    return go, due
+
+
+def event_step(params, scheduler_fn, state, wl, arr_sorted, edges, active,
+               faults_due: bool = False):
+    """One event for every lane: phase 1, the fault pass where
+    ``faults_due`` (:func:`fault_gate`), then :func:`_lane_decide`.
     Returns the advanced state (finished lanes not yet masked) and the
     decision."""
     tick = state.tick
@@ -167,6 +201,8 @@ def event_step(params, scheduler_fn, state, wl, arr_sorted, edges, active):
         tick, num_pools=params.num_pools,
     )
     state = executor.apply_fused_phase1(state, wl, tick, params, ph)
+    if faults_due:
+        state = executor.apply_faults(state, wl, tick, params)
     return _lane_decide(params, scheduler_fn, state, wl, arr_sorted, tick,
                         active, edges)
 
@@ -193,19 +229,19 @@ def run_lane_major_engine(
     events = 0
     while True:
         active = states.tick < horizon
-        if not bool(active.any()):
+        go, faults_due = fault_gate(states, active, params)
+        if not go:
             return states, events
         new, _ = event_step(params, scheduler_fn, states, wls, arr_sorted,
-                            edges, active)
+                            edges, active, faults_due)
         states = _keep(active, new, states)
         events += 1
 
 
 def _check_workload(wl: Workload, params: SimParams) -> None:
-    if wl.faults is not None or wl.policy is not None:
+    if wl.policy is not None:
         raise NotImplementedError(
-            "workloads with fault traces or policy vectors wait for ROADMAP "
-            "queue 1, items 9 and 10"
+            "workloads with policy vectors wait for ROADMAP queue 1, item 9"
         )
     if wl.arrival.dim() != 2:
         raise ValueError(
@@ -218,6 +254,15 @@ def _check_workload(wl: Workload, params: SimParams) -> None:
             f"workload is shaped {got} (max_pipelines, max_ops_per_pipeline) "
             f"but params say {want}"
         )
+    if wl.faults is not None:
+        F, MP = wl.arrival.shape
+        MF = wl.faults.crash_time.shape[-1]
+        shapes = [tuple(x.shape) for x in wl.faults]
+        if shapes != [(F, MF)] * 4 + [(F, MP)]:
+            raise ValueError(
+                f"fault trace fields are shaped {shapes}; expected [F, MF] x 4 "
+                f"and [F, MP] = {(F, MP)}"
+            )
 
 
 def run(
@@ -240,14 +285,18 @@ def run(
     check_main_path(params)
     device = resolve_device(device)
     wl = workload if workload is not None else get_workload(params, device=device)
+    if params.fault_trace_active and wl.faults is None:
+        # a bare workload (a trace or a caller's) under the chaos layer:
+        # the fault trace comes from params.seed
+        wl = attach_fault_trace(wl, params)
     _check_workload(wl, params)
-    wl = Workload(*(x.to(device).contiguous() for x in wl[:10]))
+    wl = workload_to(wl, device)
     if wl.arrival.shape[0] != 1:
         raise ValueError("run() takes a fleet of one; use fleet_run for more lanes")
     state, events = run_lane_major_engine(params, wl, params.scheduling_algo)
     return SimResult(
         state=SimState(*(x[0] for x in state)),
-        workload=Workload(*(x[0] for x in wl[:10])),
+        workload=workload_lane(wl, 0),
         params=params,
         events=events,
     )
@@ -257,6 +306,7 @@ __all__ = [
     "SimResult",
     "check_main_path",
     "event_step",
+    "fault_gate",
     "resolve_device",
     "run",
     "run_lane_major_engine",

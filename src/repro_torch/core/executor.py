@@ -1,17 +1,19 @@
 """Executor (paper §3.2.2): the state transitions of one event, lane-major.
 
 Order inside an event: phase 1 (arrivals, suspension releases,
-completions and OOMs, from the ``fleet_tick`` masks and the
-``retire_land`` landing) -> scheduler -> :func:`apply_decision`
-(suspensions, rejections, assignments landed by ``assign_gather``) ->
-:func:`integrate` (utilisation and cost over the jump to the next
-event). Every function maps a fleet ``[F, ...]`` to a fleet.
+completions, OOMs and timeouts, from the ``fleet_tick`` masks and the
+``retire_land`` landing) -> the fault pass (:func:`apply_faults`:
+crashes and outages, when either is on) -> scheduler ->
+:func:`apply_decision` (suspensions, rejections, assignments landed by
+``assign_gather``) -> :func:`integrate` (utilisation, cost and pool
+downtime over the jump to the next event). Every function maps a fleet
+``[F, ...]`` to a fleet.
 
-This slice runs with the optional layers at their zero defaults: no
-timeout, no cold start, no cache or scan cost. The transitions keep the
-warm-slot bookkeeping and the data-plane counters the reference keeps
-with those knobs at zero (``cold_starts``, ``warm_starts``,
-``cache_lookups``, ``bytes_moved_gb``).
+The chaos layer (crashes, outages, stragglers, timeouts, retries) is
+ported; the data plane is not: no cold start, no cache or scan cost.
+The transitions keep the warm-slot bookkeeping and the data-plane
+counters the reference keeps with those knobs at zero (``cold_starts``,
+``warm_starts``, ``cache_lookups``, ``bytes_moved_gb``).
 """
 from __future__ import annotations
 
@@ -52,10 +54,12 @@ def apply_fused_phase1(
     (oomed, done, _new_status, freed_cpu, freed_ram,
      fresh, rel, nxt_retire, nxt_release) = ph
     retired = oomed | done
-    (oom_hit, done_hit, _timed_hit, end_of, _wasted,
+    timeout_on = params.timeout_ticks > 0
+    (oom_hit, done_hit, timed_hit, end_of, timed_wasted,
      lat_sum, lat_prio, dprio, n_done, n_oom) = retire_land(
-        state.ctr_pipe, state.ctr_end, state.ctr_start, oomed, done, None,
-        wl.arrival, wl.prio, tick,
+        state.ctr_pipe, state.ctr_end, state.ctr_start, oomed, done,
+        state.ctr_timed if timeout_on else None, wl.arrival, wl.prio, tick,
+        timeout_on=timeout_on,
     )
     t = _col(tick)
     pipe_status = torch.where(fresh, WAITING, state.pipe_status)
@@ -69,7 +73,7 @@ def apply_fused_phase1(
     )
     pipe_entered = torch.where(oom_hit, t, pipe_entered)
 
-    return state._replace(
+    state = state._replace(
         nxt_retire=nxt_retire,
         nxt_release=nxt_release,
         pipe_status=pipe_status,
@@ -98,6 +102,162 @@ def apply_fused_phase1(
         sum_latency_s_prio=state.sum_latency_s_prio + lat_prio,
         done_prio=state.done_prio + dprio,
     )
+    if timeout_on:
+        # a container killed at its deadline retires like a completion,
+        # but its pipeline re-queues under the retry policy
+        state = state._replace(
+            ctr_timed=state.ctr_timed & ~retired,
+            timeout_events=state.timeout_events
+            + (done & state.ctr_timed).sum(-1, dtype=_I32),
+            wasted_ticks=state.wasted_ticks + timed_wasted,
+        )
+        state = requeue_faulted(state, tick, params, timed_hit)
+    return state
+
+
+def requeue_faulted(
+    state: SimState, tick: torch.Tensor, params: SimParams, hit: torch.Tensor
+) -> SimState:
+    """The retry policy for the ``[F, MP]`` pipelines ``hit`` by a fault
+    kill or a timeout: SUSPENDED until ``tick + max(backoff, 1)``, with
+    ``backoff = min(base_backoff_ticks * 2**min(attempt, 30), 2**30)``
+    in f32, or FAILED once ``max_retries`` attempts are spent."""
+    attempt = state.pipe_retries
+    exhausted = hit & (attempt >= params.max_retries)
+    retry = hit & ~exhausted
+    # base * 2**k in f32 is exact; 2**k is built from its exponent bits
+    pow2 = (attempt.clamp(0, 30) + 127).mul(1 << 23).view(_F32)
+    base = torch.full((), float(np.float32(params.base_backoff_ticks)), dtype=_F32,
+                      device=tick.device)
+    backoff = torch.clamp_max(base * pow2, float(2**30)).to(_I32)
+    release = _col(tick) + torch.clamp_min(backoff, 1)
+    nxt_release = torch.minimum(
+        state.nxt_release, torch.where(retry, release, INF_TICK).amin(-1))
+    return state._replace(
+        pipe_status=torch.where(
+            exhausted, int(PipeStatus.FAILED),
+            torch.where(retry, int(PipeStatus.SUSPENDED), state.pipe_status),
+        ),
+        pipe_completion=torch.where(exhausted, _col(tick), state.pipe_completion),
+        pipe_release=torch.where(retry, release, state.pipe_release),
+        pipe_retries=state.pipe_retries + retry.to(_I32),
+        failed_count=state.failed_count + exhausted.sum(-1, dtype=_I32),
+        retry_events=state.retry_events + retry.sum(-1, dtype=_I32),
+        nxt_release=nxt_release,
+    )
+
+
+def apply_faults(
+    state: SimState, wl: Workload, tick: torch.Tensor, params: SimParams
+) -> SimState:
+    """The crashes and outages of the fault trace due at ``tick``, for
+    every lane; the engine runs it only when crashes or outages are on.
+
+    * ``crash_cursor`` / ``outage_cursor`` move past the trace entries
+      at or before ``tick``;
+    * each due crash kills the longest-running container (start tick
+      ascending, then slot ascending);
+    * each due outage marks its pool down until its end tick, kills
+      every container on it and cools the slots kept warm on it;
+    * killed containers free their resources (in the fold order of
+      ``kernels/fold.py``), their slots stay cold, and their pipelines
+      re-queue through :func:`requeue_faulted`;
+    * ``nxt_fault`` becomes the next crash, outage start or recovery.
+
+    On a lane with nothing due (``tick < nxt_fault``) it changes
+    nothing."""
+    ft = wl.faults
+    MC = state.ctr_status.shape[-1]
+    NP = state.pool_cpu_cap.shape[-1]
+    MP = state.pipe_status.shape[-1]
+    MF = ft.crash_time.shape[-1]
+    dev = tick.device
+    t = _col(tick)
+    fidx = torch.arange(MF, dtype=_I32, device=dev)
+    pools = torch.arange(NP, dtype=_I32, device=dev)
+    running = state.ctr_status == RUNNING
+    nxt_fault = torch.full_like(tick, INF_TICK)
+
+    # ---- transient crashes -------------------------------------------------
+    crash_cursor, k_due = state.crash_cursor, torch.zeros_like(tick)
+    crash_kill = torch.zeros_like(running)
+    if params.crash_mtbf_ticks > 0:
+        crash_cursor = torch.searchsorted(ft.crash_time, t, right=True)[:, 0].to(_I32)
+        k_due = crash_cursor - state.crash_cursor
+        # rank the running containers by (start, slot); the k_due
+        # longest-running are struck
+        slots = torch.arange(MC, dtype=_I32, device=dev)
+        s = state.ctr_start
+        earlier = (s[:, None, :] < s[:, :, None]) | (
+            (s[:, None, :] == s[:, :, None]) & (slots[None, :] < slots[:, None]))
+        rank = (running[:, None, :] & earlier).sum(-1, dtype=_I32)
+        crash_kill = running & (rank < _col(k_due))
+        nxt_fault = torch.minimum(nxt_fault, torch.where(
+            fidx >= _col(crash_cursor), ft.crash_time, INF_TICK).amin(-1))
+
+    # ---- pool outages ------------------------------------------------------
+    outage_cursor, n_due = state.outage_cursor, torch.zeros_like(tick)
+    pool_down_until = state.pool_down_until
+    out_kill = warm_down = torch.zeros_like(running)
+    if params.outage_mtbf_ticks > 0:
+        outage_cursor = torch.searchsorted(ft.outage_start, t, right=True)[:, 0].to(_I32)
+        due = (fidx >= _col(state.outage_cursor)) & (fidx < _col(outage_cursor))
+        n_due = outage_cursor - state.outage_cursor
+        pool_t = torch.where(due, ft.outage_pool, NP)                  # NP: no hit
+        hit_oh = pool_t[:, :, None] == pools                           # [F, MF, NP]
+        down_new = hit_oh.any(1)
+        ends = torch.where(due, ft.outage_end, 0)[:, :, None]
+        pool_down_until = torch.maximum(
+            pool_down_until, torch.where(hit_oh, ends, 0).amax(1))
+        # indices are clamped before they gather (an empty row's -1); the
+        # masks around each gather decide, as in the reference
+        on_down = torch.gather(down_new, 1, state.ctr_pool.clamp(0, NP - 1).long())
+        out_kill = running & ~crash_kill & on_down
+        # slots kept warm for a pool that goes down lose their warmth
+        warm_down = (state.slot_warm_pool >= 0) & torch.gather(
+            down_new, 1, state.slot_warm_pool.clamp(0, NP - 1).long())
+        nxt_fault = torch.minimum(nxt_fault, torch.where(
+            fidx >= _col(outage_cursor), ft.outage_start, INF_TICK).amin(-1))
+        nxt_fault = torch.minimum(nxt_fault, torch.where(
+            pool_down_until > t, pool_down_until, INF_TICK).amin(-1))
+    kill = crash_kill | out_kill
+    cold = kill | warm_down                    # a struck slot is cold too
+
+    # ---- free the struck resources, clear the struck containers ------------
+    pool_oh = (state.ctr_pool[:, None, :] == pools[:, None]) & kill[:, None, :]
+    freed_cpu = ordered_sum(state.ctr_cpus, pool_oh)
+    freed_ram = ordered_sum(state.ctr_ram, pool_oh)
+    still = running & ~kill
+    nxt_retire = torch.where(
+        still, torch.minimum(state.ctr_end, state.ctr_oom), INF_TICK).amin(-1)
+    pid = torch.where(kill, state.ctr_pipe, MP)                        # MP: no hit
+    fault_hit = (pid[:, :, None] == torch.arange(MP, dtype=_I32, device=dev)).any(1)
+    wasted = torch.where(kill, t - state.ctr_start, 0).sum(-1, dtype=_I32)
+
+    state = state._replace(
+        ctr_status=torch.where(kill, C_EMPTY, state.ctr_status),
+        ctr_pipe=torch.where(kill, -1, state.ctr_pipe),
+        ctr_end=torch.where(kill, INF_TICK, state.ctr_end),
+        ctr_oom=torch.where(kill, INF_TICK, state.ctr_oom),
+        ctr_start=torch.where(kill, INF_TICK, state.ctr_start),
+        ctr_prio=torch.where(kill, -1, state.ctr_prio),
+        ctr_warm=state.ctr_warm & ~kill,
+        ctr_timed=state.ctr_timed & ~kill,
+        slot_warm_pool=torch.where(cold, -1, state.slot_warm_pool),
+        slot_warm_until=torch.where(cold, 0, state.slot_warm_until),
+        pool_cpu_free=state.pool_cpu_free + freed_cpu,
+        pool_ram_free=state.pool_ram_free + freed_ram,
+        nxt_retire=nxt_retire,
+        pool_down_until=pool_down_until,
+        crash_cursor=crash_cursor,
+        outage_cursor=outage_cursor,
+        nxt_fault=nxt_fault,
+        crash_events=state.crash_events + k_due,
+        outage_events=state.outage_events + n_due,
+        fault_kills=state.fault_kills + kill.sum(-1, dtype=_I32),
+        wasted_ticks=state.wasted_ticks + wasted,
+    )
+    return requeue_faulted(state, tick, params, fault_hit)
 
 
 def apply_decision(
@@ -152,6 +312,8 @@ def apply_decision(
         pool_ram_free=state.pool_ram_free + freed_ram,
         preempt_events=state.preempt_events + susp.sum(-1, dtype=_I32),
     )
+    if params.timeout_ticks > 0:
+        state = state._replace(ctr_timed=state.ctr_timed & ~susp)
 
     # ---- 2. rejections (failures returned to the user) ---------------------
     rej = dec.reject & (state.pipe_status == WAITING)
@@ -236,9 +398,26 @@ def _apply_assignments_fused(
         bmg = torch.where(v, bmg + miss_gb[:, k], bmg)
     dur, oom_off = container_schedule(wl, pipe_c, cpus, ram)
 
-    # -- row timing (no cold start, no scan cost, no timeout) ----------------
+    # -- row timing (no cold start, no scan cost) ----------------------------
+    if params.straggler_prob > 0:
+        # a straggler's factor (>= 1) stretches its duration and its OOM
+        # offset alike: one f32 product each, then ceil
+        factor = torch.gather(wl.faults.straggler, 1, pipe_c.long())
+
+        def stretch(x):
+            return torch.clamp_max(torch.ceil(x.to(_F32) * factor), float(2**30)).to(_I32)
+
+        dur = stretch(dur)
+        oom_off = torch.where(oom_off == INF_TICK, INF_TICK, stretch(oom_off))
     end = t + dur
     oom = torch.where(oom_off == INF_TICK, INF_TICK, t + torch.minimum(oom_off, dur))
+    timed = torch.zeros_like(valid)
+    if params.timeout_ticks > 0:
+        # a container that would outlive its deadline is killed there, as
+        # a timeout (an OOM due at the same tick wins)
+        deadline = t + int(params.timeout_ticks)
+        timed = end > deadline
+        end = torch.minimum(end, deadline)
     nxt_retire = torch.minimum(
         state.nxt_retire,
         torch.where(valid, torch.minimum(end, oom), INF_TICK).amin(-1),
@@ -250,11 +429,11 @@ def _apply_assignments_fused(
     # -- fused landing (kernels/state_update) --------------------------------
     prio = torch.gather(wl.prio, 1, pipe_c.long())
     (hit_c, l_pipe, l_pool, l_cpus, l_ram, l_end, l_oom, l_prio, l_warm,
-     _l_timed, hit_p, l_pcpus, l_pram) = assign_gather(
+     l_timed, hit_p, l_pcpus, l_pram) = assign_gather(
         valid, slot, pipe_c, pool, cpus, ram, end, oom, prio, is_warm,
-        torch.zeros_like(valid), max_containers=MC, max_pipelines=MP,
+        timed, max_containers=MC, max_pipelines=MP,
     )
-    return state._replace(
+    state = state._replace(
         nxt_retire=nxt_retire,
         pipe_status=torch.where(hit_p, int(PipeStatus.RUNNING), state.pipe_status),
         pipe_last_cpus=torch.where(hit_p, l_pcpus, state.pipe_last_cpus),
@@ -280,6 +459,9 @@ def _apply_assignments_fused(
         cold_starts=state.cold_starts + n_cold,
         warm_starts=state.warm_starts + n_warm,
     )
+    if params.timeout_ticks > 0:
+        state = state._replace(ctr_timed=torch.where(hit_c, l_timed, state.ctr_timed))
+    return state
 
 
 def bucket_edges(params: SimParams, device) -> torch.Tensor:
@@ -315,17 +497,25 @@ def integrate(
     add = overlap_s[:, :, None, None] * torch.stack(
         [used_cpu, used_ram], dim=-1
     )[:, None, :, :]
-    return state._replace(
+    state = state._replace(
         util_cpu_s=state.util_cpu_s + used_cpu * _col(dt_s),
         util_ram_s=state.util_ram_s + used_ram * _col(dt_s),
         cost_dollars=state.cost_dollars + cost,
         util_log=state.util_log + add,
     )
+    if params.outage_mtbf_ticks > 0:
+        # the downtime integral: every recovery tick is an event, so a
+        # pool down at t0 is down over the whole of [t0, t1)
+        n_down = (_col(t0) < state.pool_down_until).to(_F32).sum(-1)
+        state = state._replace(pool_down_s=state.pool_down_s + dt_s * n_down)
+    return state
 
 
 __all__ = [
     "apply_fused_phase1",
+    "apply_faults",
     "apply_decision",
+    "requeue_faulted",
     "bucket_edges",
     "integrate",
 ]

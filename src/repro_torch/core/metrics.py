@@ -1,7 +1,8 @@
 """Execution statistics of a finished simulation (paper Fig. 2): the keys
 of ``repro.core.metrics.summarize``. The layers the port has not ported
-yet (data plane, chaos, closed loop) run at their zero defaults, so
-their keys read the values the reference gives with the layer off."""
+yet (data plane, closed loop) run at their zero defaults, so their keys
+read the values the reference gives with the layer off; the chaos
+layer's keys report its counters."""
 from __future__ import annotations
 
 import numpy as np

@@ -285,6 +285,19 @@ def get_scheduler(key: str) -> Callable:
     raise KeyError(f"unknown scheduler {key!r}; ported: {sorted(SCHEDULERS)}")
 
 
+def mask_down_pools(sim: SimState, tick: torch.Tensor) -> SimState:
+    """The scheduler's view of ``sim`` with the free capacity of every
+    down pool (``tick < pool_down_until``) zeroed: free-resource-driven
+    schedulers then place elsewhere. The committed state keeps the true
+    free counts; schedulers that size by caps (``naive``) are caught by
+    the engine's decision filter."""
+    down = tick[:, None] < sim.pool_down_until
+    return sim._replace(
+        pool_cpu_free=torch.where(down, 0.0, sim.pool_cpu_free),
+        pool_ram_free=torch.where(down, 0.0, sim.pool_ram_free),
+    )
+
+
 __all__ = [
     "EPS",
     "SchedDecision",
@@ -293,6 +306,7 @@ __all__ = [
     "decision_loop",
     "empty_decision",
     "get_scheduler",
+    "mask_down_pools",
     "onehot_add",
     "onehot_set",
     "policy_family",

@@ -12,12 +12,26 @@ is encoded in status columns, and ``INF_TICK`` marks "never".
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
 from .params import SimParams
 from .types import INF_TICK, N_PRIO, TICKS_PER_SECOND, ContainerStatus, PipeStatus
+
+
+class FaultTrace(NamedTuple):
+    """The chaos layer's fault events of a fleet, drawn up front like the
+    arrival table (``core/faults.py``). Shapes: ``[F, MF]`` (MF =
+    max_fault_events) and ``[F, MP]``. Unused entries hold INF_TICK
+    (times), 0 (pools) or 1.0 (stragglers), so a trace of padding is
+    inert."""
+
+    crash_time: torch.Tensor    # [F, MF] int32 sorted crash ticks (INF = unused)
+    outage_start: torch.Tensor  # [F, MF] int32 sorted outage start ticks
+    outage_end: torch.Tensor    # [F, MF] int32 outage recovery ticks
+    outage_pool: torch.Tensor   # [F, MF] int32 struck pool per outage
+    straggler: torch.Tensor     # [F, MP] f32 per-pipeline slowdown (1 = none)
 
 
 class Workload(NamedTuple):
@@ -34,10 +48,23 @@ class Workload(NamedTuple):
     op_alpha: torch.Tensor  # [F, MP, MO] f32 CPU-scaling exponent
     op_out: torch.Tensor    # [F, MP, MO] f32 GB produced by each operator
     pipe_out: torch.Tensor  # [F, MP] f32 GB, Σ op_out per pipeline
-    # the chaos layer's fault trace and the dynamic "policy" scheduler's
-    # per-lane vector are later slices; this slice runs with both None
-    faults: None = None
+    # the chaos layer's fault trace (None: no fault source); the dynamic
+    # "policy" scheduler's per-lane vector is a later slice (None)
+    faults: Optional[FaultTrace] = None
     policy: None = None
+
+
+def workload_to(wl: Workload, device) -> Workload:
+    """``wl`` on ``device``, every table contiguous, its fault trace with it."""
+    faults = None if wl.faults is None else FaultTrace(
+        *(x.to(device).contiguous() for x in wl.faults))
+    return Workload(*(x.to(device).contiguous() for x in wl[:10]), faults=faults)
+
+
+def workload_lane(wl: Workload, i: int) -> Workload:
+    """Lane ``i`` of a fleet, lane axis dropped (per-lane shapes)."""
+    faults = None if wl.faults is None else FaultTrace(*(x[i] for x in wl.faults))
+    return Workload(*(x[i] for x in wl[:10]), faults=faults)
 
 
 class SimState(NamedTuple):
@@ -99,7 +126,7 @@ class SimState(NamedTuple):
     cold_starts: torch.Tensor        # [] int32
     warm_starts: torch.Tensor        # [] int32
     cold_start_tick_total: torch.Tensor  # [] int32
-    # ---- chaos layer (a later slice; held at their initial values) ---------
+    # ---- chaos layer ---------------------------------------------------------
     pipe_retries: torch.Tensor       # [MP] int32
     ctr_timed: torch.Tensor          # [MC] bool
     pool_down_until: torch.Tensor    # [NP] int32
@@ -207,7 +234,9 @@ def init_state(params: SimParams, F: int, device) -> SimState:
         pool_down_until=zeros((NP,), i32),
         crash_cursor=zeros((), i32),
         outage_cursor=zeros((), i32),
-        nxt_fault=full((), INF_TICK, i32),
+        # due (0) when crashes or outages are on, so the fault pass runs
+        # at the first event and sets the true register; INF_TICK otherwise
+        nxt_fault=full((), 0 if params.fault_events_active else INF_TICK, i32),
         crash_events=zeros((), i32),
         outage_events=zeros((), i32),
         timeout_events=zeros((), i32),
@@ -334,7 +363,10 @@ def seconds(ticks: torch.Tensor) -> torch.Tensor:
 
 
 __all__ = [
+    "FaultTrace",
     "Workload",
+    "workload_to",
+    "workload_lane",
     "SimState",
     "init_state",
     "container_schedule",

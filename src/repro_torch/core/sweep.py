@@ -12,8 +12,9 @@ from typing import Any, Sequence
 import torch
 
 from .engine import _check_workload, check_main_path, resolve_device, run_lane_major_engine
+from .faults import attach_fault_traces
 from .params import SimParams
-from .state import SimState, Workload
+from .state import FaultTrace, SimState, Workload, workload_to
 from .workload import generate_workload
 
 
@@ -21,9 +22,14 @@ def make_workload_batch(
     params: SimParams, seeds: Sequence[int], *, device="cpu"
 ) -> Workload:
     """One seed-generated workload per lane (lane ``i`` is
-    ``generate_workload(params, seeds[i])``)."""
+    ``generate_workload(params, seeds[i])``, its fault trace included)."""
     lanes = [generate_workload(params, s) for s in seeds]
-    return Workload(*(torch.cat(parts).to(device) for parts in zip(*(wl[:10] for wl in lanes))))
+    faults = None
+    if params.fault_trace_active:
+        faults = FaultTrace(*(torch.cat(parts) for parts in zip(*(wl.faults for wl in lanes))))
+    wls = Workload(*(torch.cat(parts) for parts in zip(*(wl[:10] for wl in lanes))),
+                   faults=faults)
+    return workload_to(wls, device)
 
 
 def fleet_run(
@@ -54,8 +60,12 @@ def fleet_run(
     device = resolve_device(device)
     if workloads is None:
         workloads = make_workload_batch(params, seeds)
+    if params.fault_trace_active and workloads.faults is None:
+        # a caller's batch carries no traces: each lane's comes from
+        # params.seed and its lane index
+        workloads = attach_fault_traces(workloads, params)
     _check_workload(workloads, params)
-    wls = Workload(*(x.to(device).contiguous() for x in workloads[:10]))
+    wls = workload_to(workloads, device)
     states, _ = run_lane_major_engine(
         params, wls, scheduler_key or params.scheduling_algo
     )

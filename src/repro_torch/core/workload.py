@@ -30,8 +30,9 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from .faults import attach_fault_trace
 from .params import SimParams
-from .state import Workload
+from .state import Workload, workload_to
 from .types import INF_TICK, TICKS_PER_SECOND, Pipeline
 
 GB_QUANTUM = 1.0 / 1024.0
@@ -41,13 +42,11 @@ def generate_workload(
     params: SimParams, seed: int | None = None, *, device="cpu"
 ) -> Workload:
     """One seed-generated workload as a fleet of one (``[1, ...]``);
-    ``seed`` defaults to ``params.seed``."""
-    if params.fault_trace_active:
-        raise NotImplementedError(
-            "fault traces wait for the chaos-layer slice (ROADMAP queue 1, "
-            "item 10)"
-        )
-    g = torch.Generator().manual_seed(int(params.seed if seed is None else seed))
+    ``seed`` defaults to ``params.seed``. With crashes, outages or
+    stragglers on it carries the seed's fault trace (``core/faults.py``,
+    drawn from generators of its own)."""
+    seed = int(params.seed if seed is None else seed)
+    g = torch.Generator().manual_seed(seed)
     MP, MO = params.max_pipelines, params.max_ops_per_pipeline
     f32, i32 = torch.float32, torch.int32
 
@@ -113,7 +112,10 @@ def generate_workload(
         op_out=op_out,
         pipe_out=op_out.sum(1, dtype=f32),
     )
-    return Workload(*(x[None].to(device) for x in wl[:10]))
+    wl = Workload(*(x[None] for x in wl[:10]))
+    if params.fault_trace_active:
+        wl = attach_fault_trace(wl, params, seed)
+    return workload_to(wl, device)
 
 
 def _op_out_gb_quantized(out_gb: float) -> float:

@@ -2,11 +2,16 @@
 //
 // retire_land replaces the TPU kernel
 // src/repro/kernels/state_update/kernel.py, retire_land_kernel (body
-// _retire_kernel), with the timeout branch off. It lands the [MC]
+// _retire_kernel), in both of its variants. It lands the [MC]
 // container retirements on the [MP] pipeline axis: the OOM / done /
 // timeout hit masks, end_of (the max end tick over a pipeline's
 // completing containers, 0 where none), the latency sums (total and per
-// priority, f32) and the done / OOM counts (int32). Semantics follow
+// priority, f32) and the done / OOM counts (int32). With the timeout
+// branch on (the template's kTimeout), a completing container whose
+// timed flag is set timed out: it lands in timed_hit instead of the
+// completions, and timed_wasted sums (tick - ctr_start) over the lane's
+// timed containers in int32, wrapping as XLA's sum does, so the order
+// of the warp sums and the atomicAdd does not matter. Semantics follow
 // src/repro/kernels/state_update/ref.py, retire_land_ref.
 //
 // assign_gather replaces the TPU kernel
@@ -35,7 +40,9 @@
 // 8 runs), and after a barrier one thread per sum adds its run totals in
 // order. The first design walked all MP pipelines in 4 threads, with two
 // device-memory loads and a division each, while the other 124 waited
-// (14.8 us a call on the H100). assign_gather zeroes its rows,
+// (14.8 us a call on the H100). The timeout branch adds one shared [MP]
+// row of flags and reads ctr_start, timed and tick; the timeout-off
+// instantiation compiles to what it was. assign_gather zeroes its rows,
 // synchronises, and lets one thread per valid row write its slot and
 // pipe.
 #include "common.cuh"
@@ -49,28 +56,41 @@ using namespace repro;
 // different banks
 __device__ __forceinline__ int run_slot(int p) { return p + p / kFoldChunk; }
 
+// int32 sum over a warp that wraps (unsigned arithmetic, no overflow UB)
+__device__ __forceinline__ uint32_t warp_sum_wrap(uint32_t v) {
+  for (int off = 16; off > 0; off >>= 1)
+    v += __shfl_xor_sync(0xffffffffu, v, off);
+  return v;
+}
+
+template <bool kTimeout>
 __global__ void retire_land_kernel(
     const int32_t* __restrict__ ctr_pipe, const int32_t* __restrict__ ctr_end,
     const bool* __restrict__ oomed, const bool* __restrict__ done,
     const int32_t* __restrict__ arrival, const int32_t* __restrict__ prio,
+    const int32_t* __restrict__ ctr_start, const bool* __restrict__ timed,
+    const int32_t* __restrict__ tick,
     int MC, int MP, bool* __restrict__ oom_hit, bool* __restrict__ done_hit,
     bool* __restrict__ timed_hit, int32_t* __restrict__ end_of,
     int32_t* __restrict__ wasted, float* __restrict__ lat_sum,
     float* __restrict__ lat_prio, int32_t* __restrict__ done_prio,
     int32_t* __restrict__ n_done, int32_t* __restrict__ n_oom) {
   constexpr int kSums = 1 + kNumPrio;  // the total, then priority q
+  constexpr int kRows = kTimeout ? 4 : 3;  // shared [MP] rows
   const int runs = (MP + kFoldChunk - 1) / kFoldChunk;
   const int slots = runs * (kFoldChunk + 1);
   extern __shared__ int smem[];
   int* s_oom = smem;            // [MP] any OOM retirement
   int* s_done = smem + MP;      // [MP] any completion
   int* s_end = smem + 2 * MP;   // [MP] max end tick of the completions
+  int* s_timed = smem + 3 * MP;  // [MP] any timeout (kTimeout only)
   // [slots] a completed pipeline's latency term, and the sums it enters:
   // -1 none, q the total and priority q, kNumPrio the total alone
-  float* s_lat = reinterpret_cast<float*>(smem + 3 * MP);
-  int* s_sel = smem + 3 * MP + slots;
+  float* s_lat = reinterpret_cast<float*>(smem + kRows * MP);
+  int* s_sel = smem + kRows * MP + slots;
   float* s_run = reinterpret_cast<float*>(s_sel + slots);  // [kSums][runs]
   __shared__ int s_count[2 + kNumPrio];  // n_done, n_oom, done_prio[3]
+  __shared__ unsigned int s_wasted;
   const int f = blockIdx.x;
   const size_t co = (size_t)f * MC;
   const size_t po = (size_t)f * MP;
@@ -79,21 +99,36 @@ __global__ void retire_land_kernel(
     s_oom[p] = 0;
     s_done[p] = 0;
     s_end[p] = 0;
+    if (kTimeout) s_timed[p] = 0;
   }
   if (threadIdx.x < 2 + kNumPrio) s_count[threadIdx.x] = 0;
+  if (kTimeout && threadIdx.x == 0) s_wasted = 0u;
   __syncthreads();
 
+  uint32_t my_wasted = 0u;
+  const int32_t t = kTimeout ? tick[f] : 0;
   for (int c = threadIdx.x; c < MC; c += blockDim.x) {
     const bool om = oomed[co + c];
-    const bool dn = done[co + c];
+    bool dn = done[co + c];
+    bool tm = false;
+    if (kTimeout) {
+      tm = dn && timed[co + c];
+      dn = dn && !tm;
+      if (tm) my_wasted += (uint32_t)wrap_sub(t, ctr_start[co + c]);
+    }
     const int32_t pid = ctr_pipe[co + c];
-    if ((om || dn) && pid >= 0 && pid < MP) {
+    if ((om || dn || tm) && pid >= 0 && pid < MP) {
       if (om) atomicOr(&s_oom[pid], 1);
       if (dn) {
         atomicOr(&s_done[pid], 1);
         atomicMax(&s_end[pid], ctr_end[co + c]);
       }
+      if (kTimeout && tm) atomicOr(&s_timed[pid], 1);
     }
+  }
+  if (kTimeout) {
+    my_wasted = warp_sum_wrap(my_wasted);
+    if ((threadIdx.x & 31) == 0 && my_wasted) atomicAdd(&s_wasted, my_wasted);
   }
   __syncthreads();
 
@@ -102,7 +137,7 @@ __global__ void retire_land_kernel(
     const bool d = s_done[p] != 0;
     oom_hit[po + p] = s_oom[p] != 0;
     done_hit[po + p] = d;
-    timed_hit[po + p] = false;
+    timed_hit[po + p] = kTimeout ? s_timed[p] != 0 : false;
     end_of[po + p] = s_end[p];
     my_done += d;
     my_oom += s_oom[p] != 0;
@@ -149,7 +184,7 @@ __global__ void retire_land_kernel(
   if (threadIdx.x == 0) {
     n_done[f] = s_count[0];
     n_oom[f] = s_count[1];
-    wasted[f] = 0;
+    wasted[f] = kTimeout ? (int32_t)s_wasted : 0;
     for (int q = 0; q < kNumPrio; ++q)
       done_prio[(size_t)f * kNumPrio + q] = s_count[2 + q];
   }
@@ -217,34 +252,59 @@ __global__ void assign_gather_kernel(
 
 }  // namespace
 
+template <bool kTimeout>
+static int launch_retire_land(
+    const void* ctr_pipe, const void* ctr_end, const void* oomed,
+    const void* done, const void* arrival, const void* prio,
+    const void* ctr_start, const void* timed, const void* tick, int F,
+    int MC, int MP, void* oom_hit, void* done_hit, void* timed_hit,
+    void* end_of, void* wasted, void* lat_sum, void* lat_prio,
+    void* done_prio, void* n_done, void* n_oom, cudaStream_t stream) {
+  // the [MP] landing rows (a fourth with the timeout branch), the fold's
+  // [runs][kFoldChunk + 1] terms and sums, and the [1 + kNumPrio][runs]
+  // run totals
+  using repro::kFoldChunk;
+  const int runs = (MP + kFoldChunk - 1) / kFoldChunk;
+  const size_t smem = ((size_t)(kTimeout ? 4 : 3) * MP +
+                       2 * runs * (kFoldChunk + 1) +
+                       (1 + repro::kNumPrio) * runs) * sizeof(int);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        retire_land_kernel<kTimeout>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  retire_land_kernel<kTimeout><<<F, 128, smem, stream>>>(
+      (const int32_t*)ctr_pipe, (const int32_t*)ctr_end, (const bool*)oomed,
+      (const bool*)done, (const int32_t*)arrival, (const int32_t*)prio,
+      (const int32_t*)ctr_start, (const bool*)timed, (const int32_t*)tick,
+      MC, MP, (bool*)oom_hit, (bool*)done_hit, (bool*)timed_hit,
+      (int32_t*)end_of, (int32_t*)wasted, (float*)lat_sum, (float*)lat_prio,
+      (int32_t*)done_prio, (int32_t*)n_done, (int32_t*)n_oom);
+  return repro::launch_status();
+}
+
+// ctr_start, timed and tick are read (and may be null otherwise) only
+// when timeout_on is nonzero
 REPRO_EXPORT int repro_retire_land(
     const void* ctr_pipe, const void* ctr_end, const void* oomed,
-    const void* done, const void* arrival, const void* prio, int F, int MC,
-    int MP, void* oom_hit, void* done_hit, void* timed_hit, void* end_of,
-    void* wasted, void* lat_sum, void* lat_prio, void* done_prio,
-    void* n_done, void* n_oom, void* stream, int device) {
+    const void* done, const void* arrival, const void* prio,
+    const void* ctr_start, const void* timed, const void* tick, int F,
+    int MC, int MP, int timeout_on, void* oom_hit, void* done_hit,
+    void* timed_hit, void* end_of, void* wasted, void* lat_sum,
+    void* lat_prio, void* done_prio, void* n_done, void* n_oom,
+    void* stream, int device) {
   cudaSetDevice(device);
-  if (F > 0) {
-    // the [MP] landing rows, the fold's [runs][kFoldChunk + 1] terms and
-    // sums, and the [1 + kNumPrio][runs] run totals
-    using repro::kFoldChunk;
-    const int runs = (MP + kFoldChunk - 1) / kFoldChunk;
-    const size_t smem = ((size_t)3 * MP + 2 * runs * (kFoldChunk + 1) +
-                         (1 + repro::kNumPrio) * runs) * sizeof(int);
-    if (smem > 48 * 1024) {
-      const cudaError_t err = cudaFuncSetAttribute(
-          retire_land_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-      if (err != cudaSuccess) return (int)err;
-    }
-    retire_land_kernel<<<F, 128, smem, (cudaStream_t)stream>>>(
-        (const int32_t*)ctr_pipe, (const int32_t*)ctr_end,
-        (const bool*)oomed, (const bool*)done, (const int32_t*)arrival,
-        (const int32_t*)prio, MC, MP, (bool*)oom_hit, (bool*)done_hit,
-        (bool*)timed_hit, (int32_t*)end_of, (int32_t*)wasted,
-        (float*)lat_sum, (float*)lat_prio, (int32_t*)done_prio,
-        (int32_t*)n_done, (int32_t*)n_oom);
-  }
-  return repro::launch_status();
+  if (F <= 0) return repro::launch_status();
+  if (timeout_on)
+    return launch_retire_land<true>(
+        ctr_pipe, ctr_end, oomed, done, arrival, prio, ctr_start, timed, tick,
+        F, MC, MP, oom_hit, done_hit, timed_hit, end_of, wasted, lat_sum,
+        lat_prio, done_prio, n_done, n_oom, (cudaStream_t)stream);
+  return launch_retire_land<false>(
+      ctr_pipe, ctr_end, oomed, done, arrival, prio, ctr_start, timed, tick,
+      F, MC, MP, oom_hit, done_hit, timed_hit, end_of, wasted, lat_sum,
+      lat_prio, done_prio, n_done, n_oom, (cudaStream_t)stream);
 }
 
 REPRO_EXPORT int repro_assign_gather(

@@ -29,6 +29,7 @@ KERNELS = {**SIM_KERNELS, **LM_KERNELS}
 def reset_launch_counts() -> None:
     for fn in KERNELS.values():
         fn.launches = 0
+    retire_land.timeout_launches = 0
 
 
 def launch_counts() -> dict[str, int]:

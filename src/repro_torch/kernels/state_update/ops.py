@@ -10,10 +10,10 @@ import torch
 
 from .. import cuda_lib
 from ..dispatch import use_kernel
-from .ref import _TIMEOUT_SLICE, assign_gather_ref, retire_land_ref
+from .ref import assign_gather_ref, retire_land_ref
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_RETIRE_ARGTYPES = [_P] * 6 + [_I] * 3 + [_P] * 10 + [_P, _I]
+_RETIRE_ARGTYPES = [_P] * 9 + [_I] * 4 + [_P] * 10 + [_P, _I]
 _ASSIGN_ARGTYPES = [_P] * 11 + [_I] * 4 + [_P] * 13 + [_P, _I]
 
 
@@ -22,13 +22,13 @@ def retire_land(
     *, timeout_on: bool = False,
 ):
     """Land the event's container retirements on the pipeline axis; see
-    ``ref.retire_land_ref``. ``timed`` may be None (timeout off)."""
-    if timeout_on:
-        raise NotImplementedError(_TIMEOUT_SLICE)
+    ``ref.retire_land_ref``. ``timed`` may be None (timeout off). A
+    launch with the timeout branch on also counts in
+    ``timeout_launches``."""
     if not use_kernel(ctr_pipe):
         return retire_land_ref(
             ctr_pipe, ctr_end, ctr_start, oomed, done, timed, arrival, prio,
-            tick,
+            tick, timeout_on=timeout_on,
         )
     F, MC = ctr_pipe.shape
     MP = arrival.shape[1]
@@ -41,6 +41,13 @@ def retire_land(
         cuda_lib.require("retire_land", arg, x, dt, (F, MC), dev)
     cuda_lib.require("retire_land", "arrival", arrival, i32, (F, MP), dev)
     cuda_lib.require("retire_land", "prio", prio, i32, (F, MP), dev)
+    if timeout_on:
+        cuda_lib.require("retire_land", "ctr_start", ctr_start, i32, (F, MC), dev)
+        cuda_lib.require("retire_land", "timed", timed, b, (F, MC), dev)
+        cuda_lib.require("retire_land", "tick", tick, i32, (F,), dev)
+        branch = (ctr_start.data_ptr(), timed.data_ptr(), tick.data_ptr())
+    else:
+        branch = (None, None, None)
 
     outs = (
         torch.empty((F, MP), dtype=b, device=dev),     # oom_hit
@@ -58,15 +65,18 @@ def retire_land(
     code = fn(
         *(x.data_ptr() for x in (ctr_pipe, ctr_end, oomed, done, arrival,
                                  prio)),
-        F, MC, MP, *(y.data_ptr() for y in outs),
+        *branch, F, MC, MP, int(timeout_on), *(y.data_ptr() for y in outs),
         *cuda_lib.stream_args(dev),
     )
     cuda_lib.check_launch("retire_land", code)
     retire_land.launches += 1
+    if timeout_on:
+        retire_land.timeout_launches += 1
     return outs
 
 
 retire_land.launches = 0
+retire_land.timeout_launches = 0
 
 
 def assign_gather(

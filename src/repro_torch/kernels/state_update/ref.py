@@ -1,11 +1,14 @@
 """Plain PyTorch versions of the two table landings of one event.
 
 * :func:`retire_land_ref` carries the semantics of
-  ``repro.kernels.state_update.ref.retire_land_ref`` with the timeout
-  branch off: for each pipeline, whether one of its containers OOMed or
-  completed, its completion tick (the max end tick of its completing
-  containers, 0 where none), and the latency sums (total and per
-  priority, f32) and counts (int32). Several containers of one pipeline
+  ``repro.kernels.state_update.ref.retire_land_ref``: for each
+  pipeline, whether one of its containers OOMed or completed, its
+  completion tick (the max end tick of its completing containers, 0
+  where none), and the latency sums (total and per priority, f32) and
+  counts (int32). With the timeout branch on, a completing container
+  whose ``timed`` flag is set timed out instead: it lands in
+  ``timed_hit``, not in the completions, and its ticks since its start
+  enter the int32 ``timed_wasted``. Several containers of one pipeline
   may retire together; the hit masks are "any" and ``end_of`` a max,
   so they land like scatters would.
 * :func:`assign_gather_ref` carries ``assign_gather_ref``: up to K
@@ -27,12 +30,6 @@ from ...core.state import seconds
 from ...core.types import N_PRIO
 from ..fold import ordered_sum
 
-_TIMEOUT_SLICE = (
-    "the timeout branch of retire_land waits for the chaos-layer slice "
-    "(ROADMAP queue 1, item 10)"
-)
-
-
 def first_true(mask: torch.Tensor, dim: int) -> torch.Tensor:
     """Index of the first True along ``dim`` (int64), 0 where there is
     none: ``jnp.argmax`` of a bool array."""
@@ -50,35 +47,46 @@ def retire_land_ref(
 ):
     """Returns ``(oom_hit, done_hit, timed_hit, end_of, timed_wasted,
     lat_sum, lat_prio, done_prio, n_done, n_oom)`` over ``[F, MC]``
-    container rows and ``[F, MP]`` pipeline rows; ``timed_hit`` and
-    ``timed_wasted`` are zeros (timeout off). ``ctr_start``, ``timed``
-    and ``tick`` are read only by the timeout branch."""
-    if timeout_on:
-        raise NotImplementedError(_TIMEOUT_SLICE)
+    container rows and ``[F, MP]`` pipeline rows. ``ctr_start``,
+    ``timed`` and ``tick`` (``[F]``) are read only by the timeout branch
+    (``timeout_on``); without it ``timed_hit`` and ``timed_wasted`` are
+    zeros and ``timed`` may be None."""
     F, MP = arrival.shape
     dev = arrival.device
+    i32 = torch.int32
     retired = oomed | done
+    if timeout_on:
+        timed = done & timed
+        done_eff = done & ~timed
+    else:
+        done_eff = done
     pid = torch.where(retired, ctr_pipe, MP)
-    oh = pid[:, :, None] == torch.arange(MP, dtype=torch.int32, device=dev)
+    oh = pid[:, :, None] == torch.arange(MP, dtype=i32, device=dev)
     oom_hit = (oh & oomed[:, :, None]).any(1)
-    land = oh & done[:, :, None]
+    land = oh & done_eff[:, :, None]
     done_hit = land.any(1)
     end_of = torch.where(land, ctr_end[:, :, None], 0).amax(1).clamp_min(0)
+    if timeout_on:
+        timed_hit = (oh & timed[:, :, None]).any(1)
+        # an int32 sum wraps like the reference's, in any order
+        timed_wasted = torch.where(timed, tick[:, None] - ctr_start, 0).sum(-1, dtype=i32)
+    else:
+        timed_hit = torch.zeros_like(done_hit)
+        timed_wasted = torch.zeros((F,), dtype=i32, device=dev)
 
     lat_s = seconds(end_of - arrival)
     prio_oh = prio[:, None, :] == torch.arange(
-        N_PRIO, dtype=torch.int32, device=dev
+        N_PRIO, dtype=i32, device=dev
     )[None, :, None]
     done_prio_oh = prio_oh & done_hit[:, None, :]
     lat_sum = ordered_sum(lat_s, done_hit[:, None, :])[:, 0]
     lat_prio = ordered_sum(lat_s, done_prio_oh)
-    i32 = torch.int32
     return (
         oom_hit,
         done_hit,
-        torch.zeros_like(done_hit),
+        timed_hit,
         end_of,
-        torch.zeros((F,), dtype=i32, device=dev),
+        timed_wasted,
         lat_sum,
         lat_prio,
         done_prio_oh.sum(-1, dtype=i32),

@@ -140,6 +140,61 @@ def test_retire_land_kernel_matches_plain(cuda, mp):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("mp", [32, 256, 1024])
+def test_retire_land_timeout_kernel_matches_plain(cuda, mp):
+    """The timeout branch: about a quarter of the completing containers
+    timed, several timed and done containers on one pipeline."""
+    rng = np.random.default_rng(mp + 1)
+    t = rng.integers(10_000, 50_000, F).astype(np.int32)
+    end = (t[:, None] - rng.integers(0, 4, (F, MC))).astype(np.int32)
+    u = rng.random((F, MC))
+    arrays = (
+        rng.integers(-1, max(mp // 8, 2), (F, MC)).astype(np.int32), end,
+        (end - rng.integers(1, 5_000, (F, MC))).astype(np.int32),
+        u < 0.2, (u >= 0.2) & (u < 0.7), rng.random((F, MC)) < 0.25,
+        (t[:, None] - rng.integers(5_000, 9_000, (F, mp))).astype(np.int32),
+        rng.integers(0, 3, (F, mp)).astype(np.int32), t,
+    )
+    cpu, dev = _pair(arrays, cuda)
+    reset_launch_counts()
+    got = retire_land(*dev, timeout_on=True)
+    torch.cuda.synchronize()
+    assert launch_counts()["retire_land"] == 1 and retire_land.timeout_launches == 1
+    want = retire_land_ref(*cpu, timeout_on=True)
+    _equal(got, want)
+    assert bool((want[2] & want[1]).any()) and int(want[4].sum()) != 0
+
+
+@pytest.mark.cuda
+def test_chaos_run_on_the_card_matches_the_cpu_port(cuda):
+    """Crashes, outages, stragglers, timeouts and retries: a 3-lane
+    fleet on CUDA equals the CPU port field by field, and the timeout
+    branch of retire_land ran."""
+    params = SimParams(duration=0.05, max_pipelines=32, max_containers=32, num_pools=2,
+                       scheduling_algo="priority_pool", waiting_ticks_mean=300.0,
+                       op_base_seconds_mean=0.005, crash_mtbf_ticks=500.0,
+                       outage_mtbf_ticks=1_500.0, outage_duration_ticks=300.0,
+                       straggler_prob=0.15, timeout_ticks=400, max_retries=1,
+                       base_backoff_ticks=40)
+    reset_launch_counts()
+    on_card = fleet_run(params, seeds=[0, 1, 2], device=cuda)
+    counts = launch_counts()
+    on_cpu = fleet_run(params, seeds=[0, 1, 2], device="cpu")
+    assert all(counts[name] > 0 for name in SIM_KERNELS), counts
+    assert retire_land.timeout_launches == counts["retire_land"]
+    tolerant = {"sum_latency_s", "sum_latency_s_prio", "util_cpu_s", "util_ram_s",
+                "cost_dollars", "util_log", "pool_down_s"}
+    for name in on_cpu._fields:
+        a, b = getattr(on_card, name).cpu(), getattr(on_cpu, name)
+        if name in tolerant:
+            np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-5, err_msg=name)
+        else:
+            assert torch.equal(a, b), name
+    for name in ("crash_events", "outage_events", "timeout_events", "fault_kills"):
+        assert int(getattr(on_cpu, name).sum()) > 0, name
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("mixed", [False, True])
 def test_masked_lex_argmin_kernel_matches_plain(cuda, mixed):
     rng = np.random.default_rng(int(mixed))

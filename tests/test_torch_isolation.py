@@ -7,7 +7,7 @@ not ported yet.
   without a card the default raises instead of running on the CPU.
 * Every optional layer of a later slice raises ``NotImplementedError``
   naming its ROADMAP item, never a silent fallback; the layer kinds that
-  a slice has ported run.
+  a slice has ported run (the chaos layer's knobs among them).
 """
 import ast
 import pathlib
@@ -71,11 +71,6 @@ LATER_KNOBS = [
     ("cache_gb_per_pool", 4.0, "item 9"),
     ("scan_ticks_per_gb", 10.0, "item 9"),
     ("cold_start_ticks", 40, "item 9"),
-    ("timeout_ticks", 100, "item 10"),
-    ("crash_mtbf_ticks", 500.0, "item 10"),
-    ("outage_mtbf_ticks", 500.0, "item 10"),
-    ("straggler_prob", 0.1, "item 10"),
-    ("max_retries", 3, "item 10"),
     ("client_max_inflight", 4, "item 11"),
     ("admission_policy", "codel", "item 11"),
     ("admit_burst", 2.0, "item 11"),
@@ -91,6 +86,30 @@ def test_optional_layers_raise(knob, value, item):
     params = _small(**{knob: value})
     with pytest.raises(NotImplementedError, match=item):
         run(params, device="cpu")
+
+
+# the chaos layer's knobs run (ROADMAP queue 1, item 10), each moving the
+# summary keys that report it
+CHAOS_KNOBS = [
+    ("timeout_ticks", 100, ("timeouts", "failed", "wasted_work_s")),
+    ("crash_mtbf_ticks", 200.0, ("faults_injected", "crash_events", "fault_kills")),
+    ("outage_mtbf_ticks", 200.0, ("faults_injected", "outage_events", "pool_down_s")),
+    ("straggler_prob", 0.5, ("done", "mean_latency_s")),
+    ("max_retries", 3, ()),
+]
+
+
+@pytest.mark.parametrize("knob,value,live", CHAOS_KNOBS, ids=[k for k, _, _ in CHAOS_KNOBS])
+def test_chaos_knobs_run(knob, value, live):
+    busy = dict(waiting_ticks_mean=50.0, op_base_seconds_mean=0.002)
+    params = _small(**busy, **{knob: value})
+    summary = run(params, device="cpu").summary()
+    quiet = run(_small(**busy), device="cpu").summary()
+    for key in live:
+        assert summary[key] != quiet[key], key
+    if not live:
+        # a retry budget with no fault source changes nothing
+        assert repr(summary) == repr(quiet)
 
 
 @pytest.mark.parametrize("kwargs,item", [({"trace": True}, "item 12"), ({"shard": "auto"}, "item 8")])

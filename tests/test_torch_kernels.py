@@ -118,7 +118,7 @@ def test_fleet_tick_plain_matches_pallas_interpret():
 
 
 # ---------------------------------------------------------------------------
-# retire_land (timeout off)
+# retire_land (timeout off; the timeout branch: tests/test_torch_faults.py)
 # ---------------------------------------------------------------------------
 def _retire_tables(rng, F, MC, MP):
     t = rng.integers(10_000, 50_000, F).astype(np.int32)
@@ -150,12 +150,6 @@ def test_retire_land_plain_matches_pallas_interpret():
     kern = retire_land_kernel(*map(jnp.asarray, args), timeout_on=False,
                               block_fleet=4, interpret=True)
     _same(port, kern, "retire_land vs pallas", rtol_at=LAT_OUTPUTS)
-
-
-def test_retire_land_timeout_waits_for_its_slice():
-    args = _retire_tables(np.random.default_rng(0), 1, 8, 8)
-    with pytest.raises(NotImplementedError, match="chaos"):
-        retire_land(*map(_t, args), timeout_on=True)
 
 
 # ---------------------------------------------------------------------------

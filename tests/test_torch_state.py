@@ -172,5 +172,12 @@ def test_generated_workload_matches_reference_in_distribution():
 def test_workload_layers_of_later_slices_raise():
     with pytest.raises(NotImplementedError, match="item 3"):
         get_workload(params.SimParams(trace_path="day.json"))
-    with pytest.raises(NotImplementedError, match="item 10"):
-        generate_workload(params.SimParams(crash_mtbf_ticks=5.0))
+
+
+def test_generated_workload_carries_a_fault_trace():
+    p = params.SimParams(crash_mtbf_ticks=5.0, max_pipelines=16, max_fault_events=8)
+    wl = generate_workload(p)
+    assert isinstance(wl.faults, state.FaultTrace)
+    assert [tuple(x.shape) for x in wl.faults] == [(1, 8)] * 4 + [(1, 16)]
+    assert int(wl.faults.crash_time[0, 0]) < 2**31 - 1
+    assert generate_workload(params.SimParams(max_pipelines=16)).faults is None
