@@ -10,8 +10,9 @@ Phases, in order; any failure raises and the script exits non-zero:
 1. the card (name and power limit from nvidia-smi), compute capability
    9.0, TF32 off for matmul and cuDNN;
 2. build the CUDA kernels from ``src/repro_torch/csrc`` (into
-   ``build/repro_torch/``); ptxas's registers and spills (``fleet_tick``
-   and ``masked_lex_argmin`` must not spill) and a SASS mix;
+   ``build/repro_torch/``); ptxas's registers and spills (``fleet_tick``,
+   ``masked_lex_argmin`` and ``assign_gather`` must not spill) and a SASS
+   mix;
 3. each kernel against its plain PyTorch version on the card: the
    simulator's four at the main path's shapes, exactly, and
    ``retire_land`` also with its timeout branch on (beside the
@@ -19,8 +20,12 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``fleet_tick`` also on edge keys (NaN,
    signed zeros, infinities, keys at their sentinels), real f32 leads,
    ragged and unaligned rows, 4,096 lanes, ragged runs of containers and
-   8 pools, exactly; the card's launch floor (``torch.Tensor.fill_`` of
-   one element) beside them; ``rwkv6_scan``,
+   8 pools, exactly, and ``assign_gather`` on an edge grid (K past a
+   warp, past MC and past the block's 128 threads, MC / MP not
+   multiples of 4, indices out of range, rows sharing a slot or a pipe,
+   4,096 lanes), exactly; the card's launch floor (``torch.Tensor.fill_`` of one
+   element) beside them, and ``assign_gather``'s host time a call step
+   by step; ``rwkv6_scan``,
    ``flash_attention`` and ``ssm_scan`` at rwkv6_7b's, gemma3_12b's and
    jamba's prefill shapes (``ssm_scan`` at 2048 tokens, a ragged 2000
    and the served prompt's 1838), bf16 outputs to 2e-2 and f32 states
@@ -34,6 +39,13 @@ Phases, in order; any failure raises and the script exits non-zero:
    field;
 5. ``fleet_run`` of 64 seeds at the engine-throughput configuration,
    on CUDA and on the CPU, compared lane by lane;
+5b. phase 5's fleet replayed from trace files: each lane's workload
+   written as JSON records (``workload_to_trace_records``) and read
+   back (``workload_batch_from_traces``), bit-equal to phase 5's batch;
+   the replayed ``fleet_run`` on CUDA equal to phase 5's CUDA states on
+   every field, ``run(trace_path=lane_0.json)`` equal to lane 0,
+   ``shard="auto"`` equal to the unsharded run, ``fleet_summary`` equal
+   to the CPU port's under the contract;
 6. the simulator kernels' launches in phases 4 and 5, each > 0;
 6b. the chaos layer at phase 5's configuration with two pools,
    ``priority_pool`` and crashes, outages, stragglers, timeouts and
@@ -53,6 +65,9 @@ Phases, in order; any failure raises and the script exits non-zero:
 10. the same as 7 for jamba_1p5_large_398b at full width, cut to the first
    five layers of its period (one H100 holds five, not 72), with
    ``ssm_scan`` and ``flash_attention`` launched.
+
+Without a card, or from a directory that holds this script and nothing
+else of the repository, it prints why and exits 1 before any phase.
 
 Every phase prints its wall time, and every line with a measurement
 names the card and its power limit. The last two lines of standard
@@ -358,6 +373,42 @@ def assign_inputs(rng, dev):
     )
 
 
+def assign_edge_inputs(rng, dev, lanes, k, mc, mp):
+    """``assign_inputs`` at other sizes and off the engine's contract:
+    slots and pipes of -1, ``mc`` and ``mp`` (and beyond, where K > MC)
+    on valid and invalid rows, lane 0 without a valid row, and on lane 1
+    two valid rows sharing a slot and two sharing a pipe, with other
+    fields (the first row of each pair lands)."""
+    import torch
+
+    valid = rng.random((lanes, k)) < 0.6
+    valid[0] = False
+    slot = np.stack([rng.permutation(max(mc, k))[:k] for _ in range(lanes)])
+    pipe = np.stack([rng.permutation(max(mp, k))[:k] for _ in range(lanes)])
+    odd = rng.random((lanes, k)) < 0.15
+    slot = np.where(odd, rng.choice([-1, mc], (lanes, k)), slot)
+    odd = rng.random((lanes, k)) < 0.15
+    pipe = np.where(odd, rng.choice([-1, mp], (lanes, k)), pipe)
+    if k >= 4:
+        valid[1, :4] = True
+        slot[1, :4] = [mc - 1, 0, mc - 1, 1]
+        pipe[1, :4] = [2, mp - 1, 3, mp - 1]
+
+    def i32(x):
+        return torch.tensor(x, dtype=torch.int32, device=dev)
+
+    def f32(x):
+        return torch.tensor(x, dtype=torch.float32, device=dev)
+
+    return (
+        torch.tensor(valid, device=dev), i32(slot), i32(pipe), i32(rng.integers(0, 8, (lanes, k))),
+        f32(rng.standard_normal((lanes, k)) * 8), f32(rng.standard_normal((lanes, k)) * 16),
+        i32(rng.integers(-2**31, 2**31 - 1, (lanes, k))), i32(rng.integers(-2**31, 2**31 - 1, (lanes, k))),
+        i32(rng.integers(-1, 4, (lanes, k))), torch.tensor(rng.random((lanes, k)) < 0.5, device=dev),
+        torch.tensor(rng.random((lanes, k)) < 0.5, device=dev),
+    )
+
+
 def rwkv_inputs(rng, dev, S: int, H: int = 64, N: int = 64):
     """rwkv6_7b's prefill operands: r, k, v in bf16 from the projections'
     scale, the decay drawn as the model makes it,
@@ -506,8 +557,22 @@ def check_kernels(dev) -> dict:
                       lambda a=args: fleet_tick_ref(*a, num_pools=8), args, None, None, None, extra))
     args = assign_inputs(rng, dev)
     sizes = dict(max_containers=MC, max_pipelines=MP)
-    cases.append(("assign_gather", "", lambda a=args: assign_gather(*a, **sizes),
+    cases.append(("assign_gather", f"K={K} MC={MC} MP={MP}",
+                  lambda a=args: assign_gather(*a, **sizes),
                   lambda a=args: assign_gather_ref(*a, **sizes), args, None, None, None))
+    # the edge grid: K past a warp, past MC and past the block's 128
+    # threads, rows of MC / MP not a multiple of 4 (scalar stores),
+    # indices out of range, shared slots and pipes, a lane without a
+    # valid row, a wide fleet; all exactly
+    for lanes, k, mc, mp in ((F, 1, 33, 200), (F, 33, 33, 1024), (F, 64, 1000, 200),
+                             (F, 64, 1000, 1024), (F, 33, 64, 256), (F, 200, 33, 256),
+                             (F, 129, 64, 1024), (4096, K, MC, MP)):
+        args = assign_edge_inputs(rng, dev, lanes, k, mc, mp)
+        edge = dict(max_containers=mc, max_pipelines=mp)
+        cases.append(("assign_gather", f"F={lanes} K={k} MC={mc} MP={mp} edge rows",
+                      lambda a=args, e=edge: assign_gather(*a, **e),
+                      lambda a=args, e=edge: assign_gather_ref(*a, **e), args, None, None,
+                      None, extra))
 
     # rwkv6_7b prefill: H = N = 64, chunk 32; one sequence of 2048 tokens
     # and a ragged one (padded to a multiple of the chunk by the wrapper)
@@ -637,6 +702,7 @@ def check_kernels(dev) -> dict:
     for name, extra in attached.items():
         results[name].update(extra)
     results["launch_floor"] = launch_floor(dev)
+    results["assign_gather"]["host_us"] = assign_host_breakdown(dev)
     return results
 
 
@@ -658,6 +724,48 @@ def launch_floor(dev) -> float | None:
     print(f"{CARD}: launch floor: torch.Tensor.fill_ of 1 element: device_ms={dev_text} "
           f"(profiler) ms={ms:.5f} (per call); a yardstick, not a kernel of the port")
     return dev_ms
+
+
+def host_us(fn, calls: int = 200, reps: int = 11) -> float:
+    """Median over ``reps`` of the host time per call of ``calls``
+    back-to-back calls of ``fn`` (µs, perf_counter; the queue drained
+    before and after each rep)."""
+    import torch
+
+    for _ in range(10):
+        fn()
+    samples = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        samples.append((time.perf_counter() - t0) / calls * 1e6)
+    return statistics.median(samples)
+
+
+def assign_host_breakdown(dev) -> dict:
+    """Where ``assign_gather``'s wrapper call spends the host's time, at
+    the main path's shapes: the whole call, and its steps (the one-pass
+    row checks, the four allocations with their 13 views, the stream
+    handle, the ctypes call with its pointers). Returns the times in
+    µs."""
+    from repro_torch.kernels import cuda_lib
+    from repro_torch.kernels.state_update import ops
+
+    rows = assign_inputs(np.random.default_rng(3), dev)
+    regions, _ = ops._assign_outputs(F, MC, MP, dev)
+    out = {
+        "call": host_us(lambda: ops.assign_gather(*rows, max_containers=MC, max_pipelines=MP)),
+        "checks": host_us(lambda: ops._check_assign_rows(rows, F, K, dev)),
+        "allocs": host_us(lambda: ops._assign_outputs(F, MC, MP, dev)),
+        "stream": host_us(lambda: cuda_lib.stream_args(dev)),
+        "ctypes_call": host_us(lambda: ops._launch_assign(rows, regions, F, K, MC, MP, dev)),
+    }
+    print(f"{CARD}: assign_gather host breakdown (µs per call, host clock): "
+          + " ".join(f"{k}={v:.2f}" for k, v in out.items()))
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -735,9 +843,10 @@ def timed_fleet(params, wls, dev):
     return states, wall, launch_counts(), retire_land.timeout_launches
 
 
-def fleet_phase(dev) -> tuple[dict, dict]:
-    """Phase 5; returns the launches and the numbers phase 6b prints
-    beside its own."""
+def fleet_phase(dev) -> tuple[dict, dict, dict]:
+    """Phase 5; returns the launches, the numbers phase 6b prints beside
+    its own, and the fleet (params, workloads, CUDA and CPU states) that
+    phase 5b replays."""
     from repro_torch import fleet_run, make_workload_batch
 
     params = fleet_params()
@@ -756,7 +865,88 @@ def fleet_phase(dev) -> tuple[dict, dict]:
     print("phase 5 launches:", json.dumps(counts))
     busy = profile_fleet(params, wls, dev, "phase 5")
     return counts, {"wall_s": wall, "sim_s_per_wall_s": sim_s / wall,
-                    "launches": sum(counts.values()), **busy}
+                    "launches": sum(counts.values()), **busy}, {
+        "params": params, "wls": wls, "states": states, "ref": ref}
+
+
+def assert_same_states(got, want, ctx: str) -> None:
+    """Every field of two states on the card equal exactly (dtype, shape
+    and values)."""
+    import torch
+
+    for name in got._fields:
+        a, b = getattr(got, name), getattr(want, name)
+        if a.dtype != b.dtype or a.shape != b.shape or not torch.equal(a, b):
+            raise AssertionError(f"{ctx}: field {name} differs")
+
+
+def replay_phase(dev, fleet: dict) -> tuple[dict, dict]:
+    """Phase 5b: phase 5's fleet replayed from trace files. Each lane's
+    workload becomes records (``workload_to_trace_records``), a JSON file
+    in a temporary directory, and back (``workload_batch_from_traces``):
+    the batch equals phase 5's bit for bit, the replayed fleet on CUDA
+    equals phase 5's CUDA states on every field, ``run`` of lane 0's
+    file (``trace_path``) equals lane 0 under the contract,
+    ``shard="auto"`` equals the unsharded run, and ``fleet_summary`` of
+    the card's states equals that of phase 5's CPU states under the
+    contract. Returns the launches of the replayed fleet and of the run."""
+    import tempfile
+
+    import torch
+
+    from repro_torch import fleet_run, fleet_summary, run, workload_batch_from_traces
+    from repro_torch.core.state import SimState, workload_lane
+    from repro_torch.core.workload import workload_to_trace_records
+    from repro_torch.kernels import SIM_KERNELS, launch_counts, reset_launch_counts
+
+    params, wls = fleet["params"], fleet["wls"]
+    lanes = wls.arrival.shape[0]
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = [pathlib.Path(tmp) / f"lane_{i}.json" for i in range(lanes)]
+        for i, path in enumerate(paths):
+            path.write_text(json.dumps(workload_to_trace_records(workload_lane(wls, i))))
+        days = [json.loads(path.read_text()) for path in paths]
+        batch, batch_params = workload_batch_from_traces(days, params)
+        ingest_s = time.perf_counter() - t0
+        if batch_params != params:
+            raise AssertionError("phase 5b: the batch's capacities differ from phase 5's")
+        for name in wls._fields[:10]:
+            a, b = getattr(batch, name), getattr(wls, name)
+            if a.dtype != b.dtype or not torch.equal(a, b):
+                raise AssertionError(f"phase 5b: ingested field {name} differs from phase 5's")
+        states, wall, counts, _ = timed_fleet(params, batch, dev)
+        assert_same_states(states, fleet["states"], "phase 5b: replayed fleet vs phase 5")
+        reset_launch_counts()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        res = run(params.replace(trace_path=str(paths[0])), device=dev)
+        torch.cuda.synchronize()
+        run_wall = time.perf_counter() - t1
+        run_counts = launch_counts()
+    for name in SIM_KERNELS:
+        if counts[name] <= 0 or run_counts[name] <= 0:
+            raise AssertionError(f"phase 5b: {name} was not launched")
+    compare_states(SimState(*(x[None] for x in res.state)),
+                   SimState(*(x[:1].cpu() for x in fleet["states"])), "phase 5b: run(trace_path)")
+    sharded = fleet_run(params, workloads=batch, device=dev, shard="auto")
+    assert_same_states(sharded, states, 'phase 5b: shard="auto" vs unsharded')
+    summary = fleet_summary(states, params)
+    want = fleet_summary(fleet["ref"], params)
+    for key, value in want.items():
+        if not math.isclose(summary[key], value, rel_tol=RTOL) and not (
+                math.isnan(value) and math.isnan(summary[key])):
+            raise AssertionError(f"phase 5b: fleet_summary[{key}] {summary[key]} vs CPU {value}")
+    sim_s = lanes * params.duration
+    print(f"{CARD}: phase 5b: {lanes} lanes replayed from JSON trace files on {dev}: written and "
+          f"ingested in {ingest_s:.3f} s, bit-equal to phase 5's batch; fleet_run wall "
+          f"{wall:.3f} s, {sim_s / wall:.3f} simulated s per wall s, equal to phase 5's CUDA "
+          f"states on every field; run(trace_path=lane_0.json) wall {run_wall:.3f} s, "
+          f"{res.events} events, equal to lane 0; shard=\"auto\" equal to the unsharded run; "
+          f"fleet_summary equal to the CPU port's under the contract")
+    print("phase 5b fleet_summary:", json.dumps(summary, sort_keys=True))
+    print("phase 5b launches:", json.dumps(counts), "run:", json.dumps(run_counts))
+    return counts, run_counts
 
 
 def profile_fleet(params, wls, dev, label: str) -> dict:
@@ -1091,9 +1281,9 @@ def card_phase():
 
 
 SASS_OPS = ("HGMMA", "HMMA", "FFMA", "FMUL", "FADD", "MUFU.EX2", "MUFU.LG2", "SHFL", "LDS",
-            "LDGSTS", "BAR.SYNC", "STL", "LDL", "REDUX", "VOTE", "LDG", "ATOMS")
+            "LDGSTS", "BAR.SYNC", "STL", "LDL", "REDUX", "VOTE", "LDG", "ATOMS", "STG")
 # kernels whose registers must not spill (phase 2 fails otherwise)
-NO_SPILL = ("masked_lex_argmin_kernel", "fleet_tick_kernel")
+NO_SPILL = ("masked_lex_argmin_kernel", "fleet_tick_kernel", "assign_gather_kernel")
 
 
 def build_phase() -> None:
@@ -1172,6 +1362,10 @@ def sim_launch_phase(run_counts, fleet_counts) -> None:
 def main() -> int:
     import torch
 
+    if not (ROOT / "src" / "repro_torch").is_dir():
+        print(f"chip_smoke: no src/repro_torch beside {pathlib.Path(__file__).name}; this "
+              "script drives the port from a checkout of the repository", file=sys.stderr)
+        return 1
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "drives the port on a GPU", file=sys.stderr)
@@ -1192,7 +1386,9 @@ def main() -> int:
     phase(2, build_phase)
     measured = phase(3, check_kernels, dev)
     run_counts = phase(4, run_phase, dev)
-    fleet_counts, faults_off = phase(5, fleet_phase, dev)
+    fleet_counts, faults_off, fleet = phase(5, fleet_phase, dev)
+    replay_counts = phase("5b", replay_phase, dev, fleet)
+    del fleet
     phase(6, sim_launch_phase, run_counts, fleet_counts)
     chaos_counts = phase("6b", chaos_phase, dev, faults_off)
     rwkv_counts = phase(7, serve_phase, 7, "rwkv6_7b", ("rwkv6_scan",), dev)
@@ -1221,8 +1417,8 @@ def main() -> int:
         "ssm_scan": ("src/repro_torch/csrc/ssm_scan.cu",
                      "src/repro/kernels/ssm_scan/kernel.py:60"),
     }
-    main_runs = (run_counts, fleet_counts, *chaos_counts, rwkv_counts, gemma_counts,
-                 jamba_counts)
+    main_runs = (run_counts, fleet_counts, *replay_counts, *chaos_counts, rwkv_counts,
+                 gemma_counts, jamba_counts)
     rows = []
     for name in KERNELS:
         m = measured[name]
@@ -1237,6 +1433,8 @@ def main() -> int:
             **({"floor_ms": measured["launch_floor"]} if name in SIM_KERNELS else {}),
             # retire_land's timeout branch, beside its timeout-off case
             **({"timeout_on": m["timeout_on"]} if "timeout_on" in m else {}),
+            # assign_gather's host time per call, step by step
+            **({"host_us": m["host_us"]} if "host_us" in m else {}),
         })
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

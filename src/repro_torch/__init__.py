@@ -4,7 +4,8 @@ A port of the JAX package ``repro`` for one NVIDIA H100, with the same
 layout. It runs the simulator — ``run()`` and ``fleet_run()`` under the
 ``naive``, ``priority`` and ``priority_pool`` schedulers, with the chaos
 layer (crashes, outages, stragglers, timeouts, retries) on or off and
-the other optional layers at their zero defaults — through four
+the other optional layers at their zero defaults, from seeds or from
+recorded traces (``load_trace``, ``workload_batch_from_traces``) — through four
 hand-written CUDA kernels, and serving (``launch/serve.py``: the
 simulator picks the policy, ``serving/`` batches requests through
 ``models/`` for ``rwkv6_7b``, ``gemma3_12b`` and jamba) through three
@@ -18,12 +19,21 @@ from .core import (
     SimResult,
     SimState,
     Workload,
+    broadcast_lanes,
+    completion_table,
+    fleet_lane_stats,
     fleet_run,
+    fleet_summary,
     generate_workload,
     load_params,
+    load_trace,
     make_workload_batch,
+    pad_lanes,
     run,
     summarize,
+    workload_batch_from_traces,
+    workload_from_trace_records,
+    workload_to_trace_records,
 )
 
 __all__ = [
@@ -32,10 +42,19 @@ __all__ = [
     "SimResult",
     "SimState",
     "Workload",
+    "broadcast_lanes",
+    "completion_table",
+    "fleet_lane_stats",
     "fleet_run",
+    "fleet_summary",
     "generate_workload",
     "load_params",
+    "load_trace",
     "make_workload_batch",
+    "pad_lanes",
     "run",
     "summarize",
+    "workload_batch_from_traces",
+    "workload_from_trace_records",
+    "workload_to_trace_records",
 ]

@@ -71,8 +71,6 @@ def check_main_path(params: SimParams) -> None:
     does not port, naming the ROADMAP item that brings it."""
     if params.engine != "event":
         _raise_later(f"engine={params.engine!r}", "item 14 (the paper's surface)")
-    if params.trace_path:
-        _raise_later("trace_path (trace ingestion)", "item 3")
     if params.admission_active:
         _raise_later(f"admission_policy={params.admission_policy!r}", "item 11 (closed loop)")
     for item, knobs in _LATER_KNOBS.items():

@@ -6,6 +6,7 @@ layer's keys report its counters."""
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from .params import SimParams
 from .state import SimState, Workload
@@ -165,4 +166,65 @@ def summarize(state: SimState, wl: Workload, params: SimParams) -> dict:
     return out
 
 
-__all__ = ["summarize"]
+def fleet_lane_stats(states: SimState, params: SimParams, arrival=None) -> dict[str, np.ndarray]:
+    """Per-lane fleet statistics as ``[F]`` numpy arrays (the policy
+    search's objectives), as ``repro.core.metrics.fleet_lane_stats``.
+    ``arrival`` is the batch's ``[F, MP]`` arrival table; without it the
+    latency columns are NaN. Empty lanes report NaN latency. The
+    ``censored_*`` columns count every arrived pipeline, an unfinished
+    one at ``horizon - arrival``."""
+    status = _np(states.pipe_status)
+    completion = _np(states.pipe_completion).astype(np.float64)
+    done_mask = status == int(PipeStatus.DONE)
+    done = done_mask.sum(axis=1)
+    dur_s = params.duration
+
+    F = status.shape[0]
+    mean_lat = np.full((F,), np.nan)
+    p99_lat = np.full((F,), np.nan)
+    cens_mean = np.full((F,), np.nan)
+    cens_p99 = np.full((F,), np.nan)
+    if arrival is not None:
+        arrival = (_np(arrival) if isinstance(arrival, torch.Tensor) else np.asarray(arrival))
+        arrival = arrival.astype(np.float64)
+        arrived = arrival < float(INF_TICK)
+        horizon = float(params.horizon_ticks)
+        lat_s = (completion - arrival) / TICKS_PER_SECOND
+        cens_s = (np.where(done_mask, completion, horizon) - arrival) / TICKS_PER_SECOND
+        for i in range(F):
+            lane = lat_s[i][done_mask[i]]
+            if lane.size:
+                mean_lat[i] = lane.mean()
+                p99_lat[i] = np.percentile(lane, 99)
+            clane = cens_s[i][arrived[i]]
+            if clane.size:
+                cens_mean[i] = clane.mean()
+                cens_p99[i] = np.percentile(clane, 99)
+
+    cap_cpu_s = np.sum(_np(states.pool_cpu_cap), axis=-1) * dur_s
+    util_cpu = np.sum(_np(states.util_cpu_s), axis=-1)
+    return {
+        "done": done.astype(np.int64),
+        "failed": (status == int(PipeStatus.FAILED)).sum(axis=1),
+        "throughput_per_s": done / dur_s,
+        "mean_latency_s": mean_lat,
+        "p99_latency_s": p99_lat,
+        "censored_mean_latency_s": cens_mean,
+        "censored_p99_latency_s": cens_p99,
+        "cpu_utilization": np.where(cap_cpu_s > 0, util_cpu / np.maximum(cap_cpu_s, 1e-12), 0.0),
+        "cost_dollars": _np(states.cost_dollars).astype(np.float64),
+        "oom_events": _np(states.oom_events).astype(np.int64),
+        "preempt_events": _np(states.preempt_events).astype(np.int64),
+    }
+
+
+def completion_table(state: SimState, wl: Workload) -> np.ndarray:
+    """``[MP, 4]`` of one lane (per-lane shapes, as ``SimResult`` holds
+    them): (arrival, completion, status, priority)."""
+    return np.stack(
+        [_np(wl.arrival), _np(state.pipe_completion), _np(state.pipe_status), _np(wl.prio)],
+        axis=1,
+    )
+
+
+__all__ = ["summarize", "completion_table", "fleet_lane_stats"]

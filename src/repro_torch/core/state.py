@@ -264,6 +264,23 @@ def init_state(params: SimParams, F: int, device) -> SimState:
     )
 
 
+def broadcast_lanes(tree, n_lanes: int):
+    """Broadcast a single-lane tree (a ``SimState``, a ``Workload``, any
+    nesting of named tuples, tuples, lists and dicts, ``None`` leaves
+    kept) to ``n_lanes`` lane-major copies: every leaf gains a leading
+    fleet axis ``[F, ...]`` as a broadcast view (``expand``)."""
+    if tree is None:
+        return None
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(broadcast_lanes(x, n_lanes) for x in tree))
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(broadcast_lanes(x, n_lanes) for x in tree)
+    if isinstance(tree, dict):
+        return {k: broadcast_lanes(v, n_lanes) for k, v in tree.items()}
+    x = torch.as_tensor(tree)
+    return x.expand((n_lanes,) + tuple(x.shape))
+
+
 # ---------------------------------------------------------------------------
 # Container runtime model (paper §3.2.2): at creation a container computes
 # its completion and OOM ticks from its operator set and allocation. Ops
@@ -369,6 +386,7 @@ __all__ = [
     "workload_lane",
     "SimState",
     "init_state",
+    "broadcast_lanes",
     "container_schedule",
     "used_resources",
     "seconds",

@@ -1,21 +1,32 @@
 """Simulation fleets: many lanes in one lane-major run.
 
 ``fleet_run`` advances ``len(seeds)`` generated lanes, or a caller-built
-``[F, ...]`` workload batch, in one engine loop; lane ``i`` of the
-result equals ``run()`` on lane ``i``'s workload. Device sharding and
-lane binning are later work (ROADMAP queue 1, item 8).
+``[F, ...]`` workload batch (seed-generated, or one recorded trace per
+lane from ``workload_batch_from_traces``), in one engine loop; lane
+``i`` of the result equals ``run()`` on lane ``i``'s workload.
+
+``shard=`` resolves as the reference's does (``None`` one device,
+``"auto"`` every local device, ``n`` the first n) against
+``torch.cuda.device_count()``, a CPU run counting as one device. On one
+card the fleet runs whole; spreading it over several (with the lanes
+binned by event density, ``bin_lanes_by_density``, and padded to a
+multiple of the devices, ``pad_lanes``) is ROADMAP queue 1, item 16.
+``fleet_summary`` aggregates a fleet's final states.
 """
 from __future__ import annotations
 
 from typing import Any, Sequence
 
+import numpy as np
 import torch
 
+from . import metrics
 from .engine import _check_workload, check_main_path, resolve_device, run_lane_major_engine
 from .faults import attach_fault_traces
 from .params import SimParams
 from .state import FaultTrace, SimState, Workload, workload_to
-from .workload import generate_workload
+from .types import INF_TICK, TICKS_PER_SECOND
+from .workload import generate_workload, workload_batch_from_traces  # noqa: F401  (batch ingestion pairs with fleet_run)
 
 
 def make_workload_batch(
@@ -32,6 +43,71 @@ def make_workload_batch(
     return workload_to(wls, device)
 
 
+def _map_workload(wls: Workload, fn) -> Workload:
+    """``fn`` on every lane-major field of ``wls``, its fault trace included."""
+    faults = None if wls.faults is None else FaultTrace(*(fn(x) for x in wls.faults))
+    return Workload(*(fn(x) for x in wls[:10]), faults=faults)
+
+
+def pad_lanes(wls: Workload, n_lanes: int) -> Workload:
+    """Pad the fleet axis of ``wls`` up to ``n_lanes`` with copies of lane
+    0 whose arrivals (and crashes and outage starts) are all INF_TICK:
+    a padding lane retires in one event."""
+    F = wls.arrival.shape[0]
+    pad = n_lanes - F
+    if pad <= 0:
+        return wls
+    padded = _map_workload(
+        wls, lambda x: torch.cat([x, x[:1].expand((pad,) + tuple(x.shape[1:]))]))
+    # every field is a new tensor (cat): set the padding's events in place
+    padded.arrival[F:] = INF_TICK
+    if padded.faults is not None:
+        padded.faults.crash_time[F:] = INF_TICK
+        padded.faults.outage_start[F:] = INF_TICK
+    return padded
+
+
+def predicted_lane_events(wls: Workload, params: SimParams) -> np.ndarray:
+    """Per-lane predicted event count, the binning key: the arrivals
+    inside the horizon (each admits and retires once)."""
+    counts = (wls.arrival < params.horizon_ticks).sum(-1, dtype=torch.int32)
+    return counts.cpu().numpy()
+
+
+def bin_lanes_by_density(wls: Workload, params: SimParams) -> tuple[Workload, np.ndarray]:
+    """Sort the fleet axis by predicted event count, heaviest first (a
+    stable sort: equal lanes keep their order); returns ``(sorted_wls,
+    inverse_permutation)``."""
+    score = predicted_lane_events(wls, params)
+    order = np.argsort(-score, kind="stable")
+    inv = np.argsort(order)
+    index = torch.from_numpy(order).to(wls.arrival.device)
+    return _map_workload(wls, lambda x: x[index]), inv
+
+
+def _unbin_states(states: SimState, inv) -> SimState:
+    """Undo the binning permutation, dropping padding lanes (``inv``
+    addresses only the real lanes, which binning sorted ahead of the
+    padding): one index per field."""
+    index = torch.as_tensor(inv, device=states.tick.device)
+    return SimState(*(x[index] for x in states))
+
+
+def _resolve_shards(shard, fleet_size: int, device: torch.device | None = None) -> int:
+    """The devices ``shard`` asks for, capped by the fleet's lanes; the
+    local devices are the CUDA cards (a CPU run counts as one)."""
+    if shard is None:
+        return 1
+    on_cuda = device is not None and torch.device(device).type == "cuda"
+    n_dev = torch.cuda.device_count() if on_cuda else 1
+    n = n_dev if shard == "auto" else int(shard)
+    if n > n_dev:
+        raise ValueError(
+            f"shard={shard!r} asks for {n} devices but only {n_dev} are local"
+        )
+    return max(1, min(n, fleet_size))
+
+
 def fleet_run(
     params: SimParams,
     seeds: Sequence[int] | None = None,
@@ -39,20 +115,20 @@ def fleet_run(
     *,
     workloads: Workload | None = None,
     device: Any = "cuda",
-    shard=None,
+    shard: str | int | None = None,
+    bin_lanes: bool = True,
     trace: bool = False,
 ) -> SimState:
     """Run a fleet on ``device`` (CUDA unless the caller asks for the
     CPU); exactly one of ``seeds`` / ``workloads`` is given. Returns the
-    batched final state (leading axis = lane)."""
+    batched final state (leading axis = lane). ``shard`` resolves as in
+    the reference; a fleet spread over more than one device (where
+    ``bin_lanes`` would bin its lanes first) waits for ROADMAP queue 1,
+    item 16."""
     if (seeds is None) == (workloads is None):
         raise ValueError(
             "fleet_run needs exactly one of seeds= (generated lanes) or "
             "workloads= (a caller-built batch)"
-        )
-    if shard is not None:
-        raise NotImplementedError(
-            "shard= (lanes spread over devices) waits for ROADMAP queue 1, item 8"
         )
     if trace:
         raise NotImplementedError("trace=True (telemetry) waits for ROADMAP queue 1, item 12")
@@ -60,6 +136,12 @@ def fleet_run(
     device = resolve_device(device)
     if workloads is None:
         workloads = make_workload_batch(params, seeds)
+    n_shards = _resolve_shards(shard, workloads.arrival.shape[0], device)
+    if n_shards > 1:
+        raise NotImplementedError(
+            f"shard={shard!r} spreads the fleet over {n_shards} devices: that waits "
+            "for ROADMAP queue 1, item 16 (distribution); one device runs it whole"
+        )
     if params.fault_trace_active and workloads.faults is None:
         # a caller's batch carries no traces: each lane's comes from
         # params.seed and its lane index
@@ -72,4 +154,76 @@ def fleet_run(
     return states
 
 
-__all__ = ["fleet_run", "make_workload_batch"]
+def _np(x) -> np.ndarray:
+    return x.detach().cpu().numpy()
+
+
+def fleet_summary(states: SimState, params: SimParams, traces=None) -> dict:
+    """Fleet statistics (mean / std over the lanes) of ``repro.core.
+    fleet_summary``; ``traces=`` (telemetry) waits for ROADMAP queue 1,
+    item 12."""
+    if traces is not None:
+        raise NotImplementedError("fleet_summary(traces=...) waits for ROADMAP queue 1, item 12")
+    done = _np(states.done_count)
+    lat = _np(states.sum_latency_s) / np.maximum(done, 1)
+    util = _np(states.util_cpu_s).sum(-1) / (params.total_cpus * params.duration)
+
+    def mean(name):
+        return float(_np(getattr(states, name)).mean())
+
+    out = {
+        "fleet_size": int(done.shape[0]),
+        "throughput_per_s_mean": float(done.mean() / params.duration),
+        "throughput_per_s_std": float(done.std() / params.duration),
+        "mean_latency_s_mean": float(lat.mean()),
+        "mean_latency_s_std": float(lat.std()),
+        "cpu_utilization_mean": float(util.mean()),
+        "oom_events_mean": mean("oom_events"),
+        "preempt_events_mean": mean("preempt_events"),
+        "cost_dollars_mean": mean("cost_dollars"),
+        "cache_hit_gb_mean": mean("cache_hit_gb"),
+        "bytes_moved_gb_mean": mean("bytes_moved_gb"),
+        "cache_hit_rate_mean": _fleet_hit_rate(states),
+        "cold_starts_mean": mean("cold_starts"),
+        "warm_starts_mean": mean("warm_starts"),
+        "crash_events_mean": mean("crash_events"),
+        "outage_events_mean": mean("outage_events"),
+        "fault_kills_mean": mean("fault_kills"),
+        "timeouts_mean": mean("timeout_events"),
+        "retries_mean": mean("retry_events"),
+        "failed_mean": mean("failed_count"),
+        "wasted_work_s_mean": float(_np(states.wasted_ticks).mean() / TICKS_PER_SECOND),
+        "pool_down_s_mean": mean("pool_down_s"),
+    }
+    offered = _np(states.offered_total).astype(np.float64)
+    admitted = _np(states.admitted_total).astype(np.float64)
+    out.update({
+        "offered_mean": float(offered.mean()),
+        "admitted_mean": float(admitted.mean()),
+        "shed_mean": mean("shed_total"),
+        "deferred_mean": mean("deferred_total"),
+        "client_retries_mean": mean("client_retry_events"),
+        "admitted_fraction_mean": float((admitted[offered > 0] / offered[offered > 0]).mean())
+        if np.any(offered > 0) else float("nan"),
+        "fairness_jain_done": metrics._jain(done),
+    })
+    return out
+
+
+def _fleet_hit_rate(states: SimState) -> float:
+    hit = _np(states.cache_hit_gb).astype(np.float64)
+    moved = _np(states.bytes_moved_gb).astype(np.float64)
+    total = hit + moved
+    rates = np.where(total > 0, hit / np.maximum(total, 1e-12), 0.0)
+    return float(rates.mean())
+
+
+__all__ = [
+    "bin_lanes_by_density",
+    "fleet_run",
+    "fleet_summary",
+    "make_workload_batch",
+    "pad_lanes",
+    "predicted_lane_events",
+    "workload_batch_from_traces",
+]

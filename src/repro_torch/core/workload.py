@@ -1,5 +1,9 @@
 """Workloads (paper §3.2.1): drawn with a ``torch.Generator``, or packed
-from a trace of ``Pipeline`` records (``workload_from_pipelines``).
+from a trace of ``Pipeline`` records (``workload_from_pipelines``) or of
+pipeline records as JSON / TOML (``load_trace``,
+``workload_from_trace_records``; one trace per fleet lane with
+``workload_batch_from_traces``); ``workload_to_trace_records`` is the
+exact inverse. The schema is docs/trace-format.md.
 
 The whole arrival table is drawn up front from one seed, from the same
 distributions as ``repro.core.workload.generate_workload``:
@@ -21,19 +25,27 @@ the packages therefore feed both the same reference-built workload
 (``repro_torch.bridge.workload_from_arrays``). The draws happen on the
 CPU, so a seed gives the same workload whatever the device it is then
 moved to.
+
+Trace ingestion fills numpy arrays as the reference does (the same
+record helpers, the same float32 / int32 stores, ``pipe_out`` summed in
+numpy) and makes tensors only at the end, so every field equals the
+reference's bit for bit.
 """
 from __future__ import annotations
 
+import json
 import math
-from typing import Sequence
+import pathlib
+import tomllib
+from typing import Any, Sequence
 
 import numpy as np
 import torch
 
 from .faults import attach_fault_trace
 from .params import SimParams
-from .state import Workload, workload_to
-from .types import INF_TICK, TICKS_PER_SECOND, Pipeline
+from .state import Workload, workload_lane, workload_to
+from .types import INF_TICK, TICKS_PER_SECOND, Operator, Pipeline, Priority
 
 GB_QUANTUM = 1.0 / 1024.0
 
@@ -159,14 +171,195 @@ def workload_from_pipelines(pipelines: Sequence[Pipeline], params: SimParams) ->
     return Workload(*(torch.from_numpy(a)[None] for a in fields))
 
 
-def get_workload(params: SimParams, *, device="cpu") -> Workload:
-    """The workload ``params`` describes: a trace file (a later slice)
-    or the seed generator."""
-    if params.trace_path:
-        raise NotImplementedError(
-            "trace ingestion (trace_path) waits for ROADMAP queue 1, item 3"
+# --- record fields, shared by the single-lane (Pipeline objects) and the
+# --- batched (array-filling) ingestion, so both store the same bits
+def _rec_arrival_tick(rec: dict[str, Any]) -> int:
+    """``arrival_tick`` (exact) wins over ``arrival_s``; either is clamped
+    to INF_TICK, which marks a reserved slot that never arrives."""
+    if "arrival_tick" in rec:
+        return min(int(rec["arrival_tick"]), int(INF_TICK))
+    return min(int(round(float(rec["arrival_s"]) * TICKS_PER_SECOND)), int(INF_TICK))
+
+
+def _rec_priority(rec: dict[str, Any]) -> Priority:
+    pri = rec.get("priority", "QUERY")
+    if isinstance(pri, str):
+        pri = Priority[pri.upper()]
+    return Priority(int(pri))
+
+
+def _op_base_ticks(o: dict[str, Any]) -> float:
+    """``base_ticks`` (exact f32 ticks) wins over ``base_s``, which is
+    rounded to the tick grid."""
+    if "base_ticks" in o:
+        return float(o["base_ticks"])
+    return float(int(round(float(o["base_s"]) * TICKS_PER_SECOND)))
+
+
+def load_trace(path: str | pathlib.Path, params: SimParams) -> Workload:
+    """A trace file as a fleet of one on the CPU: JSON (a list of
+    records, or ``{"pipeline(s)": [...]}``) or TOML (``.toml``,
+    ``[[pipeline]]`` tables with nested ``[[pipeline.ops]]``)."""
+    p = pathlib.Path(path)
+    text = p.read_text()
+    if p.suffix.lower() == ".toml":
+        raw = tomllib.loads(text)
+        records = raw.get("pipeline", raw.get("pipelines"))
+        if records is None:
+            raise ValueError(f"TOML trace {p} has no [[pipeline]] tables")
+    else:
+        raw = json.loads(text)
+        if isinstance(raw, dict):
+            records = raw.get("pipeline", raw.get("pipelines"))
+            if records is None:
+                raise ValueError(
+                    f"JSON trace {p} is an object without a 'pipeline(s)' "
+                    "key (expected a list of records or {'pipeline': [...]})"
+                )
+        else:
+            records = raw
+    return workload_from_trace_records(records, params)
+
+
+def workload_from_trace_records(
+    records: Sequence[dict[str, Any]], params: SimParams
+) -> Workload:
+    """One trace (a sequence of pipeline records) as a fleet of one on the
+    CPU, shaped by ``params``' capacities."""
+    pipelines = [
+        Pipeline(
+            pid=i,
+            priority=_rec_priority(rec),
+            arrival_tick=_rec_arrival_tick(rec),
+            ops=[
+                Operator(
+                    ram_gb=float(o["ram_gb"]),
+                    base_ticks=_op_base_ticks(o),
+                    alpha=float(o.get("alpha", 0.5)),
+                    level=int(o.get("level", j)),
+                    out_gb=float(o.get("out_gb", 0.0)),
+                )
+                for j, o in enumerate(rec["ops"])
+            ],
         )
+        for i, rec in enumerate(records)
+    ]
+    return workload_from_pipelines(pipelines, params)
+
+
+def workload_to_trace_records(wl: Workload) -> list[dict[str, Any]]:
+    """The exact inverse of trace ingestion, for one lane (per-lane
+    shapes, or a fleet of one): the seconds fields beside the exact
+    ``arrival_tick`` / ``base_ticks`` that ingestion prefers, reserved
+    slots (never arriving, but with ops) at ``arrival_tick = 2**31 - 1``,
+    empty trailing slots trimmed."""
+    if wl.arrival.dim() == 2:
+        if wl.arrival.shape[0] != 1:
+            raise ValueError(
+                f"workload_to_trace_records takes one lane, got {wl.arrival.shape[0]}"
+            )
+        wl = workload_lane(wl, 0)
+    arrival, prio, n_ops, op_level, op_ram, op_base, op_alpha, op_out = (
+        x.detach().cpu().numpy() for x in (
+            wl.arrival, wl.prio, wl.n_ops, wl.op_level, wl.op_ram, wl.op_base,
+            wl.op_alpha, wl.op_out))
+    live = (arrival < INF_TICK) | (n_ops > 0) | (prio != 0)
+    last = int(np.max(np.nonzero(live)[0])) if live.any() else -1
+    records: list[dict[str, Any]] = []
+    for i in range(last + 1):
+        ops = []
+        for j in range(int(n_ops[i])):
+            base = float(op_base[i, j])
+            ops.append({
+                "ram_gb": float(op_ram[i, j]),
+                "base_s": base / TICKS_PER_SECOND,
+                "base_ticks": base,
+                "alpha": float(op_alpha[i, j]),
+                "level": int(op_level[i, j]),
+                "out_gb": float(op_out[i, j]),
+            })
+        tick = int(arrival[i])
+        records.append({
+            "arrival_s": tick / TICKS_PER_SECOND,
+            "arrival_tick": tick,
+            "priority": Priority(int(prio[i])).name,
+            "ops": ops,
+        })
+    return records
+
+
+def workload_batch_from_traces(
+    records_per_lane: Sequence[Sequence[dict[str, Any]]], params: SimParams
+) -> tuple[Workload, SimParams]:
+    """One trace per fleet lane, filled in one pass over the records:
+    ``(workloads, params)`` for ``fleet_run(params,
+    workloads=workloads)``. Lane ``i`` equals
+    ``workload_from_trace_records(records_per_lane[i], params)``.
+    ``max_pipelines`` / ``max_ops_per_pipeline`` of 0 take the batch's
+    maxima (the returned params carry them); positive ones are checked
+    against them."""
+    lanes = [list(recs) for recs in records_per_lane]
+    L = len(lanes)
+    if L == 0:
+        raise ValueError("records_per_lane is empty: a batch needs >= 1 lane")
+    need_mp = max(1, max(len(recs) for recs in lanes))
+    need_mo = max(1, max((len(r["ops"]) for recs in lanes for r in recs), default=1))
+    MP = params.max_pipelines if params.max_pipelines > 0 else need_mp
+    MO = params.max_ops_per_pipeline if params.max_ops_per_pipeline > 0 else need_mo
+    if need_mp > MP:
+        raise ValueError(
+            f"a lane has {need_mp} pipelines > capacity {MP} "
+            "(set max_pipelines=0 to derive it from the traces)"
+        )
+    if need_mo > MO:
+        raise ValueError(
+            f"a pipeline has {need_mo} ops > capacity {MO} "
+            "(set max_ops_per_pipeline=0 to derive it from the traces)"
+        )
+    if (MP, MO) != (params.max_pipelines, params.max_ops_per_pipeline):
+        params = params.replace(max_pipelines=MP, max_ops_per_pipeline=MO)
+
+    arrival = np.full((L, MP), INF_TICK, np.int32)
+    prio = np.zeros((L, MP), np.int32)
+    n_ops = np.zeros((L, MP), np.int32)
+    op_level = np.zeros((L, MP, MO), np.int32)
+    op_ram = np.zeros((L, MP, MO), np.float32)
+    op_base = np.zeros((L, MP, MO), np.float32)
+    op_alpha = np.zeros((L, MP, MO), np.float32)
+    op_out = np.zeros((L, MP, MO), np.float32)
+    for lane, recs in enumerate(lanes):
+        for i, rec in enumerate(recs):
+            arrival[lane, i] = _rec_arrival_tick(rec)
+            prio[lane, i] = int(_rec_priority(rec))
+            ops = rec["ops"]   # required: a misspelt key fails here
+            n_ops[lane, i] = len(ops)
+            for j, o in enumerate(ops):
+                op_level[lane, i, j] = int(o.get("level", j))
+                op_ram[lane, i, j] = float(o["ram_gb"])
+                op_base[lane, i, j] = _op_base_ticks(o)
+                op_alpha[lane, i, j] = float(o.get("alpha", 0.5))
+                op_out[lane, i, j] = _op_out_gb_quantized(float(o.get("out_gb", 0.0)))
+    op_valid = np.arange(MO, dtype=np.int32)[None, None, :] < n_ops[:, :, None]
+    fields = (arrival, prio, n_ops, op_valid, op_level, op_ram, op_base, op_alpha,
+              op_out, op_out.sum(axis=-1, dtype=np.float32))
+    return Workload(*(torch.from_numpy(a) for a in fields)), params
+
+
+def get_workload(params: SimParams, *, device="cpu") -> Workload:
+    """The workload ``params`` describes: the trace at ``trace_path``, or
+    the seed generator."""
+    if params.trace_path:
+        return workload_to(load_trace(params.trace_path, params), device)
     return generate_workload(params, device=device)
 
 
-__all__ = ["generate_workload", "get_workload", "workload_from_pipelines", "GB_QUANTUM"]
+__all__ = [
+    "GB_QUANTUM",
+    "generate_workload",
+    "get_workload",
+    "load_trace",
+    "workload_batch_from_traces",
+    "workload_from_pipelines",
+    "workload_from_trace_records",
+    "workload_to_trace_records",
+]

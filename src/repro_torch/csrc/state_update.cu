@@ -18,9 +18,12 @@
 // src/repro/kernels/state_update/kernel.py, assign_gather_kernel (body
 // _assign_kernel). It lands up to K collected assignment rows: on [MC]
 // the hit mask and 9 fields at each valid row's slot, on [MP] the hit
-// mask and the cpus / RAM at each valid row's pipe, zeros elsewhere.
-// Valid rows carry unique slots and pipes, so every output element has
-// at most one writer and the writes are exact.
+// mask and the cpus / RAM at each valid row's pipe, zeros elsewhere. A
+// slot or pipe outside [0, MC) / [0, MP), or an invalid row, lands
+// nothing; where two valid rows share a slot (or a pipe) the first row
+// lands, as the plain version's first_true does (the engine's rows
+// never share one). Semantics follow kernels/state_update/ref.py,
+// assign_gather_ref, bit for bit.
 //
 // Bound on the H100: bytes and launch latency. At the main-path shapes
 // (F = 64, MC = 64, MP = 256, K = 16) retire_land moves ~290 KB and
@@ -42,9 +45,26 @@
 // device-memory loads and a division each, while the other 124 waited
 // (14.8 us a call on the H100). The timeout branch adds one shared [MP]
 // row of flags and reads ctr_start, timed and tick; the timeout-off
-// instantiation compiles to what it was. assign_gather zeroes its rows,
-// synchronises, and lets one thread per valid row write its slot and
-// pipe.
+// instantiation compiles to what it was.
+//
+// assign_gather's first cut zeroed its 13 rows, synchronised, and let
+// one thread per valid row load valid, then slot and pipe, then the
+// nine fields: three load latencies in series, every landed element
+// written twice. Now each lane (one block of four warps) issues all of
+// a row's loads at once, before any branch; builds a slot -> row and a
+// pipe -> row map in shared memory with atomicMin (the first row wins,
+// whatever the order) while the rows' fields are staged beside the
+// maps; and after a block barrier writes every output element exactly once, the landed value
+// or zero: four containers (pipelines) a thread, as one 16-byte store
+// per int32 / f32 field and one 32-bit store per four bools where the
+// rows are 16-byte aligned (MC, MP multiples of 4), scalar otherwise.
+// The 13 outputs arrive as four regions of one allocation: the seven
+// 4-byte container fields [7][F][MC], the two pipeline fields
+// [2][F][MP], the three container flags [3][F][MC], the pipeline hit
+// mask [F][MP]. One lane a block beat four lanes a block of one warp
+// each at the fleets the repo runs (1.74 against 1.88 us at F = 64 on
+// the H100) and lost only past 16 blocks an SM (7.5 against 6.1 us at
+// F = 4,096), a width no workload has; PERF.md, PR 18.
 #include "common.cuh"
 
 namespace {
@@ -190,62 +210,177 @@ __global__ void retire_land_kernel(
   }
 }
 
-__global__ void assign_gather_kernel(
+// the row index a map entry holds where no valid row lands
+constexpr int32_t kNoRow = 2147483647;
+
+// one assignment row's landed fields: lo = (pipe, pool, cpus, ram),
+// hi = (end, oom, prio, warm | timed << 1), floats as their bits
+struct AssignRow {
+  bool valid;
+  int32_t slot, pipe;
+  int4 lo, hi;
+};
+
+__device__ __forceinline__ AssignRow load_assign_row(
     const bool* __restrict__ valid, const int32_t* __restrict__ slot,
     const int32_t* __restrict__ pipe, const int32_t* __restrict__ pool,
     const float* __restrict__ cpus, const float* __restrict__ ram,
     const int32_t* __restrict__ end, const int32_t* __restrict__ oom,
     const int32_t* __restrict__ prio, const bool* __restrict__ warm,
-    const bool* __restrict__ timed, int K, int MC, int MP,
-    bool* __restrict__ hit_c, int32_t* __restrict__ l_pipe,
-    int32_t* __restrict__ l_pool, float* __restrict__ l_cpus,
-    float* __restrict__ l_ram, int32_t* __restrict__ l_end,
-    int32_t* __restrict__ l_oom, int32_t* __restrict__ l_prio,
-    bool* __restrict__ l_warm, bool* __restrict__ l_timed,
-    bool* __restrict__ hit_p, float* __restrict__ l_pcpus,
-    float* __restrict__ l_pram) {
+    const bool* __restrict__ timed, size_t i) {
+  AssignRow r;
+  r.valid = valid[i];
+  r.slot = slot[i];
+  r.pipe = pipe[i];
+  r.lo = make_int4(pipe[i], pool[i], __float_as_int(cpus[i]),
+                   __float_as_int(ram[i]));
+  r.hi = make_int4(end[i], oom[i], prio[i],
+                   (int)warm[i] | ((int)timed[i] << 1));
+  return r;
+}
+
+// put row k in the maps (the smallest row index wins a slot or pipe) and
+// stage its fields; an invalid row, or an index out of range, lands
+// nothing
+__device__ __forceinline__ void map_assign_row(
+    const AssignRow& r, int k, int MC, int MP, int* cmap, int* pmap,
+    int4* rows) {
+  if (!r.valid) return;
+  if ((unsigned)r.slot < (unsigned)MC) atomicMin(&cmap[r.slot], k);
+  if ((unsigned)r.pipe < (unsigned)MP) atomicMin(&pmap[r.pipe], k);
+  rows[2 * k] = r.lo;
+  rows[2 * k + 1] = r.hi;
+}
+
+__device__ __forceinline__ uint32_t pack_bools(bool a, bool b, bool c,
+                                               bool d) {
+  return (uint32_t)a | ((uint32_t)b << 8) | ((uint32_t)c << 16) |
+         ((uint32_t)d << 24);
+}
+
+// 4-byte words per lane in shared memory: the container map, the
+// pipeline map (each rounded up to 16 bytes) and K staged rows of 8
+__host__ __device__ __forceinline__ int assign_lane_words(int K, int MC,
+                                                          int MP) {
+  return ((MC + 3) & ~3) + ((MP + 3) & ~3) + 8 * K;
+}
+
+// one lane a block of kAssignThreads
+constexpr int kAssignThreads = 128;
+
+__global__ void __launch_bounds__(kAssignThreads) assign_gather_kernel(
+    const bool* __restrict__ valid, const int32_t* __restrict__ slot,
+    const int32_t* __restrict__ pipe, const int32_t* __restrict__ pool,
+    const float* __restrict__ cpus, const float* __restrict__ ram,
+    const int32_t* __restrict__ end, const int32_t* __restrict__ oom,
+    const int32_t* __restrict__ prio, const bool* __restrict__ warm,
+    const bool* __restrict__ timed, int F, int K, int MC, int MP,
+    bool vec_c, bool vec_p, int32_t* __restrict__ out_c,
+    int32_t* __restrict__ out_p, uint8_t* __restrict__ flag_c,
+    uint8_t* __restrict__ hit_p) {
+  constexpr int kThreads = kAssignThreads;
+  const int t = threadIdx.x;
   const int f = blockIdx.x;
-  const size_t co = (size_t)f * MC;
-  const size_t po = (size_t)f * MP;
+  const int mc4 = (MC + 3) & ~3, mp4 = (MP + 3) & ~3;
+  extern __shared__ int4 smem4[];
+  int* cmap = reinterpret_cast<int*>(smem4);
+  int* pmap = cmap + mc4;
+  int4* rows = reinterpret_cast<int4*>(pmap + mp4);
   const size_t ro = (size_t)f * K;
-  for (int c = threadIdx.x; c < MC; c += blockDim.x) {
-    hit_c[co + c] = false;
-    l_pipe[co + c] = 0;
-    l_pool[co + c] = 0;
-    l_cpus[co + c] = 0.0f;
-    l_ram[co + c] = 0.0f;
-    l_end[co + c] = 0;
-    l_oom[co + c] = 0;
-    l_prio[co + c] = 0;
-    l_warm[co + c] = false;
-    l_timed[co + c] = false;
-  }
-  for (int p = threadIdx.x; p < MP; p += blockDim.x) {
-    hit_p[po + p] = false;
-    l_pcpus[po + p] = 0.0f;
-    l_pram[po + p] = 0.0f;
-  }
+
+  // the first rows' loads go out before anything waits on them
+  const bool first = t < K;
+  AssignRow r0;
+  if (first)
+    r0 = load_assign_row(valid, slot, pipe, pool, cpus, ram, end, oom, prio,
+                         warm, timed, ro + t);
+  const int4 none = make_int4(kNoRow, kNoRow, kNoRow, kNoRow);
+  for (int i = t; i < (mc4 + mp4) / 4; i += kThreads)
+    reinterpret_cast<int4*>(cmap)[i] = none;
   __syncthreads();
-  for (int k = threadIdx.x; k < K; k += blockDim.x) {
-    if (!valid[ro + k]) continue;
-    const int32_t s = slot[ro + k];
-    if (s >= 0 && s < MC) {
-      hit_c[co + s] = true;
-      l_pipe[co + s] = pipe[ro + k];
-      l_pool[co + s] = pool[ro + k];
-      l_cpus[co + s] = cpus[ro + k];
-      l_ram[co + s] = ram[ro + k];
-      l_end[co + s] = end[ro + k];
-      l_oom[co + s] = oom[ro + k];
-      l_prio[co + s] = prio[ro + k];
-      l_warm[co + s] = warm[ro + k];
-      l_timed[co + s] = timed[ro + k];
+  if (first) map_assign_row(r0, t, MC, MP, cmap, pmap, rows);
+  for (int k = t + kThreads; k < K; k += kThreads)
+    map_assign_row(load_assign_row(valid, slot, pipe, pool, cpus, ram, end,
+                                   oom, prio, warm, timed, ro + k),
+                   k, MC, MP, cmap, pmap, rows);
+  __syncthreads();
+
+  // containers: the landed row's fields, or zeros
+  const size_t nc = (size_t)F * MC;
+  int32_t* oc = out_c + (size_t)f * MC;
+  uint8_t* fc = flag_c + (size_t)f * MC;
+  if (vec_c) {
+    for (int g = t; g < MC / 4; g += kThreads) {
+      const int4 m = reinterpret_cast<const int4*>(cmap)[g];
+      const int r[4] = {m.x, m.y, m.z, m.w};
+      int4 lo[4], hi[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const bool hit = r[i] != kNoRow;
+        lo[i] = hit ? rows[2 * r[i]] : make_int4(0, 0, 0, 0);
+        hi[i] = hit ? rows[2 * r[i] + 1] : make_int4(0, 0, 0, 0);
+      }
+      int4* o = reinterpret_cast<int4*>(oc) + g;
+      const size_t s = nc / 4;  // one field's stride in int4
+      o[0] = make_int4(lo[0].x, lo[1].x, lo[2].x, lo[3].x);
+      o[s] = make_int4(lo[0].y, lo[1].y, lo[2].y, lo[3].y);
+      o[2 * s] = make_int4(lo[0].z, lo[1].z, lo[2].z, lo[3].z);
+      o[3 * s] = make_int4(lo[0].w, lo[1].w, lo[2].w, lo[3].w);
+      o[4 * s] = make_int4(hi[0].x, hi[1].x, hi[2].x, hi[3].x);
+      o[5 * s] = make_int4(hi[0].y, hi[1].y, hi[2].y, hi[3].y);
+      o[6 * s] = make_int4(hi[0].z, hi[1].z, hi[2].z, hi[3].z);
+      uint32_t* b = reinterpret_cast<uint32_t*>(fc) + g;
+      b[0] = pack_bools(r[0] != kNoRow, r[1] != kNoRow, r[2] != kNoRow,
+                        r[3] != kNoRow);
+      b[s] = pack_bools(hi[0].w & 1, hi[1].w & 1, hi[2].w & 1, hi[3].w & 1);
+      b[2 * s] = pack_bools(hi[0].w >> 1, hi[1].w >> 1, hi[2].w >> 1,
+                            hi[3].w >> 1);
     }
-    const int32_t p = pipe[ro + k];
-    if (p >= 0 && p < MP) {
-      hit_p[po + p] = true;
-      l_pcpus[po + p] = cpus[ro + k];
-      l_pram[po + p] = ram[ro + k];
+  } else {
+    for (int c = t; c < MC; c += kThreads) {
+      const int rr = cmap[c];
+      const bool hit = rr != kNoRow;
+      const int4 lo = hit ? rows[2 * rr] : make_int4(0, 0, 0, 0);
+      const int4 hi = hit ? rows[2 * rr + 1] : make_int4(0, 0, 0, 0);
+      oc[c] = lo.x;
+      oc[nc + c] = lo.y;
+      oc[2 * nc + c] = lo.z;
+      oc[3 * nc + c] = lo.w;
+      oc[4 * nc + c] = hi.x;
+      oc[5 * nc + c] = hi.y;
+      oc[6 * nc + c] = hi.z;
+      fc[c] = hit;
+      fc[nc + c] = hi.w & 1;
+      fc[2 * nc + c] = hi.w >> 1;
+    }
+  }
+
+  // pipelines: the landed row's cpus and RAM, or zeros
+  const size_t np = (size_t)F * MP;
+  int32_t* op = out_p + (size_t)f * MP;
+  uint8_t* hp = hit_p + (size_t)f * MP;
+  if (vec_p) {
+    for (int g = t; g < MP / 4; g += kThreads) {
+      const int4 m = reinterpret_cast<const int4*>(pmap)[g];
+      const int r[4] = {m.x, m.y, m.z, m.w};
+      int4 lo[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        lo[i] = r[i] != kNoRow ? rows[2 * r[i]] : make_int4(0, 0, 0, 0);
+      int4* o = reinterpret_cast<int4*>(op) + g;
+      o[0] = make_int4(lo[0].z, lo[1].z, lo[2].z, lo[3].z);
+      o[np / 4] = make_int4(lo[0].w, lo[1].w, lo[2].w, lo[3].w);
+      reinterpret_cast<uint32_t*>(hp)[g] = pack_bools(
+          r[0] != kNoRow, r[1] != kNoRow, r[2] != kNoRow, r[3] != kNoRow);
+    }
+  } else {
+    for (int p = t; p < MP; p += kThreads) {
+      const int rr = pmap[p];
+      const bool hit = rr != kNoRow;
+      const int4 lo = hit ? rows[2 * rr] : make_int4(0, 0, 0, 0);
+      op[p] = lo.z;
+      op[np + p] = lo.w;
+      hp[p] = hit;
     }
   }
 }
@@ -307,24 +442,36 @@ REPRO_EXPORT int repro_retire_land(
       lat_prio, done_prio, n_done, n_oom, (cudaStream_t)stream);
 }
 
+// out_c [7][F][MC] int32 / f32 (pipe, pool, cpus, ram, end, oom, prio),
+// out_p [2][F][MP] f32 (cpus, ram), flag_c [3][F][MC] bool (hit, warm,
+// timed), hit_p [F][MP] bool
 REPRO_EXPORT int repro_assign_gather(
     const void* valid, const void* slot, const void* pipe, const void* pool,
     const void* cpus, const void* ram, const void* end, const void* oom,
     const void* prio, const void* warm, const void* timed, int F, int K,
-    int MC, int MP, void* hit_c, void* l_pipe, void* l_pool, void* l_cpus,
-    void* l_ram, void* l_end, void* l_oom, void* l_prio, void* l_warm,
-    void* l_timed, void* hit_p, void* l_pcpus, void* l_pram, void* stream,
-    int device) {
+    int MC, int MP, void* out_c, void* out_p, void* flag_c, void* hit_p,
+    void* stream, int device) {
   cudaSetDevice(device);
-  if (F > 0) {
-    assign_gather_kernel<<<F, 128, 0, (cudaStream_t)stream>>>(
-        (const bool*)valid, (const int32_t*)slot, (const int32_t*)pipe,
-        (const int32_t*)pool, (const float*)cpus, (const float*)ram,
-        (const int32_t*)end, (const int32_t*)oom, (const int32_t*)prio,
-        (const bool*)warm, (const bool*)timed, K, MC, MP, (bool*)hit_c,
-        (int32_t*)l_pipe, (int32_t*)l_pool, (float*)l_cpus, (float*)l_ram,
-        (int32_t*)l_end, (int32_t*)l_oom, (int32_t*)l_prio, (bool*)l_warm,
-        (bool*)l_timed, (bool*)hit_p, (float*)l_pcpus, (float*)l_pram);
+  if (F <= 0) return repro::launch_status();
+  const size_t smem = (size_t)assign_lane_words(K, MC, MP) * sizeof(int);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        assign_gather_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (err != cudaSuccess) return (int)err;
   }
+  // the wide stores need rows on 16-byte (int32 / f32) and 4-byte (bool)
+  // boundaries: rows of a multiple of 4 from aligned regions
+  auto aligned = [](const void* p, uintptr_t a) {
+    return ((uintptr_t)p & (a - 1)) == 0;
+  };
+  const bool vec_c = MC % 4 == 0 && aligned(out_c, 16) && aligned(flag_c, 4);
+  const bool vec_p = MP % 4 == 0 && aligned(out_p, 16) && aligned(hit_p, 4);
+  assign_gather_kernel<<<F, kAssignThreads, smem, (cudaStream_t)stream>>>(
+      (const bool*)valid, (const int32_t*)slot, (const int32_t*)pipe,
+      (const int32_t*)pool, (const float*)cpus, (const float*)ram,
+      (const int32_t*)end, (const int32_t*)oom, (const int32_t*)prio,
+      (const bool*)warm, (const bool*)timed, F, K, MC, MP, vec_c, vec_p,
+      (int32_t*)out_c, (int32_t*)out_p, (uint8_t*)flag_c, (uint8_t*)hit_p);
   return repro::launch_status();
 }

@@ -141,11 +141,18 @@ def require(
         raise ValueError(f"{kernel}: {arg} must be contiguous")
 
 
+# the current stream's raw handle, without building a ``torch.cuda.Stream``
+# (a private function of PyTorch; the public route where it is missing)
+_raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+
+
 def stream_args(device: torch.device) -> tuple[int, int]:
     """``(stream, device index)`` for a launch on ``device``'s current
     stream."""
     index = device.index if device.index is not None else torch.cuda.current_device()
-    return torch.cuda.current_stream(device).cuda_stream, index
+    if _raw_stream is None:
+        return torch.cuda.current_stream(index).cuda_stream, index
+    return _raw_stream(index), index
 
 
 __all__ = [

@@ -14,7 +14,12 @@ from .ref import assign_gather_ref, retire_land_ref
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _RETIRE_ARGTYPES = [_P] * 9 + [_I] * 4 + [_P] * 10 + [_P, _I]
-_ASSIGN_ARGTYPES = [_P] * 11 + [_I] * 4 + [_P] * 13 + [_P, _I]
+_ASSIGN_ARGTYPES = [_P] * 11 + [_I] * 4 + [_P] * 4 + [_P, _I]
+_ASSIGN_ROWS = ("valid", "slot", "pipe", "pool", "cpus", "ram", "end", "oom",
+                "prio", "warm", "timed")
+_ASSIGN_DTYPES = (torch.bool, torch.int32, torch.int32, torch.int32,
+                  torch.float32, torch.float32, torch.int32, torch.int32,
+                  torch.int32, torch.bool, torch.bool)
 
 
 def retire_land(
@@ -79,12 +84,52 @@ retire_land.launches = 0
 retire_land.timeout_launches = 0
 
 
+def _check_assign_rows(rows, F: int, K: int, dev: torch.device) -> None:
+    """One pass over the 11 ``[F, K]`` rows; ``cuda_lib.require`` names
+    the first that is not a contiguous tensor of its dtype on ``dev``."""
+    shape = (F, K)
+    for name, x, dt in zip(_ASSIGN_ROWS, rows, _ASSIGN_DTYPES):
+        if not (type(x) is torch.Tensor and x.dtype is dt and x.shape == shape
+                and x.device == dev and x.is_contiguous()):
+            cuda_lib.require("assign_gather", name, x, dt, shape, dev)
+
+
+def _assign_outputs(F: int, MC: int, MP: int, dev: torch.device):
+    """The 13 outputs as views of the four regions the kernel writes:
+    ``[7, F, MC]`` (pipe, pool, cpus, ram, end, oom, prio; the floats as
+    their bits), ``[2, F, MP]`` (cpus, ram), ``[3, F, MC]`` bools (hit,
+    warm, timed) and ``[F, MP]`` bools (hit); four allocations and
+    three ``unbind``s in place of 13 allocations. Returns ``(regions,
+    outputs)``."""
+    c = torch.empty((7, F, MC), dtype=torch.int32, device=dev)
+    p = torch.empty((2, F, MP), dtype=torch.float32, device=dev)
+    fc = torch.empty((3, F, MC), dtype=torch.bool, device=dev)
+    hp = torch.empty((F, MP), dtype=torch.bool, device=dev)
+    l_pipe, l_pool, l_cpus, l_ram, l_end, l_oom, l_prio = c.unbind(0)
+    hit_c, l_warm, l_timed = fc.unbind(0)
+    l_pcpus, l_pram = p.unbind(0)
+    outs = (hit_c, l_pipe, l_pool, l_cpus.view(torch.float32),
+            l_ram.view(torch.float32), l_end, l_oom, l_prio, l_warm, l_timed,
+            hp, l_pcpus, l_pram)
+    return (c, p, fc, hp), outs
+
+
+def _launch_assign(rows, regions, F, K, MC, MP, dev) -> None:
+    fn = cuda_lib.function("repro_assign_gather", _ASSIGN_ARGTYPES)
+    code = fn(
+        *(x.data_ptr() for x in rows), F, K, MC, MP,
+        *(y.data_ptr() for y in regions), *cuda_lib.stream_args(dev),
+    )
+    cuda_lib.check_launch("assign_gather", code)
+
+
 def assign_gather(
     valid, slot, pipe, pool, cpus, ram, end, oom, prio, warm, timed,
     *, max_containers: int, max_pipelines: int,
 ):
     """Land ``[F, K]`` assignment rows on the container and pipeline
-    axes; see ``ref.assign_gather_ref``."""
+    axes; see ``ref.assign_gather_ref``. On CUDA the 13 outputs are
+    views of four allocations (``_assign_outputs``)."""
     if not use_kernel(valid):
         return assign_gather_ref(
             valid, slot, pipe, pool, cpus, ram, end, oom, prio, warm, timed,
@@ -93,31 +138,10 @@ def assign_gather(
     F, K = valid.shape
     MC, MP = int(max_containers), int(max_pipelines)
     dev = valid.device
-    i32, f32, b = torch.int32, torch.float32, torch.bool
     rows = (valid, slot, pipe, pool, cpus, ram, end, oom, prio, warm, timed)
-    names = ("valid", "slot", "pipe", "pool", "cpus", "ram", "end", "oom",
-             "prio", "warm", "timed")
-    dtypes = (b, i32, i32, i32, f32, f32, i32, i32, i32, b, b)
-    for arg, x, dt in zip(names, rows, dtypes):
-        cuda_lib.require("assign_gather", arg, x, dt, (F, K), dev)
-
-    def c_out(dt):
-        return torch.empty((F, MC), dtype=dt, device=dev)
-
-    def p_out(dt):
-        return torch.empty((F, MP), dtype=dt, device=dev)
-
-    outs = (
-        c_out(b), c_out(i32), c_out(i32), c_out(f32), c_out(f32),
-        c_out(i32), c_out(i32), c_out(i32), c_out(b), c_out(b),
-        p_out(b), p_out(f32), p_out(f32),
-    )
-    fn = cuda_lib.function("repro_assign_gather", _ASSIGN_ARGTYPES)
-    code = fn(
-        *(x.data_ptr() for x in rows), F, K, MC, MP,
-        *(y.data_ptr() for y in outs), *cuda_lib.stream_args(dev),
-    )
-    cuda_lib.check_launch("assign_gather", code)
+    _check_assign_rows(rows, F, K, dev)
+    regions, outs = _assign_outputs(F, MC, MP, dev)
+    _launch_assign(rows, regions, F, K, MC, MP, dev)
     assign_gather.launches += 1
     return outs
 

@@ -16,8 +16,15 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch import SimParams, fleet_run
+from repro_torch import (
+    SimParams,
+    fleet_run,
+    make_workload_batch,
+    workload_batch_from_traces,
+    workload_to_trace_records,
+)
 from repro_torch.configs import get_arch
+from repro_torch.core.state import workload_lane
 from repro_torch.kernels import (
     KERNELS,
     LM_KERNELS,
@@ -38,6 +45,7 @@ from repro_torch.kernels.state_update import (
     retire_land,
     retire_land_ref,
 )
+from repro_torch.kernels.state_update import ops as state_update_ops
 
 INF = 2**31 - 1
 F, MC, MP, K = 64, 64, 256, 16
@@ -325,25 +333,81 @@ def test_masked_lex_argmin_kernel_on_a_wide_fleet(cuda):
     _select_on_card(cuda, mask, keys)
 
 
-@pytest.mark.cuda
-def test_assign_gather_kernel_matches_plain(cuda):
-    rng = np.random.default_rng(0)
-    arrays = (
-        rng.random((F, K)) < 0.6,
-        np.stack([rng.permutation(MC)[:K] for _ in range(F)]).astype(np.int32),
-        np.stack([rng.permutation(MP)[:K] for _ in range(F)]).astype(np.int32),
-        rng.integers(0, 3, (F, K)).astype(np.int32),
-        (rng.integers(1, 9, (F, K)) * 0.8).astype(np.float32),
-        (rng.integers(1, 9, (F, K)) * 1.6).astype(np.float32),
-        rng.integers(100, 9_000, (F, K)).astype(np.int32),
-        np.full((F, K), INF, np.int32),
-        rng.integers(0, 3, (F, K)).astype(np.int32),
-        rng.random((F, K)) < 0.5,
-        np.zeros((F, K), bool),
+def _assign_arrays(rng, lanes, k, mc, mp, edge):
+    """Assignment rows at ``[lanes, k]``: the engine's (unique slots and
+    pipes) or, with ``edge``, slots and pipes of -1, ``mc`` and ``mp`` on
+    valid and invalid rows, lane 0 without a valid row, and on lane 1
+    two valid rows sharing a slot and two sharing a pipe."""
+    valid = rng.random((lanes, k)) < 0.6
+    slot = np.stack([rng.permutation(max(mc, k))[:k] for _ in range(lanes)])
+    pipe = np.stack([rng.permutation(max(mp, k))[:k] for _ in range(lanes)])
+    if edge:
+        valid[0] = False
+        slot = np.where(rng.random((lanes, k)) < 0.15, rng.choice([-1, mc], (lanes, k)), slot)
+        pipe = np.where(rng.random((lanes, k)) < 0.15, rng.choice([-1, mp], (lanes, k)), pipe)
+        if k >= 4:
+            valid[1, :4] = True
+            slot[1, :4] = [mc - 1, 0, mc - 1, 1]
+            pipe[1, :4] = [2, mp - 1, 3, mp - 1]
+    return (
+        valid, slot.astype(np.int32), pipe.astype(np.int32),
+        rng.integers(0, 3, (lanes, k)).astype(np.int32),
+        (rng.standard_normal((lanes, k)) * 8).astype(np.float32),
+        (rng.standard_normal((lanes, k)) * 16).astype(np.float32),
+        rng.integers(-2**31, 2**31 - 1, (lanes, k)).astype(np.int32),
+        np.where(rng.random((lanes, k)) < 0.5, INF, rng.integers(0, 9_000, (lanes, k))).astype(np.int32),
+        rng.integers(-1, 4, (lanes, k)).astype(np.int32),
+        rng.random((lanes, k)) < 0.5,
+        rng.random((lanes, k)) < 0.5,
     )
-    cpu, dev = _pair(arrays, cuda)
-    kw = dict(max_containers=MC, max_pipelines=MP)
-    _equal(assign_gather(*dev, **kw), assign_gather_ref(*cpu, **kw))
+
+
+# (lanes, K, MC, MP, edge rows): the main path's shapes, then the edge
+# grid of chip_smoke.py's phase 3 (scalar stores where MC or MP is not a
+# multiple of 4, K past a warp, past MC and past the block's 128 threads,
+# a wide fleet)
+ASSIGN_CASES = [
+    (F, K, MC, MP, False),
+    (F, 1, 33, 200, True),
+    (F, 33, 33, 1024, True),
+    (F, 64, 1000, 200, True),
+    (F, 64, 1000, 1024, True),
+    (F, 33, 64, 256, True),
+    (F, 200, 33, 256, True),
+    (F, 129, 64, 1024, True),
+    (4096, K, MC, MP, True),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lanes,k,mc,mp,edge", ASSIGN_CASES,
+                         ids=lambda v: str(v))
+def test_assign_gather_kernel_matches_plain(cuda, lanes, k, mc, mp, edge):
+    rng = np.random.default_rng(k * mc + mp)
+    cpu, dev = _pair(_assign_arrays(rng, lanes, k, mc, mp, edge), cuda)
+    kw = dict(max_containers=mc, max_pipelines=mp)
+    reset_launch_counts()
+    got = assign_gather(*dev, **kw)
+    assert launch_counts()["assign_gather"] == 1
+    _equal(got, assign_gather_ref(*cpu, **kw))
+
+
+@pytest.mark.cuda
+def test_fleet_replayed_from_trace_records_on_the_card(cuda):
+    """Eight seed-built lanes, as trace records and back, on the card:
+    equal to the seed-built fleet on every field."""
+    params = SimParams(duration=0.05, max_pipelines=32, max_containers=32,
+                       waiting_ticks_mean=300.0, op_base_seconds_mean=0.005)
+    wls = make_workload_batch(params, list(range(8)))
+    days = [workload_to_trace_records(workload_lane(wls, i)) for i in range(8)]
+    batch, batch_params = workload_batch_from_traces(days, params)
+    assert batch_params == params
+    reset_launch_counts()
+    replayed = fleet_run(params, workloads=batch, device=cuda)
+    assert all(n > 0 for name, n in launch_counts().items() if name in SIM_KERNELS)
+    seeded = fleet_run(params, workloads=wls, device=cuda)
+    for name in seeded._fields:
+        assert torch.equal(getattr(replayed, name), getattr(seeded, name)), name
 
 
 @pytest.mark.cuda
@@ -562,6 +626,48 @@ def test_require_refuses_what_a_kernel_does_not_take(x, error):
         cuda_lib.require("k", "x", x, torch.int32, (2, 3), torch.device("cpu"))
     cuda_lib.require("k", "x", torch.zeros((2, 3), dtype=torch.int32),
                      torch.int32, (2, 3), torch.device("cpu"))
+
+
+@pytest.mark.parametrize("mc,mp", [(64, 256), (33, 200), (1000, 1024), (33, 1024)])
+def test_assign_outputs_are_views_of_the_four_regions(mc, mp):
+    """The 13 outputs of ``assign_gather`` on CUDA are views of the four
+    regions the kernel writes, shaped and typed as the plain version's,
+    in the order the kernel lays its fields out."""
+    lanes, k = 5, 3
+    regions, outs = state_update_ops._assign_outputs(lanes, mc, mp, torch.device("cpu"))
+    arrays = _assign_arrays(np.random.default_rng(0), lanes, k, mc, mp, False)
+    want = assign_gather_ref(*(torch.from_numpy(a) for a in arrays),
+                             max_containers=mc, max_pipelines=mp)
+    assert [(o.dtype, o.shape) for o in outs] == [(w.dtype, w.shape) for w in want]
+    assert [(r.dtype, tuple(r.shape)) for r in regions] == [
+        (torch.int32, (7, lanes, mc)), (torch.float32, (2, lanes, mp)),
+        (torch.bool, (3, lanes, mc)), (torch.bool, (lanes, mp))]
+    # (region, index in it) of each output, in the plain version's order
+    where = [(2, 0), *((0, j) for j in range(7)), (2, 1), (2, 2), (3, None), (1, 0), (1, 1)]
+    for o, (r, j) in zip(outs, where):
+        assert o.is_contiguous()
+        view = regions[r] if j is None else regions[r][j]
+        assert o.data_ptr() == view.data_ptr() and o.nbytes == view.nbytes
+
+
+@pytest.mark.parametrize("row", range(11))
+def test_assign_gather_checks_name_the_row_it_refuses(row):
+    """The one-pass check in front of the launch raises as
+    ``cuda_lib.require`` does, naming the row."""
+    lanes, k = 4, 6
+    cpu = torch.device("cpu")
+    rows = [torch.from_numpy(a) for a in _assign_arrays(np.random.default_rng(1), lanes, k, 8, 8,
+                                                          False)]
+    state_update_ops._check_assign_rows(tuple(rows), lanes, k, cpu)
+    name = state_update_ops._ASSIGN_ROWS[row]
+    bad = {"dtype": (rows[row].to(torch.int64), TypeError),
+           "shape": (rows[row][:, :-1].contiguous(), ValueError),
+           "contiguity": (rows[row].repeat(1, 2)[:, ::2], ValueError),
+           "not-a-tensor": (rows[row].numpy(), TypeError)}
+    for what, (x, error) in bad.items():
+        changed = tuple(x if i == row else r for i, r in enumerate(rows))
+        with pytest.raises(error, match=name):
+            state_update_ops._check_assign_rows(changed, lanes, k, cpu)
 
 
 def _ssm_launch_args(**change):

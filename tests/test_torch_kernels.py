@@ -401,6 +401,33 @@ def test_assign_gather_plain_matches_jax_ref(seed, F, K, MC, MP):
         _same(port, kern, "assign_gather vs pallas")
 
 
+@pytest.mark.parametrize("K", [33, 64])
+def test_assign_gather_plain_matches_jax_ref_on_edge_rows(K):
+    """Off the engine's contract: K past a warp and past MC, slots and
+    pipes of -1, MC and MP (and beyond) on valid and invalid rows, a lane
+    without a valid row, two valid rows sharing a slot and two sharing a
+    pipe (the first row lands, as the reference's argmax picks it)."""
+    F, MC, MP = 6, 33, 200
+    rng = np.random.default_rng(K)
+    rows = list(_assign_rows(rng, F, K, max(MC, K), max(MP, K)))
+    valid, slot, pipe = rows[:3]
+    valid[0] = False
+    slot[rng.random((F, K)) < 0.15] = -1
+    slot[rng.random((F, K)) < 0.15] = MC
+    pipe[rng.random((F, K)) < 0.15] = -1
+    pipe[rng.random((F, K)) < 0.15] = MP
+    valid[1, :4] = True
+    slot[1, :4] = [MC - 1, 0, MC - 1, 1]
+    pipe[1, :4] = [2, MP - 1, 3, MP - 1]
+    rows[4][1, :4] = [0.8, 1.6, 2.4, 3.2]
+    kw = dict(max_containers=MC, max_pipelines=MP)
+    port = assign_gather(*map(_t, rows), **kw)
+    _same(port, j_assign_ref(*map(jnp.asarray, rows), **kw), "assign_gather vs ref")
+    hit_c, l_cpus, hit_p, l_pcpus = port[0], port[3], port[10], port[11]
+    assert not hit_c[0].any() and not hit_p[0].any()
+    assert l_cpus[1, MC - 1] == np.float32(0.8) and l_pcpus[1, MP - 1] == np.float32(1.6)
+
+
 # ---------------------------------------------------------------------------
 # The fold order shared by the kernels and the plain versions
 # ---------------------------------------------------------------------------

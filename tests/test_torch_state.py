@@ -169,9 +169,16 @@ def test_generated_workload_matches_reference_in_distribution():
     assert get_workload(p).arrival.shape == (1, 2048)
 
 
-def test_workload_layers_of_later_slices_raise():
-    with pytest.raises(NotImplementedError, match="item 3"):
-        get_workload(params.SimParams(trace_path="day.json"))
+def test_get_workload_reads_the_trace_path(tmp_path):
+    """``trace_path`` replays the file (as a fleet of one, on the device
+    asked for) instead of drawing from the seed."""
+    path = tmp_path / "day.json"
+    path.write_text('[{"arrival_s": 0.001, "priority": "BATCH", '
+                    '"ops": [{"ram_gb": 1.0, "base_s": 0.002}]}]')
+    wl = get_workload(params.SimParams(trace_path=str(path), max_pipelines=4,
+                                       max_ops_per_pipeline=2), device="cpu")
+    assert wl.arrival.tolist() == [[100, 2**31 - 1, 2**31 - 1, 2**31 - 1]]
+    assert wl.op_base[0, 0].tolist() == [200.0, 0.0] and wl.prio[0, 0] == 0
 
 
 def test_generated_workload_carries_a_fault_trace():
