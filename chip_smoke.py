@@ -20,7 +20,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``fleet_tick`` also on edge keys (NaN,
    signed zeros, infinities, keys at their sentinels), real f32 leads,
    ragged and unaligned rows, 4,096 lanes, ragged runs of containers and
-   8 pools, exactly, and ``assign_gather`` on an edge grid (K past a
+   8 pools, ``masked_lex_argmin`` at the SJF key set (``select_sjf``)
+   and with f32 leads that differ from lane to lane, exactly, and
+   ``assign_gather`` on an edge grid (K past a
    warp, past MC and past the block's 128 threads, MC / MP not
    multiples of 4, indices out of range, rows sharing a slot or a pipe,
    4,096 lanes), exactly; the card's launch floor (``torch.Tensor.fill_`` of one
@@ -46,6 +48,20 @@ Phases, in order; any failure raises and the script exits non-zero:
    every field, ``run(trace_path=lane_0.json)`` equal to lane 0,
    ``shard="auto"`` equal to the unsharded run, ``fleet_summary`` equal
    to the CPU port's under the contract;
+5c. the data plane at ``benchmarks/scheduler_comparison.py``'s
+   ``cache_sensitivity`` (2 s, two pools, MP 256, MC 64, 2 GB outputs,
+   scan 50 ticks/GB, cold start 100 ticks, warm 50,000, seed 11, one
+   shared workload) at 8 GB of cache a pool: ``run`` under ``naive``,
+   ``priority_pool``, ``cache_aware``, ``locality_pool`` and ``sjf`` on
+   CUDA against the CPU port; cache hits under ``cache_aware``, cold and
+   warm starts over the five; ``cache_aware`` profiled with the cache on
+   and off over the first 0.5 s (launches per event, the device's busy
+   share);
+5d. the policy grid: ``policy_grid_workloads`` of the six named points
+   over seeds 0-7 (48 lanes) at phase 5's configuration with two pools
+   and phase 5c's data plane; ``fleet_run(scheduler_key="policy")`` on
+   CUDA bit-equal, lane for lane, to the six named 8-lane fleets on
+   CUDA, and one seed per point against the CPU port;
 6. the simulator kernels' launches in phases 4 and 5, each > 0;
 6b. the chaos layer at phase 5's configuration with two pools,
    ``priority_pool`` and crashes, outages, stragglers, timeouts and
@@ -116,6 +132,12 @@ CHAOS = dict(
     base_backoff_ticks=500,
 )
 RTOL = 1e-5
+# the data plane of phases 5c and 5d: benchmarks/scheduler_comparison.py's
+# cache_sensitivity at 8 GB of cache a pool
+DATA_PLANE = dict(
+    op_out_gb_mean=2.0, scan_ticks_per_gb=50.0, cold_start_ticks=100,
+    container_warm_ticks=50_000, cache_gb_per_pool=8.0,
+)
 # the LM kernels against their plain versions: bf16 outputs 2e-2 (an
 # ulp of bf16 apart after sums in another order), f32 2e-4
 LM_TOL = {"bf16": 2e-2, "f32": 2e-4}
@@ -289,6 +311,36 @@ def select_inputs(rng, dev, mixed: bool):
         keys = (torch.tensor(prio, dtype=torch.int32, device=dev),
                 torch.tensor(-ticks, dtype=torch.int32, device=dev))
     return mask_t, keys
+
+
+def sjf_inputs(rng, dev):
+    """``select_sjf``'s inputs at the main path's shapes: op counts 1..8
+    (the lead key ties often), priorities, entry ticks with ties."""
+    import torch
+
+    mask = rng.random((F, MP)) < 0.3
+    mask[:4] = False                                  # empty lanes
+    n_ops = rng.integers(1, 9, (F, MP))
+    prio = rng.integers(0, 3, (F, MP))
+    ticks = rng.integers(0, 40, (F, MP)) * 1_000
+    as_i32 = lambda a: torch.tensor(a, dtype=torch.int32, device=dev)  # noqa: E731
+    return torch.tensor(mask, device=dev), as_i32(n_ops), as_i32(prio), as_i32(ticks)
+
+
+def lane_lead_inputs(rng, dev):
+    """The ``"policy"`` family's queue-head keys with its f32 lead
+    ``size * n_ops + age * entered - prio_w * prio`` from weights drawn
+    per lane in the search box (``policy.POLICY_BOUNDS``)."""
+    import torch
+
+    mask, n_ops, prio, entered = sjf_inputs(rng, dev)
+    entered = entered + torch.tensor(rng.integers(0, 1_000, (F, MP)), dtype=torch.int32,
+                                     device=dev)
+    scale = np.array([2.0, 1e-3, 2.0], np.float32)[:, None, None]
+    w = torch.tensor(rng.random((3, F, 1), dtype=np.float32) * scale, device=dev)
+    f32 = torch.float32
+    lead = w[0] * n_ops.to(f32) + w[1] * entered.to(f32) - w[2] * prio.to(f32)
+    return mask, lead, -prio, entered
 
 
 F32_SPECIAL = np.array([0.0, -0.0, 1.0, -1.0, np.inf, -np.inf, np.nan, 2.0**31, 2.0**32,
@@ -491,7 +543,9 @@ def check_kernels(dev) -> dict:
     from repro_torch.kernels import LM_KERNELS
     from repro_torch.kernels.flash_attention import flash_attention, flash_attention_ref
     from repro_torch.kernels.rwkv6_scan import rwkv6_chunked_ref, rwkv6_scan
-    from repro_torch.kernels.sched_select import masked_lex_argmin, masked_lex_argmin_ref
+    from repro_torch.kernels.sched_select import (
+        masked_lex_argmin, masked_lex_argmin_ref, select_sjf, select_sjf_ref,
+    )
     from repro_torch.kernels.sim_tick import fleet_tick, fleet_tick_ref
     from repro_torch.kernels.ssm_scan import ssm_scan, ssm_scan_ref
     from repro_torch.kernels.state_update import (
@@ -499,6 +553,7 @@ def check_kernels(dev) -> dict:
     )
 
     rng = np.random.default_rng(0)
+    sel_rng = np.random.default_rng(19)
     # name, label, kernel, plain, bytes in, {bound: (count, rate)} beside
     # bytes, library, tolerances, options: "plain_reps" (fewer repeats of
     # a slow plain version), "represent" (False: the case never stands
@@ -550,6 +605,21 @@ def check_kernels(dev) -> dict:
                       lambda m=mask, k=keys: masked_lex_argmin(m, k),
                       lambda m=mask, k=keys: masked_lex_argmin_ref(m, k),
                       (mask, *keys), None, None, None, extra))
+    # the SJF key set and per-lane f32 leads (their own draws, so the
+    # other cases draw what they drew); each rides in the K = 3 row
+    for label, attach, (mask, *keys), sjf in (
+        ("K=3 i32/i32/i32 N=MP SJF keys (select_sjf)", "sjf", sjf_inputs(sel_rng, dev), True),
+        ("K=3 f32/i32/i32 N=MP per-lane leads", "per_lane_leads",
+         lane_lead_inputs(sel_rng, dev), False),
+    ):
+        if sjf:
+            kernel = lambda m=mask, k=keys: select_sjf(m, *k)        # noqa: E731
+            plain = lambda m=mask, k=keys: select_sjf_ref(m, *k)     # noqa: E731
+        else:
+            kernel = lambda m=mask, k=keys: masked_lex_argmin(m, k)  # noqa: E731
+            plain = lambda m=mask, k=keys: masked_lex_argmin_ref(m, k)  # noqa: E731
+        cases.append(("masked_lex_argmin", label, kernel, plain, (mask, *keys), None, None,
+                      None, {"represent": False, "attach": attach}))
     for mc, mp in ((33, 200), (200, 1024), (1000, 1024)):
         args = tick_edge_inputs(rng, dev, mc, mp, 8)
         cases.append(("fleet_tick", f"MC={mc} MP={mp} NP=8, lane 0 all retiring",
@@ -949,20 +1019,159 @@ def replay_phase(dev, fleet: dict) -> tuple[dict, dict]:
     return counts, run_counts
 
 
+def timed_run(params, wl, dev, scheduler_key=None):
+    """``run`` (or, with ``scheduler_key``, ``fleet_run`` of the batch
+    ``wl``) on ``dev`` with the launch counts set to 0 just before it and
+    read just after; returns (result, wall s, counts)."""
+    import torch
+
+    from repro_torch import fleet_run, run
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    if scheduler_key is None:
+        out = run(params, wl, device=dev)
+    else:
+        out = fleet_run(params, workloads=wl, scheduler_key=scheduler_key, device=dev)
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, launch_counts()
+
+
+def cache_params(**kw):
+    """Phase 5c's configuration: benchmarks/scheduler_comparison.py's
+    cache_sensitivity (its shared workload, seed 11) at 8 GB a pool."""
+    from repro_torch import SimParams
+
+    base = dict(
+        duration=2.0, waiting_ticks_mean=1500, num_pools=2, op_base_seconds_mean=0.02,
+        op_ram_gb_mean=3.0, max_pipelines=256, max_containers=64, seed=11, **DATA_PLANE,
+    )
+    return SimParams(**{**base, **kw})
+
+
+def data_plane_phase(dev) -> list[dict]:
+    """Phase 5c: one shared workload under five schedulers with the data
+    plane on, each ``run`` on CUDA against the CPU port; ``cache_aware``
+    profiled with the cache on and off. Returns each run's launches."""
+    from repro_torch import generate_workload, run
+    from repro_torch.kernels import SIM_KERNELS
+
+    base = cache_params()
+    wl = generate_workload(base)
+    all_counts, rows = [], {}
+    for algo in ("naive", "priority_pool", "cache_aware", "locality_pool", "sjf"):
+        params = base.replace(scheduling_algo=algo)
+        res, wall, counts = timed_run(params, wl, dev)
+        cpu = run(params, wl, device="cpu")
+        compare_states(res.state, cpu.state, f"phase 5c: {algo}")
+        s, c = res.summary(), cpu.summary()
+        rows[algo] = {k: s[k] for k in ("done", "cache_hits", "cache_lookups", "cold_starts",
+                                        "warm_starts", "cache_hit_rate", "mean_latency_s")}
+        print(f"{CARD}: phase 5c: {algo}: run on {dev}: wall {wall:.3f} s, {res.events} events, "
+              f"{sum(counts.values())} launches ({sum(counts.values()) / res.events:.2f} an "
+              f"event), cache_hit_rate {s['cache_hit_rate']!r} (CPU port "
+              f"{c['cache_hit_rate']!r}), equal to the CPU port under the contract; "
+              + json.dumps(rows[algo]))
+        print(f"phase 5c {algo} launches:", json.dumps(counts))
+        all_counts.append(counts)
+    if rows["cache_aware"]["cache_hits"] <= 0:
+        raise AssertionError("phase 5c: no cache hit under cache_aware")
+    for key in ("cold_starts", "warm_starts"):
+        if sum(r[key] for r in rows.values()) <= 0:
+            raise AssertionError(f"phase 5c: no {key} over the five runs")
+    for name in SIM_KERNELS:
+        if sum(c[name] for c in all_counts) <= 0:
+            raise AssertionError(f"phase 5c: {name} was not launched")
+    # the profiled pair runs the first quarter of the horizon: the
+    # profiler's bookkeeping of a whole 2 s run (~840,000 kernels) takes
+    # minutes
+    params = base.replace(scheduling_algo="cache_aware", duration=0.5)
+    for label, p in (("cache on", params), ("cache off", params.replace(cache_gb_per_pool=0.0))):
+        busy = profile_call(lambda p=p: run(p, wl, device=dev), f"phase 5c cache_aware {label}")
+        if busy:
+            events = busy["result"].events
+            print(f"{CARD}: phase 5c: cache_aware, {label}, first 0.5 s: {events} events, "
+                  f"{busy['device_launches'] / events:.1f} device kernels an event, device busy "
+                  f"{100 * busy['busy_share']:.1f}% of wall")
+    return all_counts
+
+
+def policy_grid_phase(dev) -> dict:
+    """Phase 5d: the six named points over seeds 0-7 as one 48-lane
+    ``"policy"`` fleet on CUDA, bit-equal lane for lane to the six named
+    8-lane fleets on CUDA, and one seed per point against the CPU port.
+    Returns the grid run's launches."""
+    from repro_torch import DEFAULT_POINTS, fleet_run, make_workload_batch, policy_grid_workloads
+    from repro_torch.core.policy import PolicyParams
+    from repro_torch.core.state import SimState, tree_map
+
+    params = fleet_params(num_pools=2, **DATA_PLANE)
+    names = sorted(DEFAULT_POINTS)
+    scen = make_workload_batch(params, list(range(8)))
+    grid, C, S = policy_grid_workloads(scen, [DEFAULT_POINTS[k] for k in names])
+    states, wall, counts = timed_run(params, grid, dev, scheduler_key="policy")
+    leads = grid.policy[:, PolicyParams._fields.index("size_weight")]
+    if len(set(leads.tolist())) < 2:
+        raise AssertionError("phase 5d: the lead key's weights are the same in every lane")
+    for name in ("masked_lex_argmin", "assign_gather"):
+        if counts[name] <= 0:
+            raise AssertionError(f"phase 5d: {name} was not launched")
+    warm = int(states.warm_starts.sum())
+    if warm <= 0:
+        raise AssertionError("phase 5d: assign_gather landed no warm row")
+    named_walls = {}
+    for c, key in enumerate(names):
+        named, named_walls[key], _ = timed_run(params, scen, dev, scheduler_key=key)
+        assert_same_states(SimState(*(x[c * S:(c + 1) * S] for x in states)), named,
+                           f"phase 5d: policy lanes of {key} vs the named fleet")
+    sub, _, _ = policy_grid_workloads(tree_map(lambda x: x[:1], scen),
+                                      [DEFAULT_POINTS[k] for k in names])
+    t0 = time.perf_counter()
+    cpu = fleet_run(params, workloads=sub, scheduler_key="policy", device="cpu")
+    cpu_wall = time.perf_counter() - t0
+    compare_states(SimState(*(x[0::S] for x in states)), cpu, "phase 5d: seed 0 vs the CPU port")
+    sim_s = C * S * params.duration
+    done = states.done_count.reshape(C, S).float().mean(-1).tolist()
+    print(f"{CARD}: phase 5d: fleet_run(\"policy\") of {C} points x {S} seeds = {C * S} lanes "
+          f"on {dev}: wall {wall:.3f} s, {sim_s / wall:.3f} simulated s per wall s, "
+          f"{sum(counts.values())} launches, warm starts {warm}; bit-equal to the named fleets "
+          f"(walls {json.dumps({k: round(v, 3) for k, v in named_walls.items()})}); seed 0 of "
+          f"each point equal to the CPU port (wall {cpu_wall:.3f} s); done per lane by point "
+          + json.dumps(dict(zip(names, [round(d, 2) for d in done]))))
+    print("phase 5d launches:", json.dumps(counts))
+    busy = profile_call(
+        lambda: fleet_run(params, workloads=grid, scheduler_key="policy", device=dev),
+        "phase 5d")
+    if busy:
+        print(f"{CARD}: phase 5d: device busy {100 * busy['busy_share']:.1f}% of wall under the "
+              f"profiler, {busy['device_launches']} kernel launches")
+    return counts
+
+
 def profile_fleet(params, wls, dev, label: str) -> dict:
-    """Where the fleet run's time goes: one more run under torch.profiler,
-    its wall time against the summed device time of every CUDA kernel
-    (the device's busy share), and the kernels that take the most;
-    returns the busy share and the kernel launches (empty: not measured)."""
+    """Where the fleet run's time goes (:func:`profile_call`)."""
+    from repro_torch import fleet_run
+
+    busy = profile_call(lambda: fleet_run(params, workloads=wls, device=dev), label)
+    busy.pop("result", None)
+    return busy
+
+
+def profile_call(fn, label: str) -> dict:
+    """Where a simulation's time goes: one more call of ``fn`` under
+    torch.profiler, its wall time against the summed device time of every
+    CUDA kernel (the device's busy share), and the kernels that take the
+    most; returns the busy share and the kernel launches (empty: not
+    measured)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-
-    from repro_torch import fleet_run
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        fleet_run(params, workloads=wls, device=dev)
+        out = fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     rows = [e for e in prof.key_averages()
@@ -977,7 +1186,7 @@ def profile_fleet(params, wls, dev, label: str) -> dict:
           f"{launches} kernel launches")
     for e in sorted(rows, key=lambda e: -e.device_time_total)[:8]:
         print(f"  {e.device_time_total / 1e3:9.3f} ms  {e.count:6d}x  {e.key[:90]}")
-    return {"busy_share": busy_ms / (wall * 1e3), "device_launches": launches}
+    return {"busy_share": busy_ms / (wall * 1e3), "device_launches": launches, "result": out}
 
 
 def chaos_phase(dev, faults_off: dict) -> tuple[dict, dict]:
@@ -1389,6 +1598,8 @@ def main() -> int:
     fleet_counts, faults_off, fleet = phase(5, fleet_phase, dev)
     replay_counts = phase("5b", replay_phase, dev, fleet)
     del fleet
+    cache_counts = phase("5c", data_plane_phase, dev)
+    grid_counts = phase("5d", policy_grid_phase, dev)
     phase(6, sim_launch_phase, run_counts, fleet_counts)
     chaos_counts = phase("6b", chaos_phase, dev, faults_off)
     rwkv_counts = phase(7, serve_phase, 7, "rwkv6_7b", ("rwkv6_scan",), dev)
@@ -1417,8 +1628,8 @@ def main() -> int:
         "ssm_scan": ("src/repro_torch/csrc/ssm_scan.cu",
                      "src/repro/kernels/ssm_scan/kernel.py:60"),
     }
-    main_runs = (run_counts, fleet_counts, *replay_counts, *chaos_counts, rwkv_counts,
-                 gemma_counts, jamba_counts)
+    main_runs = (run_counts, fleet_counts, *replay_counts, *cache_counts, grid_counts,
+                 *chaos_counts, rwkv_counts, gemma_counts, jamba_counts)
     rows = []
     for name in KERNELS:
         m = measured[name]
@@ -1431,10 +1642,10 @@ def main() -> int:
             "bound_by": m["bound_by"], "library_ms": m["library_ms"],
             # the launch floor beside the simulator kernels (bound by launches)
             **({"floor_ms": measured["launch_floor"]} if name in SIM_KERNELS else {}),
-            # retire_land's timeout branch, beside its timeout-off case
-            **({"timeout_on": m["timeout_on"]} if "timeout_on" in m else {}),
-            # assign_gather's host time per call, step by step
-            **({"host_us": m["host_us"]} if "host_us" in m else {}),
+            # retire_land's timeout branch beside its timeout-off case,
+            # masked_lex_argmin's SJF keys and per-lane leads beside its
+            # K = 3 case, assign_gather's host time a call step by step
+            **{k: m[k] for k in ("timeout_on", "sjf", "per_lane_leads", "host_us") if k in m},
         })
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

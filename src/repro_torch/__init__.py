@@ -1,11 +1,13 @@
 """repro_torch: the Eudoxia FaaS scheduling simulator on PyTorch and CUDA.
 
 A port of the JAX package ``repro`` for one NVIDIA H100, with the same
-layout. It runs the simulator — ``run()`` and ``fleet_run()`` under the
-``naive``, ``priority`` and ``priority_pool`` schedulers, with the chaos
-layer (crashes, outages, stragglers, timeouts, retries) on or off and
-the other optional layers at their zero defaults, from seeds or from
-recorded traces (``load_trace``, ``workload_batch_from_traces``) — through four
+layout. It runs the simulator — ``run()`` and ``fleet_run()`` under every
+registered scheduler (the six named ones, their ``*_ref`` oracles, a
+per-lane policy grid under ``"policy"``, and schedulers users register),
+with the chaos layer (crashes, outages, stragglers, timeouts, retries)
+and the data plane (cold starts, scan cost, zero-copy caches) on or off
+and the closed loop off, from seeds or from recorded traces
+(``load_trace``, ``workload_batch_from_traces``) — through four
 hand-written CUDA kernels, and serving (``launch/serve.py``: the
 simulator picks the policy, ``serving/`` batches requests through
 ``models/`` for ``rwkv6_7b``, ``gemma3_12b`` and jamba) through three
@@ -14,11 +16,13 @@ the caller passes ``device="cpu"``, which runs the kernels' plain
 PyTorch versions instead.
 """
 from .core import (
+    DEFAULT_POINTS,
     PolicyParams,
     SimParams,
     SimResult,
     SimState,
     Workload,
+    attach_policies,
     broadcast_lanes,
     completion_table,
     fleet_lane_stats,
@@ -29,6 +33,10 @@ from .core import (
     load_trace,
     make_workload_batch,
     pad_lanes,
+    policy_grid_workloads,
+    register_vector_scheduler,
+    register_vector_scheduler_family,
+    register_vector_scheduler_init,
     run,
     summarize,
     workload_batch_from_traces,
@@ -37,11 +45,13 @@ from .core import (
 )
 
 __all__ = [
+    "DEFAULT_POINTS",
     "PolicyParams",
     "SimParams",
     "SimResult",
     "SimState",
     "Workload",
+    "attach_policies",
     "broadcast_lanes",
     "completion_table",
     "fleet_lane_stats",
@@ -52,6 +62,10 @@ __all__ = [
     "load_trace",
     "make_workload_batch",
     "pad_lanes",
+    "policy_grid_workloads",
+    "register_vector_scheduler",
+    "register_vector_scheduler_family",
+    "register_vector_scheduler_init",
     "run",
     "summarize",
     "workload_batch_from_traces",

@@ -36,9 +36,8 @@ def workload_from_arrays(arrays: Mapping[str, np.ndarray], device="cpu") -> Work
     """A port ``Workload`` from the reference's workload fields, with
     (``arrival`` is ``[F, MP]``) or without (``[MP]``) a lane axis.
     ``faults``, where given, is the reference's fault trace: a mapping of
-    its five fields by name, with the same lane axis as the workload."""
-    if arrays.get("policy") is not None:
-        raise NotImplementedError("workload field 'policy' waits for ROADMAP queue 1, item 9")
+    its five fields by name, with the same lane axis as the workload;
+    ``policy``, where given, the per-lane ``PolicyParams`` vectors."""
     lane = np.asarray(arrays["arrival"]).ndim == 1
 
     def tensors(names, source):
@@ -51,6 +50,8 @@ def workload_from_arrays(arrays: Mapping[str, np.ndarray], device="cpu") -> Work
     fields = tensors(Workload._fields[:10], arrays)
     if arrays.get("faults") is not None:
         fields["faults"] = FaultTrace(**tensors(FaultTrace._fields, arrays["faults"]))
+    if arrays.get("policy") is not None:
+        fields.update(tensors(("policy",), arrays))
     return Workload(**fields)
 
 

@@ -10,7 +10,8 @@ step. Here every field is a ``[F, ...]`` tensor and the loop is Python:
   :func:`executor.apply_decision`, the jump to the lane's next event
   from the ``nxt_retire`` / ``nxt_release`` / ``nxt_fault`` registers
   and the sorted arrivals, and the integrals over the jump;
-* finished lanes pass through untouched (the reference's ``keep`` mask);
+* finished lanes pass through untouched (the reference's ``keep`` mask),
+  their scheduler state too;
 * the loop ends when no lane has ``tick < horizon``: one host read per
   event, which also reads the fault pass's gate.
 
@@ -26,8 +27,22 @@ import torch
 from . import executor
 from .params import SimParams, load_params
 from .faults import attach_fault_trace
-from .scheduler import SchedDecision, get_scheduler, mask_down_pools
-from .state import SimState, Workload, init_state, workload_lane, workload_to
+from .policy import N_POLICY_PARAMS
+from .scheduler import (
+    SchedDecision,
+    get_scheduler,
+    get_vector_scheduler_init,
+    mask_down_pools,
+)
+from .state import (
+    SimState,
+    Workload,
+    broadcast_lanes,
+    init_state,
+    tree_map,
+    workload_lane,
+    workload_to,
+)
 from .types import INF_TICK, ContainerStatus, PipeStatus
 from .workload import get_workload
 from ..kernels.sim_tick import fleet_tick
@@ -39,6 +54,7 @@ class SimResult:
     workload: Workload     # likewise
     params: SimParams
     events: int = 0        # engine loop iterations
+    sched_state: Any = None  # the scheduler's final state (lane axis squeezed)
 
     def summary(self) -> dict:
         from .metrics import summarize
@@ -54,9 +70,6 @@ def _raise_later(what: str, slice_: str):
 # of them away from its default raises, even where the reference would
 # leave it inert
 _LATER_KNOBS = {
-    "item 9 (the data plane)": (
-        "cache_gb_per_pool", "scan_ticks_per_gb", "cold_start_ticks",
-    ),
     "item 11 (closed loop)": (
         "client_max_inflight", "client_think_ticks", "client_max_retries",
         "client_backoff_ticks", "admit_queue_limit", "admit_rate_per_s",
@@ -145,22 +158,23 @@ def _acted(dec: SchedDecision) -> torch.Tensor:
     return dec.suspend.any(-1) | dec.reject.any(-1) | (dec.assign_pipe >= 0).any(-1)
 
 
-def _lane_decide(params, scheduler_fn, state, wl, arr_sorted, tick, active,
-                 edges):
+def _lane_decide(params, scheduler_fn, state, sched_state, wl, arr_sorted, tick,
+                 active, edges):
     """From the scheduler on, for every lane: decide (on a view with the
     down pools masked, and without assignments onto them), apply, jump
     to the next event and integrate over the jump. Returns
-    ``(state, dec)``."""
+    ``(state, sched_state, dec)``."""
     if params.outage_mtbf_ticks > 0:
-        dec = scheduler_fn(mask_down_pools(state, tick), wl, params, active)
+        sched_state, dec = scheduler_fn(
+            sched_state, mask_down_pools(state, tick), wl, params, active)
         dec = _filter_down_pool_assignments(dec, state, tick, params)
     else:
-        dec = scheduler_fn(state, wl, params, active)
+        sched_state, dec = scheduler_fn(sched_state, state, wl, params, active)
     state = executor.apply_decision(state, wl, dec, tick, params)
     nxt, cursor = _next_event_registers(state, arr_sorted, tick, _acted(dec))
     nxt = torch.clamp_max(nxt, params.horizon_ticks)
     state = executor.integrate(state, tick, nxt, params, edges)
-    return state._replace(tick=nxt, nxt_arrival_cursor=cursor), dec
+    return state._replace(tick=nxt, nxt_arrival_cursor=cursor), sched_state, dec
 
 
 def _filter_down_pool_assignments(dec: SchedDecision, state: SimState,
@@ -186,11 +200,11 @@ def fault_gate(states: SimState, active: torch.Tensor, params: SimParams):
 
 
 def event_step(params, scheduler_fn, state, wl, arr_sorted, edges, active,
-               faults_due: bool = False):
+               faults_due: bool = False, sched_state=None):
     """One event for every lane: phase 1, the fault pass where
     ``faults_due`` (:func:`fault_gate`), then :func:`_lane_decide`.
-    Returns the advanced state (finished lanes not yet masked) and the
-    decision."""
+    Returns the advanced state and scheduler state (finished lanes not
+    yet masked) and the decision."""
     tick = state.tick
     ph = fleet_tick(
         state.ctr_status, state.ctr_end, state.ctr_oom,
@@ -201,22 +215,32 @@ def event_step(params, scheduler_fn, state, wl, arr_sorted, edges, active,
     state = executor.apply_fused_phase1(state, wl, tick, params, ph)
     if faults_due:
         state = executor.apply_faults(state, wl, tick, params)
-    return _lane_decide(params, scheduler_fn, state, wl, arr_sorted, tick,
-                        active, edges)
+    return _lane_decide(params, scheduler_fn, state, sched_state, wl, arr_sorted,
+                        tick, active, edges)
 
 
-def _keep(active: torch.Tensor, new: SimState, old: SimState) -> SimState:
+def _keep(active: torch.Tensor, new, old):
+    """``new`` on the active lanes and ``old`` on the rest, leaf by leaf
+    of a state (or a scheduler state's tree)."""
     def sel(n, o):
         return torch.where(active.reshape((-1,) + (1,) * (n.dim() - 1)), n, o)
 
-    return SimState(*(sel(n, o) for n, o in zip(new, old)))
+    return tree_map(sel, new, old)
+
+
+def initial_sched_state(scheduler_key: str, params: SimParams, F: int, device):
+    """The scheduler's initial state, ``get_vector_scheduler_init(key)
+    (params)``, on ``device`` and broadcast to the ``F`` lanes."""
+    init = get_vector_scheduler_init(scheduler_key)(params)
+    return broadcast_lanes(tree_map(lambda x: torch.as_tensor(x, device=device), init), F)
 
 
 def run_lane_major_engine(
     params: SimParams, wls: Workload, scheduler_key: str
-) -> tuple[SimState, int]:
+) -> tuple[SimState, Any, int]:
     """Advance the whole batch ``wls`` ``[F, ...]`` to the horizon.
-    Returns the final fleet state and the number of loop iterations."""
+    Returns the final fleet state, the final scheduler state and the
+    number of loop iterations."""
     scheduler_fn = get_scheduler(scheduler_key)
     device = wls.arrival.device
     F = wls.arrival.shape[0]
@@ -224,23 +248,21 @@ def run_lane_major_engine(
     arr_sorted = _sorted_arrivals(wls.arrival)
     edges = executor.bucket_edges(params, device)
     states = init_state(params, F, device)
+    scheds = initial_sched_state(scheduler_key, params, F, device)
     events = 0
     while True:
         active = states.tick < horizon
         go, faults_due = fault_gate(states, active, params)
         if not go:
-            return states, events
-        new, _ = event_step(params, scheduler_fn, states, wls, arr_sorted,
-                            edges, active, faults_due)
+            return states, scheds, events
+        new, new_scheds, _ = event_step(params, scheduler_fn, states, wls, arr_sorted,
+                                        edges, active, faults_due, scheds)
         states = _keep(active, new, states)
+        scheds = _keep(active, new_scheds, scheds)
         events += 1
 
 
 def _check_workload(wl: Workload, params: SimParams) -> None:
-    if wl.policy is not None:
-        raise NotImplementedError(
-            "workloads with policy vectors wait for ROADMAP queue 1, item 9"
-        )
     if wl.arrival.dim() != 2:
         raise ValueError(
             f"workload arrival must be [F, MP] (lane-major), got {tuple(wl.arrival.shape)}"
@@ -251,6 +273,12 @@ def _check_workload(wl: Workload, params: SimParams) -> None:
         raise ValueError(
             f"workload is shaped {got} (max_pipelines, max_ops_per_pipeline) "
             f"but params say {want}"
+        )
+    if wl.policy is not None and tuple(wl.policy.shape) != (
+            wl.arrival.shape[0], N_POLICY_PARAMS):
+        raise ValueError(
+            f"workload policy vectors are shaped {tuple(wl.policy.shape)}; expected "
+            f"[F, {N_POLICY_PARAMS}] = {(wl.arrival.shape[0], N_POLICY_PARAMS)}"
         )
     if wl.faults is not None:
         F, MP = wl.arrival.shape
@@ -291,12 +319,13 @@ def run(
     wl = workload_to(wl, device)
     if wl.arrival.shape[0] != 1:
         raise ValueError("run() takes a fleet of one; use fleet_run for more lanes")
-    state, events = run_lane_major_engine(params, wl, params.scheduling_algo)
+    state, sched_state, events = run_lane_major_engine(params, wl, params.scheduling_algo)
     return SimResult(
         state=SimState(*(x[0] for x in state)),
         workload=workload_lane(wl, 0),
         params=params,
         events=events,
+        sched_state=tree_map(lambda x: x[0], sched_state),
     )
 
 
@@ -305,6 +334,7 @@ __all__ = [
     "check_main_path",
     "event_step",
     "fault_gate",
+    "initial_sched_state",
     "resolve_device",
     "run",
     "run_lane_major_engine",

@@ -9,11 +9,12 @@ crashes and outages, when either is on) -> scheduler ->
 downtime over the jump to the next event). Every function maps a fleet
 ``[F, ...]`` to a fleet.
 
-The chaos layer (crashes, outages, stragglers, timeouts, retries) is
-ported; the data plane is not: no cold start, no cache or scan cost.
-The transitions keep the warm-slot bookkeeping and the data-plane
-counters the reference keeps with those knobs at zero (``cold_starts``,
-``warm_starts``, ``cache_lookups``, ``bytes_moved_gb``).
+The chaos layer (crashes, outages, stragglers, timeouts, retries) and
+the data plane are ported. A new container pays a cold start unless it
+lands on a slot kept warm on its pool, and scans the intermediate bytes
+its pool's zero-copy cache does not hold; its pipeline's data then
+enters that cache (LRU, ``state.cache_insert``). An outage flushes the
+struck pool's cache.
 """
 from __future__ import annotations
 
@@ -25,7 +26,14 @@ from ..kernels.state_update import assign_gather, retire_land
 from ..kernels.state_update.ref import first_true
 from .params import SimParams
 from .scheduler import SchedDecision
-from .state import SimState, Workload, container_schedule, seconds, used_resources
+from .state import (
+    SimState,
+    Workload,
+    cache_insert,
+    container_schedule,
+    seconds,
+    used_resources,
+)
 from .types import INF_TICK, ContainerStatus, PipeStatus
 
 _I32, _F32 = torch.int32, torch.float32
@@ -186,7 +194,7 @@ def apply_faults(
         k_due = crash_cursor - state.crash_cursor
         # rank the running containers by (start, slot); the k_due
         # longest-running are struck
-        slots = torch.arange(MC, dtype=_I32, device=dev)
+        slots = torch.arange(MC, device=dev)
         s = state.ctr_start
         earlier = (s[:, None, :] < s[:, :, None]) | (
             (s[:, None, :] == s[:, :, None]) & (slots[None, :] < slots[:, None]))
@@ -257,6 +265,13 @@ def apply_faults(
         fault_kills=state.fault_kills + kill.sum(-1, dtype=_I32),
         wasted_ticks=state.wasted_ticks + wasted,
     )
+    if params.outage_mtbf_ticks > 0 and params.cache_gb_per_pool > 0:
+        # an outage flushes the pool's zero-copy cache: recovery is cold
+        state = state._replace(
+            cache_bytes=torch.where(down_new[:, :, None], 0.0, state.cache_bytes),
+            cache_last=torch.where(down_new[:, :, None], 0, state.cache_last),
+            pool_cache_used=torch.where(down_new, 0.0, state.pool_cache_used),
+        )
     return requeue_faulted(state, tick, params, fault_hit)
 
 
@@ -336,17 +351,22 @@ def _apply_assignments_fused(
     * A row commits iff it is the first row of its pipeline, the pipeline
       was waiting, and its rank among such rows is within the number of
       empty slots.
-    * The rank-r valid row takes the r-th lowest empty slot.
-    * The order-sensitive f32 accumulators (pool frees, bytes moved) keep
-      the reference's left fold over the rows in ascending order; the
-      loop runs to the largest populated row over the lanes, and rows
-      past a lane's own last populated row are never valid, so they
-      change nothing.
+    * Slot pick: with cold starts off, the rank-r valid row takes the
+      r-th lowest empty slot. With them on, each row takes the lowest
+      empty slot kept warm for its pool, else the lowest empty slot,
+      and a valid row's slot is no longer empty for the rows after it.
+    * The order-sensitive state (pool frees, the cache's f32 sums and
+      LRU inserts, the slot pick) is a walk over the rows in ascending
+      order, each step one masked step batched over the lanes. It runs
+      to the largest populated row over the lanes; rows past a lane's
+      own last populated row are never valid, so they change nothing.
     """
     MC = state.ctr_status.shape[-1]
     MP = state.pipe_status.shape[-1]
     NP = params.num_pools
     K = params.max_assignments_per_tick
+    cache_on = params.cache_gb_per_pool > 0
+    cold_on = params.cold_start_ticks > 0
     dev = tick.device
     t = _col(tick)
     ks = torch.arange(K, dtype=_I32, device=dev)
@@ -369,36 +389,78 @@ def _apply_assignments_fused(
     pre = populated & torch.gather(waiting0, 1, pipe_c.long()) & ~dup_before
     rank = torch.cumsum(pre, -1, dtype=_I32)
     valid = pre & (rank <= _col(n_empty))
-
-    # -- slot pick: the rank-r row lands on the r-th lowest empty slot --------
-    cum = torch.cumsum(empty0, -1, dtype=_I32)
-    eq = empty0[:, None, :] & (cum[:, None, :] == rank[:, :, None])
-    slot_l = first_true(eq, -1)
-    slot = slot_l.to(_I32)
-
-    is_warm = (torch.gather(state.slot_warm_pool, 1, slot_l) == pool) & (
-        t < torch.gather(state.slot_warm_until, 1, slot_l)
-    )
-    # with the cache off every pool caches nothing: no hit, and the whole
-    # intermediate output is scanned (the reference's min(cached, out)
-    # and max(out - cached, 0) at cached = 0)
     total_out = torch.gather(wl.pipe_out, 1, pipe_c.long())
-    miss_gb = total_out
 
-    # -- sequential walk over the populated rows -----------------------------
+    # -- the walk over the populated rows ------------------------------------
     pcf, prf = state.pool_cpu_free, state.pool_ram_free
-    bmg = state.bytes_moved_gb
+    chg, bmg = state.cache_hit_gb, state.bytes_moved_gb
     pools = torch.arange(NP, dtype=_I32, device=dev)
     n_rows = int((torch.where(populated, ks + 1, 0)).amax()) if K else 0
+    if cold_on:
+        empty = empty0
+        warm_now = t < state.slot_warm_until
+        slots = torch.arange(MC, device=dev)
+        slot_l = torch.zeros(pipe.shape, dtype=torch.long, device=dev)
+    if cache_on:
+        cb, cl, pcu = state.cache_bytes, state.cache_last, state.pool_cache_used
+        hit_gb = torch.zeros_like(cpus)
+        miss_gb = torch.zeros_like(cpus)
+    else:
+        # every pool caches nothing: no hit, and the whole intermediate
+        # output is scanned (the reference's min(cached, out) and
+        # max(out - cached, 0) at cached = 0)
+        hit_gb, miss_gb = None, total_out
     for k in range(n_rows):
         v = valid[:, k]
-        vp = _col(v) & (pools == pool[:, k:k + 1])
+        p = pool[:, k:k + 1]
+        vp = _col(v) & (pools == p)
+        if cold_on:
+            warm_ok = empty & (state.slot_warm_pool == p) & warm_now
+            s = torch.where(warm_ok.any(-1), first_true(warm_ok, -1), first_true(empty, -1))
+            empty = empty & ~(_col(v) & (slots == _col(s)))
+            slot_l[:, k] = s
+        if cache_on:
+            pc, size = pipe_c[:, k], total_out[:, k]
+            pl = p.long()[:, :, None].expand(-1, 1, MP)
+            row_b = torch.gather(cb, 1, pl)[:, 0]
+            row_l = torch.gather(cl, 1, pl)[:, 0]
+            cached = torch.gather(row_b, 1, pc.long()[:, None])[:, 0]
+            hg = torch.minimum(cached, size)
+            mg = torch.clamp_min(size - cached, 0.0)
+            new_b, new_l, used = cache_insert(
+                row_b, row_l, torch.gather(pcu, 1, p.long())[:, 0], pc, size, tick,
+                params.cache_gb_per_pool,
+            )
+            vp3 = vp[:, :, None]
+            cb = torch.where(vp3, new_b[:, None, :], cb)
+            cl = torch.where(vp3, new_l[:, None, :], cl)
+            pcu = torch.where(vp, _col(used), pcu)
+            hit_gb[:, k] = hg
+            miss_gb[:, k] = mg
+            chg = torch.where(v, chg + hg, chg)
         pcf = torch.where(vp, pcf - cpus[:, k:k + 1], pcf)
         prf = torch.where(vp, prf - ram[:, k:k + 1], prf)
         bmg = torch.where(v, bmg + miss_gb[:, k], bmg)
+    if not cold_on:
+        # every valid row takes the lowest remaining empty slot, so the
+        # rank-r row lands on the r-th lowest empty slot
+        cum = torch.cumsum(empty0, -1, dtype=_I32)
+        eq = empty0[:, None, :] & (cum[:, None, :] == rank[:, :, None])
+        slot_l = first_true(eq, -1)
+    slot = slot_l.to(_I32)
+    is_warm = (torch.gather(state.slot_warm_pool, 1, slot_l) == pool) & (
+        t < torch.gather(state.slot_warm_until, 1, slot_l)
+    )
     dur, oom_off = container_schedule(wl, pipe_c, cpus, ram)
 
-    # -- row timing (no cold start, no scan cost) ----------------------------
+    # -- row timing: a container starts after its cold start and its scan --
+    start = t
+    if cold_on:
+        cold_ticks = torch.where(is_warm, 0, int(params.cold_start_ticks)).to(_I32)
+        start = start + cold_ticks
+    if params.scan_ticks_per_gb > 0:
+        scan_rate = float(np.float32(params.scan_ticks_per_gb))
+        start = start + torch.ceil(scan_rate * miss_gb).to(_I32)
     if params.straggler_prob > 0:
         # a straggler's factor (>= 1) stretches its duration and its OOM
         # offset alike: one f32 product each, then ceil
@@ -409,8 +471,8 @@ def _apply_assignments_fused(
 
         dur = stretch(dur)
         oom_off = torch.where(oom_off == INF_TICK, INF_TICK, stretch(oom_off))
-    end = t + dur
-    oom = torch.where(oom_off == INF_TICK, INF_TICK, t + torch.minimum(oom_off, dur))
+    end = start + dur
+    oom = torch.where(oom_off == INF_TICK, INF_TICK, start + torch.minimum(oom_off, dur))
     timed = torch.zeros_like(valid)
     if params.timeout_ticks > 0:
         # a container that would outlive its deadline is killed there, as
@@ -459,6 +521,14 @@ def _apply_assignments_fused(
         cold_starts=state.cold_starts + n_cold,
         warm_starts=state.warm_starts + n_warm,
     )
+    if cold_on:
+        state = state._replace(cold_start_tick_total=state.cold_start_tick_total
+                               + torch.where(valid, cold_ticks, 0).sum(-1, dtype=_I32))
+    if cache_on:
+        state = state._replace(
+            cache_bytes=cb, cache_last=cl, pool_cache_used=pcu, cache_hit_gb=chg,
+            cache_hits=state.cache_hits + (valid & (hit_gb > 0)).sum(-1, dtype=_I32),
+        )
     if params.timeout_ticks > 0:
         state = state._replace(ctr_timed=torch.where(hit_c, l_timed, state.ctr_timed))
     return state

@@ -67,4 +67,33 @@ DEFAULT_POINTS: dict[str, PolicyParams] = {
 }
 
 
-__all__ = ["PolicyParams", "N_POLICY_PARAMS", "DEFAULT_POINTS"]
+# the search box of each knob (lo, hi), in PolicyParams field order
+POLICY_BOUNDS: dict[str, tuple[float, float]] = {
+    "chunk_frac": (0.02, 0.60),
+    "cap_frac": (0.10, 1.00),
+    "retry_mult": (1.0, 4.0),
+    "size_weight": (0.0, 2.0),
+    "prio_weight": (0.0, 2.0),
+    "age_weight": (0.0, 1e-3),
+    "preempt": (0.0, 1.0),
+    "preempt_min_prio": (0.0, 2.0),
+    "victim_prio_gap": (0.0, 2.0),
+    "multi_pool": (0.0, 1.0),
+    "cache_pin": (0.0, 1.0),
+    "locality_bonus": (0.0, 0.05),
+    "exclusive": (0.0, 1.0),
+    "grab_all": (0.0, 1.0),
+    "ram_gate": (0.0, 1.0),
+}
+assert tuple(POLICY_BOUNDS) == PolicyParams._fields
+
+
+def policy_bounds() -> tuple[np.ndarray, np.ndarray]:
+    """``(lo, hi)`` f32 vectors of the search box, in field order."""
+    lo = np.asarray([POLICY_BOUNDS[f][0] for f in PolicyParams._fields], np.float32)
+    hi = np.asarray([POLICY_BOUNDS[f][1] for f in PolicyParams._fields], np.float32)
+    return lo, hi
+
+
+__all__ = ["PolicyParams", "N_POLICY_PARAMS", "DEFAULT_POINTS", "POLICY_BOUNDS",
+           "policy_bounds"]

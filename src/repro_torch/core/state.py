@@ -14,6 +14,7 @@ from __future__ import annotations
 
 from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from .params import SimParams
@@ -48,23 +49,22 @@ class Workload(NamedTuple):
     op_alpha: torch.Tensor  # [F, MP, MO] f32 CPU-scaling exponent
     op_out: torch.Tensor    # [F, MP, MO] f32 GB produced by each operator
     pipe_out: torch.Tensor  # [F, MP] f32 GB, Σ op_out per pipeline
-    # the chaos layer's fault trace (None: no fault source); the dynamic
-    # "policy" scheduler's per-lane vector is a later slice (None)
+    # the chaos layer's fault trace (None: no fault source)
     faults: Optional[FaultTrace] = None
-    policy: None = None
+    # [F, 15] f32 PolicyParams vector per lane, read by the dynamic
+    # "policy" scheduler (None: named schedulers only)
+    policy: Optional[torch.Tensor] = None
 
 
 def workload_to(wl: Workload, device) -> Workload:
-    """``wl`` on ``device``, every table contiguous, its fault trace with it."""
-    faults = None if wl.faults is None else FaultTrace(
-        *(x.to(device).contiguous() for x in wl.faults))
-    return Workload(*(x.to(device).contiguous() for x in wl[:10]), faults=faults)
+    """``wl`` on ``device``, every field contiguous (its fault trace and
+    policy vectors too)."""
+    return tree_map(lambda x: x.to(device).contiguous(), wl)
 
 
 def workload_lane(wl: Workload, i: int) -> Workload:
     """Lane ``i`` of a fleet, lane axis dropped (per-lane shapes)."""
-    faults = None if wl.faults is None else FaultTrace(*(x[i] for x in wl.faults))
-    return Workload(*(x[i] for x in wl[:10]), faults=faults)
+    return tree_map(lambda x: x[i], wl)
 
 
 class SimState(NamedTuple):
@@ -264,21 +264,79 @@ def init_state(params: SimParams, F: int, device) -> SimState:
     )
 
 
+def tree_map(fn, tree, *rest):
+    """``fn`` on every leaf of ``tree`` (any nesting of named tuples,
+    tuples, lists and dicts) and the matching leaves of ``rest``;
+    ``None`` leaves stay ``None``."""
+    if tree is None:
+        return None
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(tree_map(fn, *xs) for xs in zip(tree, *rest)))
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(tree_map(fn, *xs) for xs in zip(tree, *rest))
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, *(r[k] for r in rest)) for k, v in tree.items()}
+    return fn(tree, *rest)
+
+
 def broadcast_lanes(tree, n_lanes: int):
     """Broadcast a single-lane tree (a ``SimState``, a ``Workload``, any
     nesting of named tuples, tuples, lists and dicts, ``None`` leaves
     kept) to ``n_lanes`` lane-major copies: every leaf gains a leading
     fleet axis ``[F, ...]`` as a broadcast view (``expand``)."""
-    if tree is None:
-        return None
-    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
-        return type(tree)(*(broadcast_lanes(x, n_lanes) for x in tree))
-    if isinstance(tree, (tuple, list)):
-        return type(tree)(broadcast_lanes(x, n_lanes) for x in tree)
-    if isinstance(tree, dict):
-        return {k: broadcast_lanes(v, n_lanes) for k, v in tree.items()}
-    x = torch.as_tensor(tree)
-    return x.expand((n_lanes,) + tuple(x.shape))
+    def lanes(leaf):
+        x = torch.as_tensor(leaf)
+        return x.expand((n_lanes,) + tuple(x.shape))
+
+    return tree_map(lanes, tree)
+
+
+# ---------------------------------------------------------------------------
+# Zero-copy cache transition (data plane), one pool row per lane: the
+# executor calls it once per assignment row. Every cached size lies on
+# the MiB grid (``workload._op_out_gb_quantized`` and the reference's
+# generator), so the f32 sums below are exact in any order while they
+# stay under 2**24 MiB; ``torch.cumsum`` may then take its own order.
+# ---------------------------------------------------------------------------
+def cache_insert(
+    row_bytes: torch.Tensor,   # [F, MP] f32 cached GB on the row's pool
+    row_last: torch.Tensor,    # [F, MP] int32 last-touch ticks
+    used: torch.Tensor,        # [F] f32 pool cache occupancy
+    pipe: torch.Tensor,        # [F] int32 pipeline whose data is inserted
+    size: torch.Tensor,        # [F] f32 dataset size (GB)
+    tick: torch.Tensor,        # [F] int32 insertion tick (the new last touch)
+    cap: float,                # per-pool cache capacity (GB)
+):
+    """Insert ``pipe``'s intermediates, evicting least recently touched
+    entries first (last touch ascending, then pipe ascending) until the
+    dataset fits. A dataset larger than the whole cache is never
+    inserted. Returns ``(row_bytes, row_last, used)``."""
+    MP = row_bytes.shape[-1]
+    cap32 = float(np.float32(cap))
+    p = pipe.long()[:, None]
+    iota = torch.arange(MP, dtype=torch.int32, device=row_bytes.device)
+    on_pipe = iota == pipe[:, None]
+    cached = torch.gather(row_bytes, 1, p)[:, 0]
+    fits_cache = size <= cap32
+    # bytes that must be freed before the (re-)insert fits
+    need = used - cached + size - cap32
+    evictable = (row_bytes > 0) & ~on_pipe
+    order = torch.argsort(torch.where(evictable, row_last, INF_TICK), dim=-1, stable=True)
+    ev_sorted = torch.gather(evictable, 1, order)
+    freed_sorted = torch.where(ev_sorted, torch.gather(row_bytes, 1, order), 0.0)
+    cum = torch.cumsum(freed_sorted, -1)
+    evict_sorted = ev_sorted & ((cum - freed_sorted) < need[:, None]) & (need > 0)[:, None]
+    evict = torch.zeros_like(evictable).scatter(1, order, evict_sorted)
+    freed_total = torch.where(evict_sorted, cum, 0.0).amax(-1)
+    new_bytes = torch.where(on_pipe, size[:, None], torch.where(evict, 0.0, row_bytes))
+    new_last = torch.where(on_pipe, tick[:, None], torch.where(evict, 0, row_last))
+    new_used = used - freed_total - cached + size
+    keep = fits_cache[:, None]
+    return (
+        torch.where(keep, new_bytes, row_bytes),
+        torch.where(keep, new_last, row_last),
+        torch.where(fits_cache, new_used, used),
+    )
 
 
 # ---------------------------------------------------------------------------
@@ -387,7 +445,9 @@ __all__ = [
     "SimState",
     "init_state",
     "broadcast_lanes",
+    "cache_insert",
     "container_schedule",
     "used_resources",
     "seconds",
+    "tree_map",
 ]

@@ -24,7 +24,8 @@ from . import metrics
 from .engine import _check_workload, check_main_path, resolve_device, run_lane_major_engine
 from .faults import attach_fault_traces
 from .params import SimParams
-from .state import FaultTrace, SimState, Workload, workload_to
+from .policy import N_POLICY_PARAMS, PolicyParams
+from .state import SimState, Workload, tree_map, workload_to
 from .types import INF_TICK, TICKS_PER_SECOND
 from .workload import generate_workload, workload_batch_from_traces  # noqa: F401  (batch ingestion pairs with fleet_run)
 
@@ -35,18 +36,62 @@ def make_workload_batch(
     """One seed-generated workload per lane (lane ``i`` is
     ``generate_workload(params, seeds[i])``, its fault trace included)."""
     lanes = [generate_workload(params, s) for s in seeds]
-    faults = None
-    if params.fault_trace_active:
-        faults = FaultTrace(*(torch.cat(parts) for parts in zip(*(wl.faults for wl in lanes))))
-    wls = Workload(*(torch.cat(parts) for parts in zip(*(wl[:10] for wl in lanes))),
-                   faults=faults)
-    return workload_to(wls, device)
+    return workload_to(tree_map(lambda *parts: torch.cat(parts), *lanes), device)
 
 
-def _map_workload(wls: Workload, fn) -> Workload:
-    """``fn`` on every lane-major field of ``wls``, its fault trace included."""
-    faults = None if wls.faults is None else FaultTrace(*(fn(x) for x in wls.faults))
-    return Workload(*(fn(x) for x in wls[:10]), faults=faults)
+def _policy_matrix(policies) -> torch.Tensor:
+    """``policies`` (a ``PolicyParams``, a sequence of them, or an array)
+    as an f32 tensor on the CPU."""
+    if isinstance(policies, PolicyParams):
+        policies = policies.to_vector()
+    elif isinstance(policies, (list, tuple)) and policies and isinstance(
+        policies[0], PolicyParams
+    ):
+        policies = np.stack([p.to_vector() for p in policies])
+    if isinstance(policies, torch.Tensor):
+        return policies.detach().to("cpu", torch.float32)
+    return torch.from_numpy(np.asarray(policies, np.float32))
+
+
+def attach_policies(wls: Workload, policies) -> Workload:
+    """Attach ``PolicyParams`` vectors to a workload batch for the
+    dynamic ``"policy"`` scheduler: ``[F, P]`` (one per lane), a single
+    ``[P]`` vector broadcast to every lane, a ``PolicyParams`` or a
+    sequence of them. The vectors ride the workload, so ``pad_lanes``
+    and ``bin_lanes_by_density`` carry them like any other lane field."""
+    pol = _policy_matrix(policies)
+    F = wls.arrival.shape[0]
+    if pol.dim() == 1:
+        pol = pol.expand(F, pol.shape[0])
+    if tuple(pol.shape) != (F, N_POLICY_PARAMS):
+        raise ValueError(
+            f"policies must be [{F}, {N_POLICY_PARAMS}] (one PolicyParams "
+            f"vector per lane) or a single [{N_POLICY_PARAMS}] vector, "
+            f"got {tuple(pol.shape)}"
+        )
+    return wls._replace(policy=pol.contiguous().to(wls.arrival.device))
+
+
+def policy_grid_workloads(wls: Workload, policies) -> tuple[Workload, int, int]:
+    """Tile an ``[S, ...]`` scenario batch across a ``[C, P]`` policy grid
+    (or a sequence of ``PolicyParams``). Returns ``(grid_wls, C, S)``:
+    lane ``c*S + s`` of ``grid_wls`` runs scenario ``s`` under candidate
+    ``c``, so one ``fleet_run(scheduler_key="policy")`` evaluates the
+    whole grid."""
+    pol = _policy_matrix(policies)
+    if pol.dim() != 2 or pol.shape[1] != N_POLICY_PARAMS:
+        raise ValueError(
+            f"policies must be a [C, {N_POLICY_PARAMS}] grid, got {tuple(pol.shape)}"
+        )
+    if wls.policy is not None:
+        raise ValueError(
+            "scenario batch already carries policy vectors; build the "
+            "grid from a policy-free batch"
+        )
+    C, S = int(pol.shape[0]), int(wls.arrival.shape[0])
+    tiled = tree_map(lambda x: x.repeat((C,) + (1,) * (x.dim() - 1)), wls)
+    grid = pol.repeat_interleave(S, dim=0).to(wls.arrival.device)
+    return tiled._replace(policy=grid), C, S
 
 
 def pad_lanes(wls: Workload, n_lanes: int) -> Workload:
@@ -57,8 +102,8 @@ def pad_lanes(wls: Workload, n_lanes: int) -> Workload:
     pad = n_lanes - F
     if pad <= 0:
         return wls
-    padded = _map_workload(
-        wls, lambda x: torch.cat([x, x[:1].expand((pad,) + tuple(x.shape[1:]))]))
+    padded = tree_map(
+        lambda x: torch.cat([x, x[:1].expand((pad,) + tuple(x.shape[1:]))]), wls)
     # every field is a new tensor (cat): set the padding's events in place
     padded.arrival[F:] = INF_TICK
     if padded.faults is not None:
@@ -82,7 +127,7 @@ def bin_lanes_by_density(wls: Workload, params: SimParams) -> tuple[Workload, np
     order = np.argsort(-score, kind="stable")
     inv = np.argsort(order)
     index = torch.from_numpy(order).to(wls.arrival.device)
-    return _map_workload(wls, lambda x: x[index]), inv
+    return tree_map(lambda x: x[index], wls), inv
 
 
 def _unbin_states(states: SimState, inv) -> SimState:
@@ -148,7 +193,7 @@ def fleet_run(
         workloads = attach_fault_traces(workloads, params)
     _check_workload(workloads, params)
     wls = workload_to(workloads, device)
-    states, _ = run_lane_major_engine(
+    states, _, _ = run_lane_major_engine(
         params, wls, scheduler_key or params.scheduling_algo
     )
     return states
@@ -219,11 +264,13 @@ def _fleet_hit_rate(states: SimState) -> float:
 
 
 __all__ = [
+    "attach_policies",
     "bin_lanes_by_density",
     "fleet_run",
     "fleet_summary",
     "make_workload_batch",
     "pad_lanes",
+    "policy_grid_workloads",
     "predicted_lane_events",
     "workload_batch_from_traces",
 ]

@@ -44,7 +44,7 @@ import torch
 
 from .faults import attach_fault_trace
 from .params import SimParams
-from .state import Workload, workload_lane, workload_to
+from .state import Workload, tree_map, workload_lane, workload_to
 from .types import INF_TICK, TICKS_PER_SECOND, Operator, Pipeline, Priority
 
 GB_QUANTUM = 1.0 / 1024.0
@@ -124,7 +124,7 @@ def generate_workload(
         op_out=op_out,
         pipe_out=op_out.sum(1, dtype=f32),
     )
-    wl = Workload(*(x[None] for x in wl[:10]))
+    wl = tree_map(lambda x: x[None], wl)
     if params.fault_trace_active:
         wl = attach_fault_trace(wl, params, seed)
     return workload_to(wl, device)

@@ -61,4 +61,10 @@ def select_victim(live, ctr_prio, ctr_start, below_prio):
     return masked_lex_argmin(m, (ctr_prio, -ctr_start))
 
 
-__all__ = ["masked_lex_argmin", "select_next_pipe", "select_victim"]
+def select_sjf(mask, n_ops, prio, entered):
+    """Smallest job first: op count asc, priority desc, entry asc, pid
+    asc (three int32 keys)."""
+    return masked_lex_argmin(mask, (n_ops, -prio, entered))
+
+
+__all__ = ["masked_lex_argmin", "select_next_pipe", "select_sjf", "select_victim"]

@@ -59,10 +59,16 @@ def select_victim_ref(live, ctr_prio, ctr_start, below_prio):
     return masked_lex_argmin_ref(m, (ctr_prio, -ctr_start))
 
 
+def select_sjf_ref(mask, n_ops, prio, entered):
+    """Smallest job first: op count asc, priority desc, entry asc, pid asc."""
+    return masked_lex_argmin_ref(mask, (n_ops, -prio, entered))
+
+
 __all__ = [
     "BIG",
     "masked_lex_argmin_ref",
     "select_next_pipe_ref",
+    "select_sjf_ref",
     "select_victim_ref",
     "sentinel",
 ]

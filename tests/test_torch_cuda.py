@@ -17,9 +17,13 @@ import pytest
 import torch
 
 from repro_torch import (
+    DEFAULT_POINTS,
     SimParams,
     fleet_run,
+    generate_workload,
     make_workload_batch,
+    policy_grid_workloads,
+    run,
     workload_batch_from_traces,
     workload_to_trace_records,
 )
@@ -35,7 +39,12 @@ from repro_torch.kernels import (
 )
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.rwkv6_scan import rwkv6_scan
-from repro_torch.kernels.sched_select import masked_lex_argmin, masked_lex_argmin_ref
+from repro_torch.kernels.sched_select import (
+    masked_lex_argmin,
+    masked_lex_argmin_ref,
+    select_sjf,
+    select_sjf_ref,
+)
 from repro_torch.kernels.sim_tick import fleet_tick, fleet_tick_ref
 from repro_torch.kernels.ssm_scan import ssm_scan
 from repro_torch.kernels.ssm_scan import ops as ssm_ops
@@ -421,6 +430,101 @@ def test_main_path_goes_through_every_kernel(cuda):
     assert all(counts[name] > 0 for name in SIM_KERNELS), counts
     for name in ("pipe_status", "pipe_completion", "pool_cpu_free", "done_count"):
         assert torch.equal(getattr(on_card, name).cpu(), getattr(on_cpu, name)), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed", range(3))
+def test_masked_lex_argmin_kernel_at_the_sjf_key_set(cuda, seed):
+    """``select_sjf``'s three int32 keys (op counts 1..8, so the lead key
+    ties often) through the kernel, exactly as the plain version."""
+    rng = np.random.default_rng(300 + seed)
+    mask = rng.random((F, MP)) < 0.4
+    mask[:2] = False
+    n_ops = rng.integers(1, 9, (F, MP)).astype(np.int32)
+    prio = rng.integers(0, 3, (F, MP)).astype(np.int32)
+    entered = rng.integers(0, 50, (F, MP)).astype(np.int32) * 1_000
+    cpu, dev = _pair((mask, n_ops, prio, entered), cuda)
+    reset_launch_counts()
+    got = select_sjf(*dev)
+    assert launch_counts()["masked_lex_argmin"] == 1
+    _equal((got,), (select_sjf_ref(*cpu),))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed", range(3))
+def test_masked_lex_argmin_kernel_with_per_lane_leads(cuda, seed):
+    """The ``"policy"`` family's f32 lead key, with weights drawn per
+    lane in the search box: a different lead in every lane."""
+    rng = np.random.default_rng(400 + seed)
+    mask = rng.random((F, MP)) < 0.4
+    n_ops = rng.integers(1, 9, (F, MP)).astype(np.int32)
+    prio = rng.integers(0, 3, (F, MP)).astype(np.int32)
+    entered = rng.integers(0, 100_000, (F, MP)).astype(np.int32)
+    w = rng.random((3, F, 1)).astype(np.float32) * np.float32([[[2.0]], [[1e-3]], [[2.0]]])
+    cpu, dev = _pair((mask, n_ops, prio, entered, *w), cuda)
+
+    def keys(mask, n_ops, prio, entered, sw, aw, pw):
+        f32 = torch.float32
+        lead = sw * n_ops.to(f32) + aw * entered.to(f32) - pw * prio.to(f32)
+        return mask, (lead, -prio, entered)
+
+    m_dev, k_dev = keys(*dev)
+    m_cpu, k_cpu = keys(*cpu)
+    assert torch.equal(k_dev[0].cpu(), k_cpu[0])
+    got = masked_lex_argmin(m_dev, k_dev)
+    _equal((got,), (masked_lex_argmin_ref(m_cpu, k_cpu),))
+
+
+def _data_plane_params(**kw):
+    return SimParams(duration=0.05, num_pools=2, max_pipelines=32, max_containers=32,
+                     waiting_ticks_mean=300.0, op_base_seconds_mean=0.005, op_out_gb_mean=2.0,
+                     cache_gb_per_pool=4.0, scan_ticks_per_gb=50.0, cold_start_ticks=40,
+                     container_warm_ticks=2_000, **kw)
+
+
+def _assert_contract(on_card, on_cpu):
+    tolerant = {"sum_latency_s", "sum_latency_s_prio", "util_cpu_s", "util_ram_s",
+                "cost_dollars", "util_log", "pool_down_s"}
+    for name in on_cpu._fields:
+        a, b = getattr(on_card, name).cpu(), getattr(on_cpu, name)
+        assert a.dtype == b.dtype and a.shape == b.shape, name
+        if name in tolerant:
+            np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-5, err_msg=name)
+        else:
+            assert torch.equal(a, b), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("algo", ["cache_aware", "sjf"])
+def test_data_plane_run_on_the_card(cuda, algo):
+    params = _data_plane_params(scheduling_algo=algo)
+    wl = generate_workload(params)
+    reset_launch_counts()
+    on_card = run(params, wl, device=cuda)
+    assert all(n > 0 for name, n in launch_counts().items() if name in SIM_KERNELS)
+    on_cpu = run(params, wl, device="cpu")
+    _assert_contract(on_card.state, on_cpu.state)
+    s = on_card.summary()
+    assert s["cold_starts"] > 0 and s["cache_lookups"] > 0
+
+
+@pytest.mark.cuda
+def test_policy_grid_on_the_card(cuda):
+    """Two seeds under the six named points: 12 lanes of ``"policy"`` on
+    the card equal the CPU port's, and each point's lanes equal its
+    named scheduler's fleet bit for bit."""
+    params = _data_plane_params()
+    scen = make_workload_batch(params, [0, 1])
+    names = sorted(DEFAULT_POINTS)
+    grid, C, S = policy_grid_workloads(scen, [DEFAULT_POINTS[k] for k in names])
+    on_card = fleet_run(params, workloads=grid, scheduler_key="policy", device=cuda)
+    _assert_contract(on_card, fleet_run(params, workloads=grid, scheduler_key="policy",
+                                        device="cpu"))
+    for c, key in enumerate(names):
+        named = fleet_run(params, workloads=scen, scheduler_key=key, device=cuda)
+        for name in named._fields:
+            assert torch.equal(getattr(on_card, name)[c * S:(c + 1) * S],
+                               getattr(named, name)), (key, name)
 
 
 # ---------------------------------------------------------------------------

@@ -115,7 +115,7 @@ def test_next_event_registers_match_full_recompute(algo, pools):
     while int(state.tick[0]) < params.horizon_ticks:
         tick = state.tick
         active = tick < params.horizon_ticks
-        new, dec = engine.event_step(params, scheduler_fn, state, wl, arr_sorted, edges, active)
+        new, _, dec = engine.event_step(params, scheduler_fn, state, wl, arr_sorted, edges, active)
         oracle = engine._next_event(new, wl, tick, engine._acted(dec))
         assert int(new.tick[0]) == min(int(oracle[0]), params.horizon_ticks), n_events
         state, n_events = new, n_events + 1

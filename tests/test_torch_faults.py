@@ -292,8 +292,8 @@ def test_next_event_registers_match_full_recompute_under_faults(algo):
         tick = state.tick
         active = tick < params.horizon_ticks
         _, due = engine.fault_gate(state, active, params)
-        new, dec = engine.event_step(params, scheduler_fn, state, wl, arr_sorted, edges,
-                                     active, due)
+        new, _, dec = engine.event_step(params, scheduler_fn, state, wl, arr_sorted, edges,
+                                        active, due)
         oracle = engine._next_event(new, wl, tick, engine._acted(dec))
         assert int(new.tick[0]) == min(int(oracle[0]), params.horizon_ticks), n_events
         state, n_events, n_fault_passes = new, n_events + 1, n_fault_passes + due

@@ -7,7 +7,8 @@ not ported yet.
   without a card the default raises instead of running on the CPU.
 * Every optional layer of a later slice raises ``NotImplementedError``
   naming its ROADMAP item, never a silent fallback; the layer kinds that
-  a slice has ported run (the chaos layer's knobs among them).
+  a slice has ported run (the chaos layer's and the data plane's knobs,
+  and every registered scheduler, among them).
 """
 import ast
 import pathlib
@@ -68,15 +69,10 @@ def test_cpu_run_stays_on_the_cpu():
 
 
 LATER_KNOBS = [
-    ("cache_gb_per_pool", 4.0, "item 9"),
-    ("scan_ticks_per_gb", 10.0, "item 9"),
-    ("cold_start_ticks", 40, "item 9"),
     ("client_max_inflight", 4, "item 11"),
     ("admission_policy", "codel", "item 11"),
     ("admit_burst", 2.0, "item 11"),
     ("engine", "python", "item 14"),
-    ("scheduling_algo", "sjf", "item 9"),
-    ("scheduling_algo", "policy", "item 9"),
 ]
 
 
@@ -85,6 +81,38 @@ def test_optional_layers_raise(knob, value, item):
     params = _small(**{knob: value})
     with pytest.raises(NotImplementedError, match=item):
         run(params, device="cpu")
+
+
+# the data plane's knobs run (ROADMAP queue 1, item 9), each moving the
+# summary keys that report it
+DATA_PLANE_KNOBS = [
+    ("cache_gb_per_pool", 4.0, ("cache_resident_gb",)),
+    ("scan_ticks_per_gb", 10.0, ("mean_latency_s",)),
+    ("cold_start_ticks", 40, ("cold_start_ticks", "cold_start_s")),
+]
+
+
+@pytest.mark.parametrize("knob,value,live", DATA_PLANE_KNOBS,
+                         ids=[k for k, _, _ in DATA_PLANE_KNOBS])
+def test_data_plane_knobs_run(knob, value, live):
+    busy = dict(waiting_ticks_mean=50.0, op_base_seconds_mean=0.002, op_out_gb_mean=2.0)
+    summary = run(_small(**busy, **{knob: value}), device="cpu").summary()
+    quiet = run(_small(**busy), device="cpu").summary()
+    for key in live:
+        assert summary[key] != quiet[key], key
+
+
+@pytest.mark.parametrize("algo", ["sjf", "cache_aware", "locality_pool", "naive_ref",
+                                  "priority_ref", "priority_pool_ref", "cache_aware_ref",
+                                  "locality_pool_ref", "sjf_ref"])
+def test_every_registered_scheduler_runs(algo):
+    res = run(_small(scheduling_algo=algo, waiting_ticks_mean=100.0), device="cpu")
+    assert int(res.state.tick) == 1000 and res.summary()["submitted"] > 0
+
+
+def test_policy_key_needs_policy_vectors():
+    with pytest.raises(ValueError, match="policy"):
+        run(_small(scheduling_algo="policy"), device="cpu")
 
 
 # the chaos layer's knobs run (ROADMAP queue 1, item 10), each moving the
