@@ -70,6 +70,25 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``retire_land`` launched with its timeout branch; wall time,
    simulated s per wall s, launches and the device's busy share beside
    phase 5's;
+6c. the overload layer: (a) phase 5's 64-lane fleet with closed-loop
+   clients (at most 6 in flight, 200 ticks of think time, 3 retries at
+   200 ticks of backoff) and a queue threshold of 4
+   (``benchmarks/engine_throughput.py``'s closed-loop row) on CUDA, its
+   first 8 lanes against the CPU port; wall, simulated s per wall s,
+   device kernels an event and busy share beside phase 5's; offers,
+   admissions and defers above 0, sheds and client retries printed (0:
+   the client cap keeps the threshold from binding); (b)
+   ``benchmarks/scheduler_comparison.py``'s ``overload_comparison``: 8
+   ``retry_storm`` lanes (seed 11, surge 6, a 0.06 s tape in 0.08 s, two
+   early outages, clients that retry 3 times) under ``admit_all``,
+   ``queue_threshold``, ``token_bucket`` and ``codel``, each arm on CUDA
+   with its first 4 lanes against the CPU port, its row printed; every
+   lane whose fault trace starts an outage inside the horizon saw it
+   (7 of the 8: the port's generator gives lane 4 none before 0.08 s),
+   ``admit_all`` shed nothing at amplification 1.0, ``queue_threshold``
+   shed and retried,
+   ``token_bucket`` deferred, every simulator kernel launched; the
+   drained and metastable lanes printed;
 7. serving rwkv6_7b at full width (random weights from a seed):
    ``evaluate_policies`` on CUDA picks the policy, then a 4-slot
    ``ContinuousBatcher`` serves 8 requests of 512-2048 prompt tokens;
@@ -935,7 +954,7 @@ def fleet_phase(dev) -> tuple[dict, dict, dict]:
     print("phase 5 launches:", json.dumps(counts))
     busy = profile_fleet(params, wls, dev, "phase 5")
     return counts, {"wall_s": wall, "sim_s_per_wall_s": sim_s / wall,
-                    "launches": sum(counts.values()), **busy}, {
+                    "launches": sum(counts.values()), "events": counts["fleet_tick"], **busy}, {
         "params": params, "wls": wls, "states": states, "ref": ref}
 
 
@@ -1164,7 +1183,9 @@ def profile_call(fn, label: str) -> dict:
     torch.profiler, its wall time against the summed device time of every
     CUDA kernel (the device's busy share), and the kernels that take the
     most; returns the busy share and the kernel launches (empty: not
-    measured)."""
+    measured). The trace's raw events are summed as they come, to the
+    same sums as ``key_averages()``, which takes the host minutes to build
+    for a fleet's hundreds of thousands of kernels."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1174,18 +1195,22 @@ def profile_call(fn, label: str) -> dict:
         out = fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    rows = [e for e in prof.key_averages()
-            if str(getattr(e, "device_type", "")).endswith("CUDA")]
-    if not rows:
+    by_name = {}                                   # kernel name -> [ns, launches]
+    for e in prof.profiler.kineto_results.events():
+        if str(e.device_type()).endswith("CUDA"):
+            row = by_name.setdefault(e.name(), [0, 0])
+            row[0] += e.duration_ns()
+            row[1] += 1
+    if not by_name:
         print(f"{label} profile: the trace holds no CUDA kernels; device busy share not measured")
         return {}
-    busy_ms = sum(e.device_time_total for e in rows) / 1e3
-    launches = sum(e.count for e in rows)
+    busy_ms = sum(ns for ns, _ in by_name.values()) / 1e6
+    launches = sum(n for _, n in by_name.values())
     print(f"{CARD}: {label} profile: wall {wall * 1e3:.1f} ms (under the profiler), device busy "
           f"{busy_ms:.1f} ms ({100 * busy_ms / (wall * 1e3):.1f}% of wall), "
           f"{launches} kernel launches")
-    for e in sorted(rows, key=lambda e: -e.device_time_total)[:8]:
-        print(f"  {e.device_time_total / 1e3:9.3f} ms  {e.count:6d}x  {e.key[:90]}")
+    for name, (ns, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]:
+        print(f"  {ns / 1e6:9.3f} ms  {n:6d}x  {name[:90]}")
     return {"busy_share": busy_ms / (wall * 1e3), "device_launches": launches, "result": out}
 
 
@@ -1251,6 +1276,156 @@ def chaos_phase(dev, faults_off: dict) -> tuple[dict, dict]:
               f"profiler ({100 * faults_off['busy_share']:.1f}% faults off, phase 5), "
               f"{busy['device_launches']} kernel launches ({faults_off['device_launches']})")
     return run_counts, counts
+
+
+# the overload layer's knobs of phase 6c (a):
+# benchmarks/engine_throughput.py:298-307 (the fused_closed_loop row)
+CLOSED_LOOP = dict(
+    client_max_inflight=6, client_think_ticks=200, client_max_retries=3,
+    client_backoff_ticks=200, admission_policy="queue_threshold", admit_queue_limit=4,
+)
+# phase 6c (b): benchmarks/scheduler_comparison.py's OVERLOAD_POLICIES
+OVERLOAD_POLICIES = (
+    ("admit_all", {}),
+    ("queue_threshold", {"admit_queue_limit": 3}),
+    ("token_bucket", {"admit_rate_per_s": 400.0, "admit_burst": 4.0}),
+    ("codel", {"codel_target_ticks": 400, "codel_interval_ticks": 200}),
+)
+# lanes of phase 6c held to the CPU port (lanes are independent; the card
+# runs them all)
+CPU_LANES_6C = {"fleet": 8, "arm": 4}
+
+
+def overload_phase(dev, loop_off: dict) -> list[dict]:
+    """Phase 6c: the overload layer. (a) phase 5's 64-lane fleet with
+    closed-loop clients and a queue threshold, on CUDA against the CPU
+    port on its first 8 lanes, profiled as phase 5 is; (b)
+    ``overload_comparison``'s table: 8 ``retry_storm`` lanes under each of
+    the four admission policies with two early outages, each arm's
+    ``fleet_run`` on CUDA against the CPU port on its first 4 lanes.
+    Returns the launches of each run."""
+    import torch
+
+    from repro_torch import SimParams, fleet_run, fleet_summary, make_workload_batch
+    from repro_torch.core.faults import attach_fault_traces
+    from repro_torch.core.scenarios import retry_storm_params, scenario_lane_batch
+    from repro_torch.core.state import tree_map
+    from repro_torch.core.types import INF_TICK
+    from repro_torch.core.workload import workload_batch_from_traces
+    from repro_torch.kernels import SIM_KERNELS
+
+    def head(tree, n):
+        return tree_map(lambda x: x[:n], tree)
+
+    # ---- (a) the closed-loop fleet -------------------------------------------
+    params = fleet_params(**CLOSED_LOOP)
+    seeds = list(range(64))
+    wls = make_workload_batch(params, seeds)
+    states, wall, counts, _ = timed_fleet(params, wls, dev)
+    n = CPU_LANES_6C["fleet"]
+    t0 = time.perf_counter()
+    compare_states(head(states, n), fleet_run(params, workloads=head(wls, n), device="cpu"),
+                   f"phase 6c (a): closed-loop fleet, first {n} lanes")
+    cpu_wall = time.perf_counter() - t0
+    totals = {name: int(getattr(states, name).sum()) for name in (
+        "offered_total", "admitted_total", "shed_total", "deferred_total",
+        "client_retry_events", "done_count")}
+    # at most 6 in flight a lane against 64 containers: an admitted
+    # pipeline starts at once, so the threshold of 4 admitted-and-waiting
+    # never binds and nothing is shed or retried (the reference's fleet
+    # of seeds 0-63 sheds nothing either); (b) sheds and retries
+    quiet = [name for name, v in totals.items()
+             if v <= 0 and name not in ("shed_total", "client_retry_events")]
+    if quiet:
+        raise AssertionError(f"phase 6c (a): totals that stayed at 0: {quiet}")
+    for name in SIM_KERNELS:
+        if counts[name] <= 0:
+            raise AssertionError(f"phase 6c (a): {name} was not launched")
+    events = counts["fleet_tick"]
+    sim_s = len(seeds) * params.duration
+    print(f"{CARD}: phase 6c (a): closed-loop fleet_run of {len(seeds)} lanes on {dev}: wall "
+          f"{wall:.3f} s ({loop_off['wall_s']:.3f} s loop off, phase 5), {sim_s / wall:.3f} "
+          f"simulated s per wall s ({loop_off['sim_s_per_wall_s']:.3f}), {events} events "
+          f"({loop_off['events']}), {sum(counts.values())} wrapper launches "
+          f"({loop_off['launches']}); first {n} lanes equal to the CPU port (CPU wall "
+          f"{cpu_wall:.3f} s); totals over the fleet: " + json.dumps(totals))
+    print("phase 6c (a) launches:", json.dumps(counts))
+    busy = profile_fleet(params, wls, dev, "phase 6c (a)")
+    if busy and loop_off.get("busy_share") is not None:
+        print(f"{CARD}: phase 6c (a): {busy['device_launches'] / events:.1f} device kernels an "
+              f"event ({loop_off['device_launches'] / loop_off['events']:.1f} loop off, phase "
+              f"5), device busy {100 * busy['busy_share']:.1f}% of wall under the profiler "
+              f"({100 * loop_off['busy_share']:.1f}%)")
+    all_counts = [counts]
+
+    # ---- (b) the overload table ----------------------------------------------
+    base = SimParams(
+        duration=0.08, max_pipelines=0, max_ops_per_pipeline=0, max_containers=16,
+        waiting_ticks_mean=150.0, op_base_seconds_mean=0.008, op_base_seconds_sigma=1.0,
+        num_pools=2, total_cpus=4, total_ram_gb=8, scheduling_algo="priority_pool", seed=11,
+    )
+    n_lanes, n = 8, CPU_LANES_6C["arm"]
+    lanes = scenario_lane_batch("retry_storm", base.replace(duration=0.06), n_lanes,
+                                seed=11, surge_factor=6.0)
+    rows = {}
+    for policy, knobs in OVERLOAD_POLICIES:
+        wls, params = workload_batch_from_traces(lanes, base)
+        armed = retry_storm_params(
+            params, admission_policy=policy, outage_mtbf_s=0.02, outage_duration_s=0.006,
+            client_max_retries=3,
+        ).replace(max_fault_events=2, **knobs)
+        # the traces fleet_run would attach (params.seed, lane index),
+        # attached here so that the CPU's lanes run on the same ones
+        wls = attach_fault_traces(wls, armed)
+        states, wall, counts, _ = timed_fleet(armed, wls, dev)
+        t0 = time.perf_counter()
+        compare_states(head(states, n), fleet_run(armed, workloads=head(wls, n), device="cpu"),
+                       f"phase 6c (b): {policy}, first {n} lanes")
+        cpu_wall = time.perf_counter() - t0
+        for name in SIM_KERNELS:
+            if counts[name] <= 0:
+                raise AssertionError(f"phase 6c (b): {policy}: {name} was not launched")
+        # the lanes whose trace starts an outage inside the horizon (the
+        # port's generator gives seed 11's lane 4 none before 0.08 s)
+        struck = (wls.faults.outage_start[:, 0] < armed.horizon_ticks).to(dev)
+        faulted = states.last_fault_tick < INF_TICK
+        if not torch.equal(faulted, struck) or int(struck.sum()) < n_lanes // 2:
+            raise AssertionError(f"phase 6c (b): {policy}: lanes that saw an outage "
+                                 f"{faulted.tolist()}, lanes whose trace holds one "
+                                 f"{struck.tolist()}")
+        s = fleet_summary(states, armed)
+        offered = int(states.offered_total.sum())
+        unique = int(states.offered_unique.sum())
+        drained = int((states.drain_tick < INF_TICK).sum())
+        rows[policy] = row = {
+            "scenario": "retry_storm", "policy": policy, "lanes": n_lanes,
+            "offered": offered, "admitted": int(states.admitted_total.sum()),
+            "admitted_fraction": round(s["admitted_fraction_mean"], 3),
+            "shed": int(states.shed_total.sum()), "deferred": int(states.deferred_total.sum()),
+            "client_retries": int(states.client_retry_events.sum()),
+            "retry_amplification": round(offered / max(unique, 1), 2),
+            "goodput_per_s": round(s["throughput_per_s_mean"], 2),
+            "mean_latency_s": round(s["mean_latency_s_mean"], 4),
+            "drained_lanes": drained, "metastable_lanes": n_lanes - drained,
+            "fairness_jain_done": round(s["fairness_jain_done"], 3), "wall_s": round(wall, 3),
+        }
+        print(f"{CARD}: phase 6c (b): {policy}: fleet_run of {n_lanes} lanes on {dev}: wall "
+              f"{wall:.3f} s, {counts['fleet_tick']} events, {sum(counts.values())} wrapper "
+              f"launches; first {n} lanes equal to the CPU port (CPU wall {cpu_wall:.3f} s); "
+              f"lanes that saw an outage {int(faulted.sum())} (every lane whose trace holds "
+              f"one), drained lanes {drained}, metastable lanes {n_lanes - drained}; "
+              + json.dumps(row))
+        print(f"phase 6c (b) {policy} launches:", json.dumps(counts))
+        all_counts.append(counts)
+    control, shedder = rows["admit_all"], rows["queue_threshold"]
+    if (control["shed"] != 0 or control["offered"] != control["admitted"]
+            or control["retry_amplification"] != 1.0):
+        raise AssertionError(f"phase 6c (b): admit_all rejected something: {control}")
+    if shedder["shed"] <= 0 or shedder["client_retries"] <= 0:
+        raise AssertionError(f"phase 6c (b): queue_threshold shed or retried nothing: {shedder}")
+    if rows["token_bucket"]["deferred"] <= 0:
+        raise AssertionError(f"phase 6c (b): token_bucket deferred nothing: {rows['token_bucket']}")
+    return all_counts
 
 
 # ---------------------------------------------------------------------------
@@ -1602,6 +1777,7 @@ def main() -> int:
     grid_counts = phase("5d", policy_grid_phase, dev)
     phase(6, sim_launch_phase, run_counts, fleet_counts)
     chaos_counts = phase("6b", chaos_phase, dev, faults_off)
+    overload_counts = phase("6c", overload_phase, dev, faults_off)
     rwkv_counts = phase(7, serve_phase, 7, "rwkv6_7b", ("rwkv6_scan",), dev)
     gemma_counts = phase(8, serve_phase, 8, "gemma3_12b", ("flash_attention",), dev)
     phase(9, parity_phase, dev)
@@ -1629,7 +1805,7 @@ def main() -> int:
                      "src/repro/kernels/ssm_scan/kernel.py:60"),
     }
     main_runs = (run_counts, fleet_counts, *replay_counts, *cache_counts, grid_counts,
-                 *chaos_counts, rwkv_counts, gemma_counts, jamba_counts)
+                 *chaos_counts, *overload_counts, rwkv_counts, gemma_counts, jamba_counts)
     rows = []
     for name in KERNELS:
         m = measured[name]

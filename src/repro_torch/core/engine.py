@@ -6,7 +6,11 @@ step. Here every field is a ``[F, ...]`` tensor and the loop is Python:
 * each iteration is one event for every lane still running: the
   ``fleet_tick`` phase-1 read, :func:`executor.apply_fused_phase1`, the
   fault pass (:func:`executor.apply_faults`, crashes and outages), the
-  scheduler (on a view with down pools masked), the down-pool filter,
+  closed-loop pass (:func:`admission.apply_closed_loop`: the client
+  gate, the admission policy, client retries and shedding; a Python
+  branch on ``params.closed_loop_active``, so with the loop off none of
+  it runs), the scheduler (on a view with down pools masked), the
+  down-pool filter,
   :func:`executor.apply_decision`, the jump to the lane's next event
   from the ``nxt_retire`` / ``nxt_release`` / ``nxt_fault`` registers
   and the sorted arrivals, and the integrals over the jump;
@@ -24,7 +28,7 @@ from typing import Any
 
 import torch
 
-from . import executor
+from . import admission, executor
 from .params import SimParams, load_params
 from .faults import attach_fault_trace
 from .policy import N_POLICY_PARAMS
@@ -66,30 +70,15 @@ def _raise_later(what: str, slice_: str):
     raise NotImplementedError(f"{what} waits for ROADMAP queue 1, {slice_}")
 
 
-# the knobs of the layers later slices bring, by their ROADMAP item; any
-# of them away from its default raises, even where the reference would
-# leave it inert
-_LATER_KNOBS = {
-    "item 11 (closed loop)": (
-        "client_max_inflight", "client_think_ticks", "client_max_retries",
-        "client_backoff_ticks", "admit_queue_limit", "admit_rate_per_s",
-        "admit_burst", "codel_target_ticks", "codel_interval_ticks",
-    ),
-}
-_DEFAULTS = SimParams()
-
-
 def check_main_path(params: SimParams) -> None:
-    """Raise ``NotImplementedError`` for any optional layer this slice
-    does not port, naming the ROADMAP item that brings it."""
+    """Raise ``NotImplementedError`` for an optional layer the port does
+    not have yet, naming the ROADMAP item that brings it, and
+    ``KeyError`` for an admission policy nobody registered, before the
+    run starts."""
     if params.engine != "event":
         _raise_later(f"engine={params.engine!r}", "item 14 (the paper's surface)")
     if params.admission_active:
-        _raise_later(f"admission_policy={params.admission_policy!r}", "item 11 (closed loop)")
-    for item, knobs in _LATER_KNOBS.items():
-        changed = [k for k in knobs if getattr(params, k) != getattr(_DEFAULTS, k)]
-        if changed:
-            _raise_later(", ".join(changed), item)
+        admission.get_admission_policy(params.admission_policy)
 
 
 def resolve_device(device) -> torch.device:
@@ -162,8 +151,12 @@ def _lane_decide(params, scheduler_fn, state, sched_state, wl, arr_sorted, tick,
                  active, edges):
     """From the scheduler on, for every lane: decide (on a view with the
     down pools masked, and without assignments onto them), apply, jump
-    to the next event and integrate over the jump. Returns
+    to the next event and integrate over the jump. With the closed loop
+    on, the client gate and the admission policy
+    (:func:`admission.apply_closed_loop`) run first. Returns
     ``(state, sched_state, dec)``."""
+    if params.closed_loop_active:
+        state = admission.apply_closed_loop(state, wl, tick, params)
     if params.outage_mtbf_ticks > 0:
         sched_state, dec = scheduler_fn(
             sched_state, mask_down_pools(state, tick), wl, params, active)

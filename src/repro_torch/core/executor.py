@@ -14,7 +14,8 @@ the data plane are ported. A new container pays a cold start unless it
 lands on a slot kept warm on its pool, and scans the intermediate bytes
 its pool's zero-copy cache does not hold; its pipeline's data then
 enters that cache (LRU, ``state.cache_insert``). An outage flushes the
-struck pool's cache.
+struck pool's cache. With the closed loop on, the fault pass also keeps
+the overload layer's fault bookkeeping (``core/admission.py``).
 """
 from __future__ import annotations
 
@@ -123,6 +124,15 @@ def apply_fused_phase1(
     return state
 
 
+def backoff_ticks(base_ticks, attempt: torch.Tensor) -> torch.Tensor:
+    """``min(base_ticks * 2**min(attempt, 30), 2**30)`` in f32, as int32.
+    The product is exact: 2**k is built from its exponent bits (the
+    reference's XLA ``exp2`` is off at odd k from 13, ROADMAP queue 3)."""
+    pow2 = (attempt.clamp(0, 30) + 127).mul(1 << 23).view(_F32)
+    base = torch.full((), float(np.float32(base_ticks)), dtype=_F32, device=attempt.device)
+    return torch.clamp_max(base * pow2, float(2**30)).to(_I32)
+
+
 def requeue_faulted(
     state: SimState, tick: torch.Tensor, params: SimParams, hit: torch.Tensor
 ) -> SimState:
@@ -133,12 +143,7 @@ def requeue_faulted(
     attempt = state.pipe_retries
     exhausted = hit & (attempt >= params.max_retries)
     retry = hit & ~exhausted
-    # base * 2**k in f32 is exact; 2**k is built from its exponent bits
-    pow2 = (attempt.clamp(0, 30) + 127).mul(1 << 23).view(_F32)
-    base = torch.full((), float(np.float32(params.base_backoff_ticks)), dtype=_F32,
-                      device=tick.device)
-    backoff = torch.clamp_max(base * pow2, float(2**30)).to(_I32)
-    release = _col(tick) + torch.clamp_min(backoff, 1)
+    release = _col(tick) + torch.clamp_min(backoff_ticks(params.base_backoff_ticks, attempt), 1)
     nxt_release = torch.minimum(
         state.nxt_release, torch.where(retry, release, INF_TICK).amin(-1))
     return state._replace(
@@ -271,6 +276,19 @@ def apply_faults(
             cache_bytes=torch.where(down_new[:, :, None], 0.0, state.cache_bytes),
             cache_last=torch.where(down_new[:, :, None], 0, state.cache_last),
             pool_cache_used=torch.where(down_new, 0.0, state.pool_cache_used),
+        )
+    if params.closed_loop_active:
+        # overload bookkeeping: the last crash or outage tick, the backlog
+        # at the first one, and drain detection re-armed by each (kills
+        # never touch WAITING pipelines, so the backlog is the same
+        # anywhere in this pass)
+        fault_now = (k_due > 0) | (n_due > 0)
+        backlog = (state.pipe_status == WAITING).sum(-1, dtype=_I32)
+        state = state._replace(
+            last_fault_tick=torch.where(fault_now, tick, state.last_fault_tick),
+            prefault_backlog=torch.where(
+                fault_now & (state.prefault_backlog < 0), backlog, state.prefault_backlog),
+            drain_tick=torch.where(fault_now, INF_TICK, state.drain_tick),
         )
     return requeue_faulted(state, tick, params, fault_hit)
 
@@ -586,6 +604,7 @@ __all__ = [
     "apply_faults",
     "apply_decision",
     "requeue_faulted",
+    "backoff_ticks",
     "bucket_edges",
     "integrate",
 ]

@@ -1,8 +1,7 @@
 """Execution statistics of a finished simulation (paper Fig. 2): the keys
-of ``repro.core.metrics.summarize``. The layers the port has not ported
-yet (data plane, closed loop) run at their zero defaults, so their keys
-read the values the reference gives with the layer off; the chaos
-layer's keys report its counters."""
+of ``repro.core.metrics.summarize``, the data plane's, the chaos layer's
+and the overload layer's among them (zero counters and NaN ratios where
+a layer is off)."""
 from __future__ import annotations
 
 import numpy as np
@@ -49,7 +48,10 @@ def _slo_attainment(params, prio, arrival, completion, done) -> dict:
 
 def _closed_loop_stats(state: SimState, params: SimParams, dur_s: float) -> dict:
     """The overload statistics: zero counters and NaN ratios with the
-    closed loop off."""
+    closed loop off. ``retry_amplification`` is offers per distinct
+    pipeline offered; ``time_to_drain_s`` runs from the last fault to the
+    backlog's return to its pre-fault level; ``metastable`` means it had
+    not returned within ``metastable_window_ticks`` (0: by the end)."""
     offered = int(state.offered_total)
     unique = int(state.offered_unique)
     admitted = int(state.admitted_total)

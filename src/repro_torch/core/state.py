@@ -140,7 +140,8 @@ class SimState(NamedTuple):
     fault_kills: torch.Tensor        # [] int32
     wasted_ticks: torch.Tensor       # [] int32
     pool_down_s: torch.Tensor        # [] f32
-    # ---- closed loop (a later slice; held at their initial values) ---------
+    # ---- closed loop (core/admission.py; inert at their initial values
+    # while every client and admission knob is off) -----------------------
     pipe_offered: torch.Tensor       # [MP] bool
     pipe_presented: torch.Tensor     # [MP] bool
     pipe_client_attempts: torch.Tensor  # [MP] int32
@@ -158,6 +159,30 @@ class SimState(NamedTuple):
     last_fault_tick: torch.Tensor    # [] int32
     prefault_backlog: torch.Tensor   # [] int32
     drain_tick: torch.Tensor         # [] int32
+
+
+# the closed-loop fields, in declaration order (``repro.core.state.
+# CLOSED_LOOP_FIELDS``): with the loop off a run leaves each at its
+# initial value
+CLOSED_LOOP_FIELDS = (
+    "pipe_offered",
+    "pipe_presented",
+    "pipe_client_attempts",
+    "offered_total",
+    "offered_unique",
+    "admitted_total",
+    "shed_total",
+    "deferred_total",
+    "client_retry_events",
+    "offered_prio",
+    "admitted_prio",
+    "admit_tokens",
+    "admit_last_tick",
+    "codel_above_since",
+    "last_fault_tick",
+    "prefault_backlog",
+    "drain_tick",
+)
 
 
 def init_state(params: SimParams, F: int, device) -> SimState:
@@ -438,6 +463,7 @@ def seconds(ticks: torch.Tensor) -> torch.Tensor:
 
 
 __all__ = [
+    "CLOSED_LOOP_FIELDS",
     "FaultTrace",
     "Workload",
     "workload_to",

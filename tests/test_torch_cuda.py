@@ -23,7 +23,9 @@ from repro_torch import (
     generate_workload,
     make_workload_batch,
     policy_grid_workloads,
+    retry_storm_params,
     run,
+    scenario_lane_batch,
     workload_batch_from_traces,
     workload_to_trace_records,
 )
@@ -525,6 +527,53 @@ def test_policy_grid_on_the_card(cuda):
         for name in named._fields:
             assert torch.equal(getattr(on_card, name)[c * S:(c + 1) * S],
                                getattr(named, name)), (key, name)
+
+
+@pytest.mark.cuda
+def test_closed_loop_run_on_the_card(cuda):
+    """Clients, a queue threshold, client retries and outages: ``run`` on
+    CUDA equals the CPU port under the contract."""
+    params = SimParams(duration=0.04, max_pipelines=32, max_containers=32, num_pools=2,
+                       waiting_ticks_mean=400.0, op_base_seconds_mean=0.005,
+                       op_base_seconds_sigma=1.0, outage_mtbf_ticks=1_200.0,
+                       outage_duration_ticks=300.0, max_retries=3, base_backoff_ticks=40,
+                       client_max_inflight=6, client_think_ticks=30, client_max_retries=3,
+                       client_backoff_ticks=40, admission_policy="queue_threshold",
+                       admit_queue_limit=4, metastable_window_ticks=400)
+    wl = generate_workload(params)
+    reset_launch_counts()
+    on_card = run(params, wl, device=cuda)
+    assert all(launch_counts()[name] > 0 for name in SIM_KERNELS)
+    _assert_contract(on_card.state, run(params, wl, device="cpu").state)
+    assert int(on_card.state.offered_total) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("policy,knobs", [
+    ("admit_all", {}),
+    ("queue_threshold", dict(admit_queue_limit=3)),
+    ("token_bucket", dict(admit_rate_per_s=400.0, admit_burst=4.0)),
+    ("codel", dict(codel_target_ticks=400, codel_interval_ticks=200)),
+], ids=lambda v: v if isinstance(v, str) else "")
+def test_retry_storm_fleet_on_the_card(cuda, policy, knobs):
+    """Eight ``retry_storm`` lanes (``benchmarks/run.py``'s overload smoke
+    at half its length) under each admission policy: ``fleet_run`` on
+    CUDA equals the CPU port lane by lane."""
+    base = SimParams(duration=0.04, max_pipelines=0, max_ops_per_pipeline=0,
+                     max_containers=16, waiting_ticks_mean=150.0, op_base_seconds_mean=0.008,
+                     op_base_seconds_sigma=1.0, num_pools=2, total_cpus=4, total_ram_gb=8,
+                     scheduling_algo="priority_pool")
+    lanes = scenario_lane_batch("retry_storm", base.replace(duration=0.03), 8, seed=11,
+                                surge_factor=6.0)
+    wls, params = workload_batch_from_traces(lanes, base)
+    params = retry_storm_params(params, admission_policy=policy, outage_mtbf_s=0.01,
+                                outage_duration_s=0.003, client_max_retries=3
+                                ).replace(max_fault_events=2, **knobs)
+    reset_launch_counts()
+    on_card = fleet_run(params, workloads=wls, device=cuda)
+    assert all(launch_counts()[name] > 0 for name in SIM_KERNELS)
+    _assert_contract(on_card, fleet_run(params, workloads=wls, device="cpu"))
+    assert int(on_card.offered_total.sum()) > 0
 
 
 # ---------------------------------------------------------------------------

@@ -7,8 +7,8 @@ not ported yet.
   without a card the default raises instead of running on the CPU.
 * Every optional layer of a later slice raises ``NotImplementedError``
   naming its ROADMAP item, never a silent fallback; the layer kinds that
-  a slice has ported run (the chaos layer's and the data plane's knobs,
-  and every registered scheduler, among them).
+  a slice has ported run (the chaos layer's, the data plane's and the
+  overload layer's knobs, and every registered scheduler, among them).
 """
 import ast
 import pathlib
@@ -43,6 +43,7 @@ def test_port_has_files_to_scan():
     assert {"engine.py", "scheduler.py", "executor.py", "chip_smoke.py",
             "lm.py", "attention.py", "rwkv.py", "batching.py", "serve.py"} <= names
     assert {"ssm.py", "mlp.py"} <= names
+    assert {"admission.py", "families.py"} <= names
     assert {p.name for p in (REPO / "src" / "repro_torch" / "csrc").glob("*.cu")} == {
         "sim_tick.cu", "state_update.cu", "sched_select.cu", "rwkv6_scan.cu", "flash_attention.cu",
         "ssm_scan.cu",
@@ -69,9 +70,6 @@ def test_cpu_run_stays_on_the_cpu():
 
 
 LATER_KNOBS = [
-    ("client_max_inflight", 4, "item 11"),
-    ("admission_policy", "codel", "item 11"),
-    ("admit_burst", 2.0, "item 11"),
     ("engine", "python", "item 14"),
 ]
 
@@ -137,6 +135,36 @@ def test_chaos_knobs_run(knob, value, live):
     if not live:
         # a retry budget with no fault source changes nothing
         assert repr(summary) == repr(quiet)
+
+
+# the overload layer's knobs run (ROADMAP queue 1, item 11): each policy
+# and the client gate, each moving the summary keys that report it
+CLOSED_LOOP_KNOBS = [
+    ("admit_all", dict(client_max_retries=2, client_backoff_ticks=40),
+     ("offered", "admitted", "admitted_fraction")),
+    ("queue_threshold", dict(admission_policy="queue_threshold", admit_queue_limit=1,
+                             client_max_retries=1, client_backoff_ticks=40),
+     ("offered", "shed", "client_retries", "failed")),
+    ("token_bucket", dict(admission_policy="token_bucket", admit_rate_per_s=1_000.0,
+                          admit_burst=1.0), ("offered", "deferred", "mean_latency_s")),
+    ("codel", dict(admission_policy="codel", codel_target_ticks=5, codel_interval_ticks=5),
+     ("offered", "shed", "failed")),
+    ("client_gate", dict(client_max_inflight=1, client_think_ticks=50),
+     ("offered", "deferred", "mean_latency_s")),
+]
+
+
+@pytest.mark.parametrize("name,knobs,live", CLOSED_LOOP_KNOBS,
+                         ids=[k for k, _, _ in CLOSED_LOOP_KNOBS])
+def test_closed_loop_knobs_run(name, knobs, live):
+    # sixteen arrivals in ~320 ticks on four CPUs: a queue forms
+    busy = dict(waiting_ticks_mean=20.0, op_base_seconds_mean=0.002, total_cpus=4,
+                total_ram_gb=16)
+    summary = run(_small(**busy, **knobs).replace(max_pipelines=16), device="cpu").summary()
+    quiet = run(_small(**busy).replace(max_pipelines=16), device="cpu").summary()
+    for key in live:
+        assert summary[key] != quiet[key], key
+    assert summary["offered"] > 0 and quiet["offered"] == 0
 
 
 @pytest.mark.parametrize("kwargs,item", [({"trace": True}, "item 12")])
