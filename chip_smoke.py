@@ -62,6 +62,19 @@ Phases, in order; any failure raises and the script exits non-zero:
    and phase 5c's data plane; ``fleet_run(scheduler_key="policy")`` on
    CUDA bit-equal, lane for lane, to the six named 8-lane fleets on
    CUDA, and one seed per point against the CPU port;
+5e. telemetry: (a) phase 5's 64-lane fleet with ``trace=True`` on CUDA,
+   its states bit-equal to phase 5's untraced CUDA states, lanes 0-7's
+   records, counts and ``dropped`` equal to the CPU port's traced run,
+   every kernel launched as often as in phase 5 but ``masked_lex_argmin``,
+   which adds the decision provenance's one launch an event; (b) 8 lanes
+   of phase 6b's chaos fleet and 8 ``retry_storm`` lanes of phase 6c
+   (b)'s ``queue_threshold`` arm (phase 6c (a)'s knobs shed nothing),
+   traced on CUDA, each equal to its CPU run, with FAULT, RETRY,
+   POOL_DOWN and ADMIT_REJECT / CLIENT_RETRY records among them; (c)
+   ``summarize_timeline`` and ``to_perfetto_json`` of lane 0 reconciled
+   with ``summarize``; events, records a lane, dropped, wall, simulated
+   s per wall s, device kernels an event and busy share beside phase
+   5's;
 6. the simulator kernels' launches in phases 4 and 5, each > 0;
 6b. the chaos layer at phase 5's configuration with two pools,
    ``priority_pool`` and crashes, outages, stragglers, timeouts and
@@ -81,12 +94,14 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``benchmarks/scheduler_comparison.py``'s ``overload_comparison``: 8
    ``retry_storm`` lanes (seed 11, surge 6, a 0.06 s tape in 0.08 s, two
    early outages, clients that retry 3 times) under ``admit_all``,
-   ``queue_threshold``, ``token_bucket`` and ``codel``, each arm on CUDA
-   with its first 4 lanes against the CPU port, its row printed; every
-   lane whose fault trace starts an outage inside the horizon saw it
-   (7 of the 8: the port's generator gives lane 4 none before 0.08 s),
-   ``admit_all`` shed nothing at amplification 1.0, ``queue_threshold``
-   shed and retried,
+   ``queue_threshold``, ``token_bucket`` and ``codel``, on the JAX
+   package's fault traces (``tests/captures/torch_overload_reference.json``),
+   each arm on CUDA with its first 2 lanes against the CPU port and its
+   row (offered, admitted, shed, deferred, client retries, goodput,
+   drained and metastable lanes) equal to the reference's from the same
+   file; every lane whose fault trace starts an outage inside the
+   horizon saw it, ``admit_all`` shed nothing at amplification 1.0,
+   ``queue_threshold`` shed and retried,
    ``token_bucket`` deferred, every simulator kernel launched; the
    drained and metastable lanes printed;
 7. serving rwkv6_7b at full width (random weights from a seed):
@@ -99,7 +114,14 @@ Phases, in order; any failure raises and the script exits non-zero:
    CPU port: equal greedy tokens, prefill logits within 2e-4;
 10. the same as 7 for jamba_1p5_large_398b at full width, cut to the first
    five layers of its period (one H100 holds five, not 72), with
-   ``ssm_scan`` and ``flash_attention`` launched.
+   ``ssm_scan`` and ``flash_attention`` launched;
+11. policy search: ``benchmarks/policy_search.py``'s ``search_smoke``
+   (its ``SEARCH_PARAMS`` arena, ``scenario_factory(["bursty"], arena,
+   4, seed=7)``, ``cem_search(seed=3, generations=1, population=12,
+   rungs=(0.5, 1.0))``) on CUDA and on the CPU port: the same candidate
+   history and front, the objectives under the contract, every baseline
+   weakly dominated by a front member; wall, evaluations, candidates/s,
+   lane evaluations/s, front size and the simulator kernels' launches.
 
 Without a card, or from a directory that holds this script and nothing
 else of the repository, it prints why and exits 1 before any phase.
@@ -1293,7 +1315,42 @@ OVERLOAD_POLICIES = (
 )
 # lanes of phase 6c held to the CPU port (lanes are independent; the card
 # runs them all)
-CPU_LANES_6C = {"fleet": 8, "arm": 4}
+CPU_LANES_6C = {"fleet": 8, "arm": 2}
+# phase 6c (b)'s fault traces and rows as the JAX package gives them
+# (tests/captures/write_torch_overload_reference.py)
+OVERLOAD_REFERENCE = ROOT / "tests" / "captures" / "torch_overload_reference.json"
+ROW_KEYS = ("offered", "admitted", "shed", "deferred", "client_retries", "goodput_per_s",
+            "drained_lanes", "metastable_lanes")
+
+
+def overload_storm(policy: str, knobs: dict):
+    """Phase 6c (b)'s arm ``policy``: the 8 ``retry_storm`` lanes as a
+    CPU batch with the reference's fault traces (``fault_trace_from_
+    records`` of the fixture's records), and its params."""
+    import torch
+
+    from repro_torch import SimParams
+    from repro_torch.core.faults import fault_trace_from_records
+    from repro_torch.core.scenarios import retry_storm_params, scenario_lane_batch
+    from repro_torch.core.state import tree_map
+    from repro_torch.core.workload import workload_batch_from_traces
+
+    base = SimParams(
+        duration=0.08, max_pipelines=0, max_ops_per_pipeline=0, max_containers=16,
+        waiting_ticks_mean=150.0, op_base_seconds_mean=0.008, op_base_seconds_sigma=1.0,
+        num_pools=2, total_cpus=4, total_ram_gb=8, scheduling_algo="priority_pool", seed=11,
+    )
+    lanes = scenario_lane_batch("retry_storm", base.replace(duration=0.06), 8,
+                                seed=11, surge_factor=6.0)
+    wls, params = workload_batch_from_traces(lanes, base)
+    armed = retry_storm_params(
+        params, admission_policy=policy, outage_mtbf_s=0.02, outage_duration_s=0.006,
+        client_max_retries=3,
+    ).replace(max_fault_events=2, **knobs)
+    records = json.loads(OVERLOAD_REFERENCE.read_text())["fault_traces"]
+    faults = tree_map(lambda *lane: torch.cat(lane),
+                      *[fault_trace_from_records(r, armed) for r in records])
+    return wls._replace(faults=faults), armed
 
 
 def overload_phase(dev, loop_off: dict) -> list[dict]:
@@ -1301,17 +1358,15 @@ def overload_phase(dev, loop_off: dict) -> list[dict]:
     closed-loop clients and a queue threshold, on CUDA against the CPU
     port on its first 8 lanes, profiled as phase 5 is; (b)
     ``overload_comparison``'s table: 8 ``retry_storm`` lanes under each of
-    the four admission policies with two early outages, each arm's
-    ``fleet_run`` on CUDA against the CPU port on its first 4 lanes.
-    Returns the launches of each run."""
+    the four admission policies with two early outages (the reference's
+    fault traces), each arm's ``fleet_run`` on CUDA against the CPU port
+    on its first 2 lanes and its row equal to the reference's. Returns
+    the launches of each run."""
     import torch
 
-    from repro_torch import SimParams, fleet_run, fleet_summary, make_workload_batch
-    from repro_torch.core.faults import attach_fault_traces
-    from repro_torch.core.scenarios import retry_storm_params, scenario_lane_batch
+    from repro_torch import fleet_run, fleet_summary, make_workload_batch
     from repro_torch.core.state import tree_map
     from repro_torch.core.types import INF_TICK
-    from repro_torch.core.workload import workload_batch_from_traces
     from repro_torch.kernels import SIM_KERNELS
 
     def head(tree, n):
@@ -1359,24 +1414,11 @@ def overload_phase(dev, loop_off: dict) -> list[dict]:
     all_counts = [counts]
 
     # ---- (b) the overload table ----------------------------------------------
-    base = SimParams(
-        duration=0.08, max_pipelines=0, max_ops_per_pipeline=0, max_containers=16,
-        waiting_ticks_mean=150.0, op_base_seconds_mean=0.008, op_base_seconds_sigma=1.0,
-        num_pools=2, total_cpus=4, total_ram_gb=8, scheduling_algo="priority_pool", seed=11,
-    )
     n_lanes, n = 8, CPU_LANES_6C["arm"]
-    lanes = scenario_lane_batch("retry_storm", base.replace(duration=0.06), n_lanes,
-                                seed=11, surge_factor=6.0)
+    reference = json.loads(OVERLOAD_REFERENCE.read_text())["rows"]
     rows = {}
     for policy, knobs in OVERLOAD_POLICIES:
-        wls, params = workload_batch_from_traces(lanes, base)
-        armed = retry_storm_params(
-            params, admission_policy=policy, outage_mtbf_s=0.02, outage_duration_s=0.006,
-            client_max_retries=3,
-        ).replace(max_fault_events=2, **knobs)
-        # the traces fleet_run would attach (params.seed, lane index),
-        # attached here so that the CPU's lanes run on the same ones
-        wls = attach_fault_traces(wls, armed)
+        wls, armed = overload_storm(policy, knobs)
         states, wall, counts, _ = timed_fleet(armed, wls, dev)
         t0 = time.perf_counter()
         compare_states(head(states, n), fleet_run(armed, workloads=head(wls, n), device="cpu"),
@@ -1385,8 +1427,7 @@ def overload_phase(dev, loop_off: dict) -> list[dict]:
         for name in SIM_KERNELS:
             if counts[name] <= 0:
                 raise AssertionError(f"phase 6c (b): {policy}: {name} was not launched")
-        # the lanes whose trace starts an outage inside the horizon (the
-        # port's generator gives seed 11's lane 4 none before 0.08 s)
+        # the lanes whose trace starts an outage inside the horizon
         struck = (wls.faults.outage_start[:, 0] < armed.horizon_ticks).to(dev)
         faulted = states.last_fault_tick < INF_TICK
         if not torch.equal(faulted, struck) or int(struck.sum()) < n_lanes // 2:
@@ -1409,12 +1450,17 @@ def overload_phase(dev, loop_off: dict) -> list[dict]:
             "drained_lanes": drained, "metastable_lanes": n_lanes - drained,
             "fairness_jain_done": round(s["fairness_jain_done"], 3), "wall_s": round(wall, 3),
         }
+        # the reference's row: every count, and the goodput unrounded
+        got = {**{k: row[k] for k in ROW_KEYS}, "goodput_per_s": s["throughput_per_s_mean"]}
+        if got != reference[policy]:
+            raise AssertionError(f"phase 6c (b): {policy}: row {got} differs from the "
+                                 f"reference's {reference[policy]}")
         print(f"{CARD}: phase 6c (b): {policy}: fleet_run of {n_lanes} lanes on {dev}: wall "
               f"{wall:.3f} s, {counts['fleet_tick']} events, {sum(counts.values())} wrapper "
               f"launches; first {n} lanes equal to the CPU port (CPU wall {cpu_wall:.3f} s); "
               f"lanes that saw an outage {int(faulted.sum())} (every lane whose trace holds "
-              f"one), drained lanes {drained}, metastable lanes {n_lanes - drained}; "
-              + json.dumps(row))
+              f"one), drained lanes {drained}, metastable lanes {n_lanes - drained}; row equal "
+              f"to the reference's; " + json.dumps(row))
         print(f"phase 6c (b) {policy} launches:", json.dumps(counts))
         all_counts.append(counts)
     control, shedder = rows["admit_all"], rows["queue_threshold"]
@@ -1426,6 +1472,239 @@ def overload_phase(dev, loop_off: dict) -> list[dict]:
     if rows["token_bucket"]["deferred"] <= 0:
         raise AssertionError(f"phase 6c (b): token_bucket deferred nothing: {rows['token_bucket']}")
     return all_counts
+
+
+# lanes of phase 5e held to the CPU port's traced runs
+CPU_LANES_5E = 8
+
+
+def traced_fleet(params, wls, dev, label: str):
+    """``fleet_run(trace=True)`` of ``wls`` on ``dev`` with the launch
+    counts set to 0 just before it and read just after, and the CPU
+    port's traced run of its first ``CPU_LANES_5E`` lanes: their states
+    under the contract and their records, counts and ``dropped``
+    exactly. Returns (states, traces, wall s, counts, CPU wall s)."""
+    import torch
+
+    from repro_torch import fleet_run
+    from repro_torch.core.state import tree_map
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
+    n = CPU_LANES_5E
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    states, traces = fleet_run(params, workloads=wls, device=dev, trace=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    t1 = time.perf_counter()
+    cpu_states, cpu_traces = fleet_run(params, workloads=tree_map(lambda x: x[:n], wls),
+                                       device="cpu", trace=True)
+    cpu_wall = time.perf_counter() - t1
+    compare_states(tree_map(lambda x: x[:n], states), cpu_states,
+                   f"phase 5e: {label}, first {n} lanes")
+    for i, (a, b) in enumerate(zip(traces[:n], cpu_traces)):
+        if (a.n, a.events_dropped, a.capacity) != (b.n, b.events_dropped, b.capacity) or \
+                not np.array_equal(a.records, b.records):
+            raise AssertionError(f"phase 5e: {label}: lane {i}'s trace differs from the CPU "
+                                 f"port's ({a.n} / {b.n} records, {a.events_dropped} / "
+                                 f"{b.events_dropped} dropped)")
+    return states, traces, wall, counts, cpu_wall
+
+
+def telemetry_phase(dev, fleet: dict, fleet_counts: dict, untraced: dict) -> list[dict]:
+    """Phase 5e: telemetry on the card. (a) phase 5's fleet traced: the
+    states bit-equal to phase 5's, lanes 0-7 equal to the CPU port's
+    traced run, every kernel launched as in phase 5 plus one
+    ``masked_lex_argmin`` an event (the decision provenance), profiled
+    as phase 5 is; (b) 8 lanes of the chaos fleet and 8 ``retry_storm``
+    lanes under ``queue_threshold``, traced, each equal to its CPU run,
+    the chaos layer's and the closed loop's records among them; (c) lane
+    0's timeline and Perfetto JSON reconciled with ``summarize``.
+    Returns the launches of each traced run."""
+    from repro_torch import fleet_run, make_workload_batch
+    from repro_torch.core import summarize, summarize_timeline, to_perfetto_json
+    from repro_torch.core.state import SimState, workload_lane
+    from repro_torch.kernels import SIM_KERNELS
+
+    # ---- (a) phase 5's fleet, traced -----------------------------------------
+    params, wls = fleet["params"], fleet["wls"]
+    states, traces, wall, counts, cpu_wall = traced_fleet(params, wls, dev, "phase 5's fleet")
+    assert_same_states(states, fleet["states"], "phase 5e (a): traced fleet vs phase 5")
+    events = counts["fleet_tick"]
+    want = {**fleet_counts, "masked_lex_argmin": fleet_counts["masked_lex_argmin"] + events}
+    if counts != want:
+        raise AssertionError(f"phase 5e (a): launches {counts}; phase 5's plus one "
+                             f"masked_lex_argmin an event: {want}")
+    n_rec = [t.n for t in traces]
+    dropped = sum(t.events_dropped for t in traces)
+    lanes = len(traces)
+    sim_s = lanes * params.duration
+    print(f"{CARD}: phase 5e (a): traced fleet_run of {lanes} lanes on {dev}: wall {wall:.3f} s "
+          f"({untraced['wall_s']:.3f} s untraced, phase 5), {sim_s / wall:.3f} simulated s per "
+          f"wall s ({untraced['sim_s_per_wall_s']:.3f}), {events} events ({untraced['events']}), "
+          f"records a lane mean {statistics.mean(n_rec):.1f} (min {min(n_rec)}, max "
+          f"{max(n_rec)}, capacity {traces[0].capacity}), {sum(n_rec)} records, {dropped} "
+          f"dropped; states bit-equal to phase 5's, first {CPU_LANES_5E} lanes' records equal "
+          f"to the CPU port's (CPU wall {cpu_wall:.3f} s)")
+    print("phase 5e (a) launches:", json.dumps(counts))
+    busy = profile_call(lambda: fleet_run(params, workloads=wls, device=dev, trace=True),
+                        "phase 5e (a)")
+    busy.pop("result", None)
+    if busy and untraced.get("busy_share") is not None:
+        print(f"{CARD}: phase 5e (a): {busy['device_launches'] / events:.1f} device kernels an "
+              f"event ({untraced['device_launches'] / untraced['events']:.1f} untraced, phase "
+              f"5), device busy {100 * busy['busy_share']:.1f}% of wall under the profiler "
+              f"({100 * untraced['busy_share']:.1f}%)")
+    all_counts = [counts]
+
+    # ---- (c) lane 0: the timeline and the Perfetto JSON against summarize ----
+    trace = traces[0]
+    if trace.events_dropped:
+        raise AssertionError(f"phase 5e (c): lane 0 dropped {trace.events_dropped} records")
+    summary = summarize(SimState(*(x[0] for x in states)), workload_lane(wls, 0), params,
+                        trace=trace)
+    by_cat = {}
+    for ev in json.loads(to_perfetto_json(trace, params))["traceEvents"]:
+        if ev.get("ph") in ("X", "i"):
+            by_cat[ev.get("cat")] = by_cat.get(ev.get("cat"), 0) + 1
+    kinds = trace.counts_by_kind()
+    timeline = summarize_timeline(trace, params)
+    pairs = {"complete": "done", "preempt": "preempt_events", "cold_start": "cold_starts",
+             "cache_hit": "cache_hits", "oom": "oom_events", "reject": "failed"}
+    for kind, key in pairs.items():
+        if not by_cat.get(kind, 0) == kinds[kind] == summary[key]:
+            raise AssertionError(f"phase 5e (c): {kind}: Perfetto {by_cat.get(kind, 0)}, "
+                                 f"records {kinds[kind]}, summarize {summary[key]}")
+    completed = sum(w["completed"] for w in timeline["windows"])
+    if not (completed == timeline["overall"]["completed"] == summary["done"]
+            and summary["trace_enabled"] and summary["events_dropped"] == 0):
+        raise AssertionError(f"phase 5e (c): timeline {timeline['overall']} against "
+                             f"summarize done {summary['done']}")
+    print(f"phase 5e (c): lane 0's Perfetto JSON, timeline and records reconcile with "
+          f"summarize: " + json.dumps({k: kinds[k] for k in pairs}))
+
+    # ---- (b) the chaos layer and the closed loop, traced ---------------------
+    fired = dict.fromkeys(("fault", "retry", "pool_down", "pool_up", "timeout",
+                           "admit_reject", "client_retry", "shed"), 0)
+    chaos = fleet_params(num_pools=2, scheduling_algo="priority_pool", **CHAOS)
+    storm, storm_params = overload_storm("queue_threshold", {"admit_queue_limit": 3})
+    runs = [("chaos fleet", chaos, make_workload_batch(chaos, list(range(8)))),
+            ("retry_storm lanes under queue_threshold", storm_params, storm)]
+    for label, p, w in runs:
+        _, tr, wall, counts, cpu_wall = traced_fleet(p, w, dev, label)
+        for name in SIM_KERNELS:
+            if counts[name] <= 0:
+                raise AssertionError(f"phase 5e (b): {label}: {name} was not launched")
+        kinds = {k: sum(t.counts_by_kind()[k] for t in tr) for k in fired}
+        for k in fired:
+            fired[k] += kinds[k]
+        print(f"{CARD}: phase 5e (b): {label}: traced fleet_run of {len(tr)} lanes on {dev}: "
+              f"wall {wall:.3f} s, {counts['fleet_tick']} events, "
+              f"{sum(t.n for t in tr)} records, {sum(t.events_dropped for t in tr)} dropped; "
+              f"equal to the CPU port's (CPU wall {cpu_wall:.3f} s); " + json.dumps(kinds))
+        print(f"phase 5e (b) {label} launches:", json.dumps(counts))
+        all_counts.append(counts)
+    quiet = [k for k in ("fault", "retry", "pool_down") if fired[k] <= 0]
+    if fired["admit_reject"] + fired["client_retry"] <= 0:
+        quiet.append("admit_reject / client_retry")
+    if quiet:
+        raise AssertionError(f"phase 5e (b): record kinds that never appeared: {quiet}")
+    return all_counts
+
+
+# ---------------------------------------------------------------------------
+# Phase 11: policy search on the card.
+# ---------------------------------------------------------------------------
+# benchmarks/policy_search.py:45-61, the search arena: a saturating 4-CPU
+# box with two pools, the data plane and cloud bursting
+SEARCH_PARAMS = dict(
+    seed=0, scheduling_algo="policy", max_pipelines=24, max_containers=32, duration=0.2,
+    waiting_ticks_mean=500.0, op_base_seconds_mean=0.002, num_pools=2, total_cpus=4,
+    total_ram_gb=8, cache_gb_per_pool=4.0, scan_ticks_per_gb=100.0, cold_start_ticks=40,
+    container_warm_ticks=2_000, cloud_scaling=True,
+)
+# benchmarks/policy_search.py:search_smoke
+SEARCH_SMOKE = dict(seed=3, generations=1, population=12, rungs=(0.5, 1.0))
+
+
+def search_phase(dev) -> dict:
+    """Phase 11: ``search_smoke`` on the card and on the CPU port; the
+    same candidate history (indices, origins, policies, rung lane
+    counts, survivors and elites) and front members, the objectives and
+    scores under the contract, every baseline weakly dominated by a
+    front member. Returns the launches of the card's search."""
+    import torch
+
+    from repro_torch import SimParams
+    from repro_torch.kernels import SIM_KERNELS, launch_counts, reset_launch_counts
+    from repro_torch.search import cem_search, weakly_dominates
+    from repro_torch.search.grid import scenario_factory
+
+    arena = SimParams(**SEARCH_PARAMS)
+
+    def search(device):
+        make = scenario_factory(["bursty"], arena, 4, seed=7, device=device)
+        return cem_search(make, device=device, **SEARCH_SMOKE)
+
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = search(dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    t1 = time.perf_counter()
+    cpu = search("cpu")
+    cpu_wall = time.perf_counter() - t1
+
+    def close(a, b, ctx):
+        a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+        if a.shape != b.shape or not np.allclose(a, b, rtol=RTOL, atol=0.0, equal_nan=True):
+            raise AssertionError(f"phase 11: {ctx} differs from the CPU port's beyond rtol {RTOL}")
+
+    def same(a, b, ctx):
+        if a != b:
+            raise AssertionError(f"phase 11: {ctx} differs from the CPU port's: {a} vs {b}")
+
+    same(len(res.history), len(cpu.history), "the number of generations")
+    for g, (h, c) in enumerate(zip(res.history, cpu.history)):
+        for key in ("policies", "origin", "survivors", "elites", "mean", "std"):
+            same(h[key], c[key], f"generation {g}'s {key}")
+        close(h["best_score"], c["best_score"], f"generation {g}'s best score")
+        same(len(h["rungs"]), len(c["rungs"]), f"generation {g}'s rungs")
+        for r, (hr, cr) in enumerate(zip(h["rungs"], c["rungs"])):
+            same((hr["lanes"], hr["candidates"]), (cr["lanes"], cr["candidates"]),
+                 f"generation {g}, rung {r}'s lanes and candidates")
+            close(hr["scores"], cr["scores"], f"generation {g}, rung {r}'s scores")
+            close(hr["objectives"], cr["objectives"], f"generation {g}, rung {r}'s objectives")
+    same(res.pareto_policies.tolist(), cpu.pareto_policies.tolist(), "the front's members")
+    close(res.pareto_objectives, cpu.pareto_objectives, "the front's objectives")
+    close(res.baseline_objectives, cpu.baseline_objectives, "the baselines' objectives")
+    same(res.evaluations, cpu.evaluations, "the evaluations")
+    same(res.champion and res.champion["origin"], cpu.champion and cpu.champion["origin"],
+         "the champion")
+    for name, brow in zip(res.baseline_names, res.baseline_objectives):
+        if not any(weakly_dominates(f, brow) for f in res.pareto_objectives):
+            raise AssertionError(f"phase 11: no front member weakly dominates baseline {name}")
+    for name in SIM_KERNELS:
+        if counts[name] <= 0:
+            raise AssertionError(f"phase 11: {name} was not launched")
+    n_cand = SEARCH_SMOKE["generations"] * SEARCH_SMOKE["population"]
+    row = {
+        "search": "cem_smoke", "candidates": n_cand, "evaluations": res.evaluations,
+        "wall_s": round(wall, 3), "candidates_per_s": round(n_cand / wall, 2),
+        "lane_evals_per_s": round(res.evaluations / wall, 1),
+        "front_size": int(len(res.pareto_objectives)), "champion": res.champion is not None,
+    }
+    print(f"{CARD}: phase 11: cem_search on {dev}: wall {wall:.3f} s, {res.evaluations} lane "
+          f"evaluations, {n_cand / wall:.3f} candidates/s, {res.evaluations / wall:.3f} lane "
+          f"evaluations/s, front of {len(res.pareto_objectives)}; the same history and front "
+          f"as the CPU port (CPU wall {cpu_wall:.3f} s), every baseline weakly dominated by a "
+          f"front member; " + json.dumps(row))
+    print("phase 11 launches:", json.dumps(counts))
+    return counts
 
 
 # ---------------------------------------------------------------------------
@@ -1772,9 +2051,10 @@ def main() -> int:
     run_counts = phase(4, run_phase, dev)
     fleet_counts, faults_off, fleet = phase(5, fleet_phase, dev)
     replay_counts = phase("5b", replay_phase, dev, fleet)
-    del fleet
     cache_counts = phase("5c", data_plane_phase, dev)
     grid_counts = phase("5d", policy_grid_phase, dev)
+    telemetry_counts = phase("5e", telemetry_phase, dev, fleet, fleet_counts, faults_off)
+    del fleet
     phase(6, sim_launch_phase, run_counts, fleet_counts)
     chaos_counts = phase("6b", chaos_phase, dev, faults_off)
     overload_counts = phase("6c", overload_phase, dev, faults_off)
@@ -1785,6 +2065,7 @@ def main() -> int:
     # M+MoE, attn+dense); 72 layers at these widths are ~800 GB of weights
     jamba_counts = phase(10, serve_phase, 10, "jamba_1p5_large_398b",
                          ("ssm_scan", "flash_attention"), dev, n_layers=5)
+    search_counts = phase(11, search_phase, dev)
     print(f"{CARD}: phase walls (s): " + json.dumps({str(k): round(v, 3) for k, v in walls.items()})
           + f", total {time.perf_counter() - t_all:.2f}")
 
@@ -1805,7 +2086,8 @@ def main() -> int:
                      "src/repro/kernels/ssm_scan/kernel.py:60"),
     }
     main_runs = (run_counts, fleet_counts, *replay_counts, *cache_counts, grid_counts,
-                 *chaos_counts, *overload_counts, rwkv_counts, gemma_counts, jamba_counts)
+                 *telemetry_counts, *chaos_counts, *overload_counts, rwkv_counts, gemma_counts,
+                 jamba_counts, search_counts)
     rows = []
     for name in KERNELS:
         m = measured[name]

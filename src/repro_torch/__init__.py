@@ -9,7 +9,9 @@ the data plane (cold starts, scan cost, zero-copy caches) and the
 overload layer (closed-loop clients, the four admission policies, drain
 and metastability) on or off, from seeds, from recorded traces
 (``load_trace``, ``workload_batch_from_traces``) or from the scenario
-library (``core.scenarios``: ``scenario_fleet``) — through four
+library (``core.scenarios``: ``scenario_fleet``), with event tracing
+(``run(trace=True)``, ``core.telemetry``) on or off, and a policy search
+over fleets (``repro_torch.search``: ``cem_search``) — through four
 hand-written CUDA kernels, and serving (``launch/serve.py``: the
 simulator picks the policy, ``serving/`` batches requests through
 ``models/`` for ``rwkv6_7b``, ``gemma3_12b`` and jamba) through three

@@ -272,9 +272,9 @@ def codel_py(params, tick, offered, view):
 
 
 # ---------------------------------------------------------------------------
-# The closed-loop pass. The engine runs it at the top of every event's
-# decision (engine._lane_decide: after phase 1 and the fault pass, before
-# the scheduler's view) when ``params.closed_loop_active``.
+# The closed-loop pass. The engine runs it in every event after phase 1
+# and the fault pass, before the scheduler's view (engine.event_step)
+# when ``params.closed_loop_active``.
 # ---------------------------------------------------------------------------
 def apply_closed_loop(
     state: SimState, wl: Workload, tick: torch.Tensor, params: SimParams

@@ -19,6 +19,13 @@ step. Here every field is a ``[F, ...]`` tensor and the loop is Python:
 * the loop ends when no lane has ``tick < horizon``: one host read per
   event, which also reads the fault pass's gate.
 
+With ``trace_capacity > 0`` each event is :func:`traced_event_step`: the
+same step, with the state at entry and after the closed-loop pass kept
+and the telemetry recorder (``telemetry.record_step``) appending the
+event's records to every active lane's trace. The recorder only reads,
+so a traced run's states equal the untraced run's bit for bit; with a
+capacity of 0 none of it runs.
+
 ``run()`` is a fleet of one; ``sweep.fleet_run`` the F-lane case.
 """
 from __future__ import annotations
@@ -47,6 +54,9 @@ from .state import (
     workload_lane,
     workload_to,
 )
+from .telemetry.decode import decode_lane
+from .telemetry.record import init_trace_buffer, record_step, step_block_rows
+from .telemetry.schema import DEFAULT_TRACE_CAPACITY
 from .types import INF_TICK, ContainerStatus, PipeStatus
 from .workload import get_workload
 from ..kernels.sim_tick import fleet_tick
@@ -59,11 +69,12 @@ class SimResult:
     params: SimParams
     events: int = 0        # engine loop iterations
     sched_state: Any = None  # the scheduler's final state (lane axis squeezed)
+    trace: Any = None      # telemetry.TraceEvents when run(trace=True)
 
     def summary(self) -> dict:
         from .metrics import summarize
 
-        return summarize(self.state, self.workload, self.params)
+        return summarize(self.state, self.workload, self.params, trace=self.trace)
 
 
 def _raise_later(what: str, slice_: str):
@@ -148,26 +159,27 @@ def _acted(dec: SchedDecision) -> torch.Tensor:
 
 
 def _lane_decide(params, scheduler_fn, state, sched_state, wl, arr_sorted, tick,
-                 active, edges):
+                 active, edges, with_aux: bool = False):
     """From the scheduler on, for every lane: decide (on a view with the
     down pools masked, and without assignments onto them), apply, jump
-    to the next event and integrate over the jump. With the closed loop
-    on, the client gate and the admission policy
-    (:func:`admission.apply_closed_loop`) run first. Returns
-    ``(state, sched_state, dec)``."""
-    if params.closed_loop_active:
-        state = admission.apply_closed_loop(state, wl, tick, params)
+    to the next event and integrate over the jump. Returns ``(state,
+    sched_state, dec, aux)``, ``aux`` the recorder's per-slot columns
+    from :func:`executor.apply_decision` (``with_aux``) or None."""
     if params.outage_mtbf_ticks > 0:
         sched_state, dec = scheduler_fn(
             sched_state, mask_down_pools(state, tick), wl, params, active)
         dec = _filter_down_pool_assignments(dec, state, tick, params)
     else:
         sched_state, dec = scheduler_fn(sched_state, state, wl, params, active)
-    state = executor.apply_decision(state, wl, dec, tick, params)
+    aux = None
+    if with_aux:
+        state, aux = executor.apply_decision(state, wl, dec, tick, params, with_aux=True)
+    else:
+        state = executor.apply_decision(state, wl, dec, tick, params)
     nxt, cursor = _next_event_registers(state, arr_sorted, tick, _acted(dec))
     nxt = torch.clamp_max(nxt, params.horizon_ticks)
     state = executor.integrate(state, tick, nxt, params, edges)
-    return state._replace(tick=nxt, nxt_arrival_cursor=cursor), sched_state, dec
+    return state._replace(tick=nxt, nxt_arrival_cursor=cursor), sched_state, dec, aux
 
 
 def _filter_down_pool_assignments(dec: SchedDecision, state: SimState,
@@ -192,12 +204,9 @@ def fault_gate(states: SimState, active: torch.Tensor, params: SimParams):
     return go, due
 
 
-def event_step(params, scheduler_fn, state, wl, arr_sorted, edges, active,
-               faults_due: bool = False, sched_state=None):
-    """One event for every lane: phase 1, the fault pass where
-    ``faults_due`` (:func:`fault_gate`), then :func:`_lane_decide`.
-    Returns the advanced state and scheduler state (finished lanes not
-    yet masked) and the decision."""
+def _phase1(params, state, wl):
+    """``fleet_tick``'s masks and :func:`executor.apply_fused_phase1`;
+    returns the state and the masks."""
     tick = state.tick
     ph = fleet_tick(
         state.ctr_status, state.ctr_end, state.ctr_oom,
@@ -205,11 +214,53 @@ def event_step(params, scheduler_fn, state, wl, arr_sorted, edges, active,
         state.pipe_status, wl.arrival, state.pipe_release,
         tick, num_pools=params.num_pools,
     )
-    state = executor.apply_fused_phase1(state, wl, tick, params, ph)
+    return executor.apply_fused_phase1(state, wl, tick, params, ph), ph
+
+
+def event_step(params, scheduler_fn, state, wl, arr_sorted, edges, active,
+               faults_due: bool = False, sched_state=None):
+    """One event for every lane: phase 1, the fault pass where
+    ``faults_due`` (:func:`fault_gate`), the closed-loop pass (with the
+    loop on), then :func:`_lane_decide`. Returns the advanced state and
+    scheduler state (finished lanes not yet masked) and the decision."""
+    tick = state.tick
+    state, _ = _phase1(params, state, wl)
     if faults_due:
         state = executor.apply_faults(state, wl, tick, params)
-    return _lane_decide(params, scheduler_fn, state, sched_state, wl, arr_sorted,
-                        tick, active, edges)
+    if params.closed_loop_active:
+        state = admission.apply_closed_loop(state, wl, tick, params)
+    state, sched_state, dec, _ = _lane_decide(
+        params, scheduler_fn, state, sched_state, wl, arr_sorted, tick, active, edges)
+    return state, sched_state, dec
+
+
+def traced_event_step(params, scheduler_fn, state, wl, arr_sorted, edges, active,
+                      faults_due, sched_state, tbuf, capacity: int):
+    """:func:`event_step` plus the telemetry recorder: the same state and
+    scheduler updates, with the event's records appended to ``tbuf``
+    (``active`` gates every write). The recorder sees the state at entry
+    (``pre``), after phase 1, the fault pass and the closed-loop pass
+    (``st1``, the queue the scheduler saw) and after the step; where the
+    fault pass is not due, its outputs are
+    :func:`executor.zero_fault_aux`, what the pass gives there. Returns
+    ``(state, sched_state, tbuf)``."""
+    pre, tick = state, state.tick
+    state, ph = _phase1(params, state, wl)
+    fault_aux = None
+    if params.fault_events_active:
+        if faults_due:
+            state, fault_aux = executor.apply_faults(state, wl, tick, params, with_aux=True)
+        else:
+            fault_aux = executor.zero_fault_aux(state)
+    if params.closed_loop_active:
+        state = admission.apply_closed_loop(state, wl, tick, params)
+    st1 = state
+    state, sched_state, dec, aux = _lane_decide(
+        params, scheduler_fn, state, sched_state, wl, arr_sorted, tick, active, edges,
+        with_aux=True)
+    tbuf = record_step(tbuf, capacity, active, pre, st1, state, wl, params, tick, ph, dec,
+                       aux, fault_aux)
+    return state, sched_state, tbuf
 
 
 def _keep(active: torch.Tensor, new, old):
@@ -229,11 +280,14 @@ def initial_sched_state(scheduler_key: str, params: SimParams, F: int, device):
 
 
 def run_lane_major_engine(
-    params: SimParams, wls: Workload, scheduler_key: str
-) -> tuple[SimState, Any, int]:
+    params: SimParams, wls: Workload, scheduler_key: str, trace_capacity: int = 0,
+):
     """Advance the whole batch ``wls`` ``[F, ...]`` to the horizon.
-    Returns the final fleet state, the final scheduler state and the
-    number of loop iterations."""
+    Returns the final fleet state, the final scheduler state, the number
+    of loop iterations and, with ``trace_capacity > 0``, the fleet's
+    ``telemetry.TraceBuffer`` (records ``[F, trace_capacity, 11]``;
+    None untraced). Trace buffers skip the finished-lane mask: the
+    recorder gates its writes on ``active`` itself."""
     scheduler_fn = get_scheduler(scheduler_key)
     device = wls.arrival.device
     F = wls.arrival.shape[0]
@@ -242,17 +296,30 @@ def run_lane_major_engine(
     edges = executor.bucket_edges(params, device)
     states = init_state(params, F, device)
     scheds = initial_sched_state(scheduler_key, params, F, device)
+    tbuf = None
+    if trace_capacity:
+        scratch = step_block_rows(params.max_pipelines, params.max_containers,
+                                  params.max_assignments_per_tick, params)
+        tbuf = init_trace_buffer(F, trace_capacity, scratch, device)
     events = 0
     while True:
         active = states.tick < horizon
         go, faults_due = fault_gate(states, active, params)
         if not go:
-            return states, scheds, events
-        new, new_scheds, _ = event_step(params, scheduler_fn, states, wls, arr_sorted,
-                                        edges, active, faults_due, scheds)
+            break
+        if tbuf is None:
+            new, new_scheds, _ = event_step(params, scheduler_fn, states, wls, arr_sorted,
+                                            edges, active, faults_due, scheds)
+        else:
+            new, new_scheds, tbuf = traced_event_step(
+                params, scheduler_fn, states, wls, arr_sorted, edges, active, faults_due,
+                scheds, tbuf, trace_capacity)
         states = _keep(active, new, states)
         scheds = _keep(active, new_scheds, scheds)
         events += 1
+    if tbuf is not None:
+        tbuf = tbuf._replace(records=tbuf.records[:, :trace_capacity])
+    return states, scheds, events, tbuf
 
 
 def _check_workload(wl: Workload, params: SimParams) -> None:
@@ -291,17 +358,25 @@ def run(
     *,
     device: Any = "cuda",
     trace: bool = False,
+    trace_capacity: int = DEFAULT_TRACE_CAPACITY,
 ) -> SimResult:
     """Run one simulation on ``device`` (CUDA unless the caller asks for
     the CPU). ``workload`` is a fleet of one (``[1, ...]``, e.g. from
     ``bridge.workload_from_arrays``) or None for the seed generator.
-    The result's state and workload have the lane axis squeezed."""
+    The result's state and workload have the lane axis squeezed.
+
+    ``trace=True`` records an event trace of up to ``trace_capacity``
+    records and decodes it into ``result.trace``
+    (:class:`telemetry.TraceEvents`); the simulated state is the same
+    bit for bit either way. On overflow the earliest records win and
+    ``result.trace.events_dropped`` counts the rest."""
     params = load_params(paramfile)
     if engine is not None and engine != params.engine:
         params = params.replace(engine=engine)
-    if trace:
-        _raise_later("trace=True (telemetry)", "item 12")
     check_main_path(params)
+    capacity = int(trace_capacity) if trace else 0
+    if trace and capacity <= 0:
+        raise ValueError(f"trace_capacity must be positive, got {trace_capacity}")
     device = resolve_device(device)
     wl = workload if workload is not None else get_workload(params, device=device)
     if params.fault_trace_active and wl.faults is None:
@@ -312,13 +387,15 @@ def run(
     wl = workload_to(wl, device)
     if wl.arrival.shape[0] != 1:
         raise ValueError("run() takes a fleet of one; use fleet_run for more lanes")
-    state, sched_state, events = run_lane_major_engine(params, wl, params.scheduling_algo)
+    state, sched_state, events, tbuf = run_lane_major_engine(
+        params, wl, params.scheduling_algo, capacity)
     return SimResult(
         state=SimState(*(x[0] for x in state)),
         workload=workload_lane(wl, 0),
         params=params,
         events=events,
         sched_state=tree_map(lambda x: x[0], sched_state),
+        trace=None if tbuf is None else decode_lane(tbuf, 0),
     )
 
 
@@ -331,6 +408,7 @@ __all__ = [
     "resolve_device",
     "run",
     "run_lane_major_engine",
+    "traced_event_step",
     "_next_event",
     "_next_event_registers",
     "_sorted_arrivals",

@@ -161,8 +161,9 @@ def requeue_faulted(
 
 
 def apply_faults(
-    state: SimState, wl: Workload, tick: torch.Tensor, params: SimParams
-) -> SimState:
+    state: SimState, wl: Workload, tick: torch.Tensor, params: SimParams,
+    with_aux: bool = False,
+):
     """The crashes and outages of the fault trace due at ``tick``, for
     every lane; the engine runs it only when crashes or outages are on.
 
@@ -178,7 +179,10 @@ def apply_faults(
     * ``nxt_fault`` becomes the next crash, outage start or recovery.
 
     On a lane with nothing due (``tick < nxt_fault``) it changes
-    nothing."""
+    nothing. ``with_aux=True`` also returns the telemetry recorder's
+    ``fault_aux = (kill, kill_pipe, kill_pool, kill_cause, kill_wasted,
+    down_new, up_now, pool_down_until)``, read out of the same pass
+    (:func:`zero_fault_aux` is what it gives where nothing is due)."""
     ft = wl.faults
     MC = state.ctr_status.shape[-1]
     NP = state.pool_cpu_cap.shape[-1]
@@ -212,6 +216,7 @@ def apply_faults(
     outage_cursor, n_due = state.outage_cursor, torch.zeros_like(tick)
     pool_down_until = state.pool_down_until
     out_kill = warm_down = torch.zeros_like(running)
+    down_new = None
     if params.outage_mtbf_ticks > 0:
         outage_cursor = torch.searchsorted(ft.outage_start, t, right=True)[:, 0].to(_I32)
         due = (fidx >= _col(state.outage_cursor)) & (fidx < _col(outage_cursor))
@@ -245,7 +250,22 @@ def apply_faults(
         still, torch.minimum(state.ctr_end, state.ctr_oom), INF_TICK).amin(-1)
     pid = torch.where(kill, state.ctr_pipe, MP)                        # MP: no hit
     fault_hit = (pid[:, :, None] == torch.arange(MP, dtype=_I32, device=dev)).any(1)
-    wasted = torch.where(kill, t - state.ctr_start, 0).sum(-1, dtype=_I32)
+    kill_wasted = torch.where(kill, t - state.ctr_start, 0)
+    wasted = kill_wasted.sum(-1, dtype=_I32)
+    if with_aux:
+        # read before the state below changes; up_now marks the pools
+        # recovering exactly now (a pool is down iff tick < pool_down_until)
+        fault_aux = (
+            kill,
+            torch.where(kill, state.ctr_pipe, -1),
+            torch.where(kill, state.ctr_pool, -1),
+            torch.where(crash_kill, 0, 1).to(_I32),
+            kill_wasted.to(_I32),
+            torch.zeros_like(state.pool_down_until, dtype=torch.bool)
+            if down_new is None else down_new,
+            (state.pool_down_until > 0) & (state.pool_down_until == t),
+            pool_down_until,
+        )
 
     state = state._replace(
         ctr_status=torch.where(kill, C_EMPTY, state.ctr_status),
@@ -290,15 +310,37 @@ def apply_faults(
                 fault_now & (state.prefault_backlog < 0), backlog, state.prefault_backlog),
             drain_tick=torch.where(fault_now, INF_TICK, state.drain_tick),
         )
-    return requeue_faulted(state, tick, params, fault_hit)
+    state = requeue_faulted(state, tick, params, fault_hit)
+    return (state, fault_aux) if with_aux else state
+
+
+def zero_fault_aux(state: SimState):
+    """The ``fault_aux`` of a fault pass with nothing due, built without
+    running it: empty kill masks, causes 1 (= outage), no new outages or
+    recoveries (a pool recovering at the step's tick makes the pass
+    due), and ``pool_down_until`` as it is."""
+    F, MC = state.ctr_status.shape
+    dev = state.ctr_status.device
+    none = torch.zeros((F, MC), dtype=torch.bool, device=dev)
+    neg1 = torch.full((F, MC), -1, dtype=_I32, device=dev)
+    no_pool = torch.zeros(state.pool_down_until.shape, dtype=torch.bool, device=dev)
+    return (none, neg1, neg1, torch.ones((F, MC), dtype=_I32, device=dev),
+            torch.zeros((F, MC), dtype=_I32, device=dev), no_pool, no_pool,
+            state.pool_down_until)
 
 
 def apply_decision(
     state: SimState, wl: Workload, dec: SchedDecision, tick: torch.Tensor,
-    params: SimParams,
-) -> SimState:
+    params: SimParams, with_aux: bool = False,
+):
     """Apply one decision per lane: suspensions, then rejections, then
-    the assignments (:func:`_apply_assignments_fused`)."""
+    the assignments (:func:`_apply_assignments_fused`).
+
+    ``with_aux=True`` also returns the telemetry recorder's per-slot
+    columns ``(aux_i [F, K, 4], aux_f [F, K, 5])``: int32 ``(pipe, pool,
+    cold_ticks, is_warm)`` and f32 ``(cpus, ram, hit_gb, miss_gb,
+    total_out)``, ``pipe = -1`` (and zeros) on the slots that assigned
+    nothing. They are the intermediates of the commit, read out."""
     MP = params.max_pipelines
     NP = params.num_pools
     dev = tick.device
@@ -357,13 +399,13 @@ def apply_decision(
     )
 
     # ---- 3. assignments ----------------------------------------------------
-    return _apply_assignments_fused(state, wl, dec, tick, params)
+    return _apply_assignments_fused(state, wl, dec, tick, params, with_aux)
 
 
 def _apply_assignments_fused(
     state: SimState, wl: Workload, dec: SchedDecision, tick: torch.Tensor,
-    params: SimParams,
-) -> SimState:
+    params: SimParams, with_aux: bool = False,
+):
     """The assignment rows of a decision, landed through ``assign_gather``.
 
     * A row commits iff it is the first row of its pipeline, the pipeline
@@ -549,7 +591,19 @@ def _apply_assignments_fused(
         )
     if params.timeout_ticks > 0:
         state = state._replace(ctr_timed=torch.where(hit_c, l_timed, state.ctr_timed))
-    return state
+    if not with_aux:
+        return state
+    # with the cache off nothing hits; with cold starts off no start is cold
+    zeros = torch.zeros_like(cpus)
+    cold = cold_ticks if cold_on else torch.zeros_like(pipe)
+    v = valid[:, :, None]
+    aux_i = torch.where(
+        v, torch.stack([pipe_c, pool, cold, is_warm.to(_I32)], dim=2),
+        torch.tensor([-1, -1, 0, 0], dtype=_I32, device=dev))
+    aux_f = torch.where(
+        v, torch.stack([cpus, ram, zeros if hit_gb is None else hit_gb, miss_gb, total_out],
+                       dim=2), 0.0)
+    return state, (aux_i, aux_f)
 
 
 def bucket_edges(params: SimParams, device) -> torch.Tensor:
@@ -603,6 +657,7 @@ __all__ = [
     "apply_fused_phase1",
     "apply_faults",
     "apply_decision",
+    "zero_fault_aux",
     "requeue_faulted",
     "backoff_ticks",
     "bucket_edges",

@@ -81,8 +81,10 @@ def _closed_loop_stats(state: SimState, params: SimParams, dur_s: float) -> dict
     }
 
 
-def summarize(state: SimState, wl: Workload, params: SimParams) -> dict:
-    """Statistics of one lane (per-lane shapes, no fleet axis)."""
+def summarize(state: SimState, wl: Workload, params: SimParams, trace=None) -> dict:
+    """Statistics of one lane (per-lane shapes, no fleet axis); with the
+    lane's ``trace`` (``telemetry.TraceEvents``) also ``trace_enabled``
+    and the recorder's ``events_dropped``."""
     status = _np(state.pipe_status)
     arrival = _np(wl.arrival).astype(np.int64)
     completion = _np(state.pipe_completion).astype(np.int64)
@@ -165,6 +167,9 @@ def summarize(state: SimState, wl: Workload, params: SimParams) -> dict:
     out["fairness_jain_admission"] = _jain(
         admitted_prio[offered] / np.maximum(offered_prio[offered], 1)
     )
+    if trace is not None:
+        out["trace_enabled"] = True
+        out["events_dropped"] = int(trace.events_dropped)
     return out
 
 

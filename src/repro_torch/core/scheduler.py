@@ -396,6 +396,21 @@ def naive_scheduler(sched_state, sim: SimState, wl: Workload, params: SimParams,
     )
 
 
+def decision_provenance(sim: SimState, wl: Workload, dec: SchedDecision):
+    """``(chosen, runner_up)`` ``[F]`` pipeline ids behind each lane's
+    first assignment slot — the runner-up is the pipeline the
+    head-of-queue rule (priority desc, arrival asc) would have picked had
+    the chosen one not been waiting. Both are -1 when not applicable.
+    The telemetry recorder's SCHED_DECISION provenance; reads only,
+    never part of the simulation step."""
+    chosen = dec.assign_pipe[:, 0]
+    waiting = sim.pipe_status == int(PipeStatus.WAITING)
+    pipes = torch.arange(waiting.shape[-1], dtype=torch.int32, device=waiting.device)
+    others = waiting & (pipes != chosen[:, None])
+    runner = masked_lex_argmin(others, (-wl.prio, sim.pipe_entered))
+    return chosen, torch.where(chosen >= 0, runner, -1)
+
+
 def _legacy_pool_select(pool_mode: str, free_cpu, free_ram, sim: SimState, pipe_c):
     F = free_cpu.shape[0]
     if pool_mode == "single":
@@ -700,6 +715,7 @@ __all__ = [
     "SchedDecision",
     "argmax_first",
     "decision_loop",
+    "decision_provenance",
     "empty_decision",
     "get_fleet_vector_scheduler",
     "get_policy_point",

@@ -11,7 +11,9 @@ lane from ``workload_batch_from_traces``), in one engine loop; lane
 card the fleet runs whole; spreading it over several (with the lanes
 binned by event density, ``bin_lanes_by_density``, and padded to a
 multiple of the devices, ``pad_lanes``) is ROADMAP queue 1, item 16.
-``fleet_summary`` aggregates a fleet's final states.
+``fleet_summary`` aggregates a fleet's final states. With
+``trace=True`` every lane records its events (``core/telemetry``) and
+``fleet_run`` returns ``(states, traces)``.
 """
 from __future__ import annotations
 
@@ -26,6 +28,8 @@ from .faults import attach_fault_traces
 from .params import SimParams
 from .policy import N_POLICY_PARAMS, PolicyParams
 from .state import SimState, Workload, tree_map, workload_to
+from .telemetry.decode import decode_fleet
+from .telemetry.schema import DEFAULT_TRACE_CAPACITY
 from .types import INF_TICK, TICKS_PER_SECOND
 from .workload import generate_workload, workload_batch_from_traces  # noqa: F401  (batch ingestion pairs with fleet_run)
 
@@ -163,21 +167,27 @@ def fleet_run(
     shard: str | int | None = None,
     bin_lanes: bool = True,
     trace: bool = False,
-) -> SimState:
+    trace_capacity: int | None = None,
+):
     """Run a fleet on ``device`` (CUDA unless the caller asks for the
     CPU); exactly one of ``seeds`` / ``workloads`` is given. Returns the
-    batched final state (leading axis = lane). ``shard`` resolves as in
-    the reference; a fleet spread over more than one device (where
-    ``bin_lanes`` would bin its lanes first) waits for ROADMAP queue 1,
-    item 16."""
+    batched final state (leading axis = lane), or ``(states, traces)``
+    with ``trace=True``: ``traces`` one ``telemetry.TraceEvents`` a lane,
+    of up to ``trace_capacity`` records (``DEFAULT_TRACE_CAPACITY`` when
+    None). ``shard`` resolves as in the reference; a fleet spread over
+    more than one device (where ``bin_lanes`` would bin its lanes first)
+    waits for ROADMAP queue 1, item 16."""
     if (seeds is None) == (workloads is None):
         raise ValueError(
             "fleet_run needs exactly one of seeds= (generated lanes) or "
             "workloads= (a caller-built batch)"
         )
-    if trace:
-        raise NotImplementedError("trace=True (telemetry) waits for ROADMAP queue 1, item 12")
     check_main_path(params)
+    capacity = 0
+    if trace:
+        capacity = int(DEFAULT_TRACE_CAPACITY if trace_capacity is None else trace_capacity)
+        if capacity <= 0:
+            raise ValueError(f"trace_capacity must be positive, got {trace_capacity}")
     device = resolve_device(device)
     if workloads is None:
         workloads = make_workload_batch(params, seeds)
@@ -193,10 +203,25 @@ def fleet_run(
         workloads = attach_fault_traces(workloads, params)
     _check_workload(workloads, params)
     wls = workload_to(workloads, device)
-    states, _, _ = run_lane_major_engine(
-        params, wls, scheduler_key or params.scheduling_algo
+    states, _, _, tbuf = run_lane_major_engine(
+        params, wls, scheduler_key or params.scheduling_algo, capacity
     )
+    if capacity:
+        return states, _decode_traces(tbuf)
     return states
+
+
+def _decode_traces(tbuf):
+    """Every lane's ``TraceEvents``; only the populated prefix of the
+    tables (up to the fleet's largest count, rounded up to a power of
+    two) leaves the device."""
+    counts = _np(tbuf.count)
+    cap = int(tbuf.records.shape[1])
+    hi = int(counts.max(initial=0))
+    keep = min(cap, 1 << max(hi - 1, 0).bit_length()) if hi else 0
+    if keep < cap:
+        tbuf = tbuf._replace(records=tbuf.records[:, :keep])
+    return decode_fleet(tbuf, capacity=cap)
 
 
 def _np(x) -> np.ndarray:
@@ -205,10 +230,8 @@ def _np(x) -> np.ndarray:
 
 def fleet_summary(states: SimState, params: SimParams, traces=None) -> dict:
     """Fleet statistics (mean / std over the lanes) of ``repro.core.
-    fleet_summary``; ``traces=`` (telemetry) waits for ROADMAP queue 1,
-    item 12."""
-    if traces is not None:
-        raise NotImplementedError("fleet_summary(traces=...) waits for ROADMAP queue 1, item 12")
+    fleet_summary``; with ``traces`` (``fleet_run(..., trace=True)``'s)
+    also the recorder's fleet-total overflow, ``events_dropped_total``."""
     done = _np(states.done_count)
     lat = _np(states.sum_latency_s) / np.maximum(done, 1)
     util = _np(states.util_cpu_s).sum(-1) / (params.total_cpus * params.duration)
@@ -252,6 +275,8 @@ def fleet_summary(states: SimState, params: SimParams, traces=None) -> dict:
         if np.any(offered > 0) else float("nan"),
         "fairness_jain_done": metrics._jain(done),
     })
+    if traces is not None:
+        out["events_dropped_total"] = int(sum(t.events_dropped for t in traces))
     return out
 
 

@@ -576,6 +576,61 @@ def test_retry_storm_fleet_on_the_card(cuda, policy, knobs):
     assert int(on_card.offered_total.sum()) > 0
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("knobs", [
+    {},
+    dict(crash_mtbf_ticks=400.0, outage_mtbf_ticks=1_200.0, outage_duration_ticks=250.0,
+         straggler_prob=0.1, timeout_ticks=400, max_retries=3, base_backoff_ticks=50,
+         client_max_inflight=6, client_think_ticks=30, client_max_retries=3,
+         client_backoff_ticks=40, admission_policy="queue_threshold", admit_queue_limit=2),
+], ids=["plain", "chaos-closed-loop"])
+def test_traced_fleet_on_the_card(cuda, knobs):
+    """``fleet_run(trace=True)`` on CUDA: the states equal the untraced
+    run's bit for bit, and the records, counts and ``dropped`` equal the
+    CPU port's traced run; the decision provenance adds one
+    ``masked_lex_argmin`` launch an event."""
+    params = _data_plane_params(scheduling_algo="priority_pool", **knobs)
+    wls = make_workload_batch(params, [0, 1, 2, 3])
+    reset_launch_counts()
+    untraced = fleet_run(params, workloads=wls, device=cuda)
+    plain = launch_counts()
+    reset_launch_counts()
+    states, traces = fleet_run(params, workloads=wls, device=cuda, trace=True,
+                               trace_capacity=512)
+    traced = launch_counts()
+    for name in untraced._fields:
+        assert torch.equal(getattr(states, name), getattr(untraced, name)), name
+    assert traced == {**plain, "masked_lex_argmin": plain["masked_lex_argmin"]
+                      + traced["fleet_tick"]}
+    _, cpu_traces = fleet_run(params, workloads=wls, device="cpu", trace=True,
+                              trace_capacity=512)
+    for a, b in zip(traces, cpu_traces):
+        assert (a.n, a.events_dropped) == (b.n, b.events_dropped)
+        np.testing.assert_array_equal(a.records, b.records)
+    assert sum(t.n for t in traces) > 0
+
+
+@pytest.mark.cuda
+def test_evaluate_policies_on_the_card(cuda):
+    """``evaluate_policies`` of the six named points over two ``bursty``
+    lanes on CUDA equals the CPU port's objectives under the contract."""
+    from repro_torch.search import evaluate_policies, scenario_factory
+
+    arena = SimParams(max_pipelines=24, max_containers=32, duration=0.03,
+                      waiting_ticks_mean=500.0, op_base_seconds_mean=0.002, num_pools=2,
+                      total_cpus=4, total_ram_gb=8, cache_gb_per_pool=4.0,
+                      scan_ticks_per_gb=100.0, cold_start_ticks=40, cloud_scaling=True)
+    points = [DEFAULT_POINTS[k] for k in sorted(DEFAULT_POINTS)]
+    reset_launch_counts()
+    got = evaluate_policies(scenario_factory("bursty", arena, 2, seed=7, device=cuda), points,
+                            device=cuda)
+    assert all(launch_counts()[name] > 0 for name in SIM_KERNELS)
+    want = evaluate_policies(scenario_factory("bursty", arena, 2, seed=7, device="cpu"),
+                             points, device="cpu")
+    assert (got["C"], got["S"]) == (want["C"], want["S"]) == (len(points), 2)
+    np.testing.assert_allclose(got["objectives"], want["objectives"], rtol=1e-5, atol=0)
+
+
 # ---------------------------------------------------------------------------
 # The LM kernels: float kernels, held to their plain versions (run on the
 # CPU) at the stated tolerance, f32 rtol=atol=2e-4, bf16 2e-2: the sums

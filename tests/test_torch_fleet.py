@@ -152,8 +152,13 @@ def test_fleet_summary_of_the_ports_own_run_follows_the_contract():
     for key, want in theirs.items():
         # sums taken in another order (latency, utilisation, cost) to rtol 1e-5
         np.testing.assert_allclose(mine[key], want, rtol=1e-5, err_msg=key)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        fleet_summary(fleet_run(params, workloads=wls, device="cpu"), params, traces=[])
+    # with the fleet's traces, the reference's overflow key joins the rest
+    states, traces = fleet_run(params, workloads=wls, device="cpu", trace=True)
+    traced = fleet_summary(states, params, traces=traces)
+    assert traced.pop("events_dropped_total") == 0
+    assert traced.keys() == mine.keys()
+    for key, value in mine.items():
+        np.testing.assert_array_equal(traced[key], value, err_msg=key)
 
 
 def test_broadcast_lanes_matches_the_reference():

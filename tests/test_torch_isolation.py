@@ -167,15 +167,35 @@ def test_closed_loop_knobs_run(name, knobs, live):
     assert summary["offered"] > 0 and quiet["offered"] == 0
 
 
-@pytest.mark.parametrize("kwargs,item", [({"trace": True}, "item 12")])
-def test_fleet_options_of_later_slices_raise(kwargs, item):
+@pytest.mark.parametrize("kwargs,item", [
+    ({"engine": "python", "trace": True}, "item 14"),
+    ({"shard": 2, "trace": True}, "item 16"),
+])
+def test_fleet_options_of_later_slices_raise(kwargs, item, monkeypatch):
+    """The Python engine (item 14) and a fleet over several cards (item
+    16) raise, traced or not; a fleet over two cards is asked of a
+    machine that reports two, and refused before any work on them."""
+    kwargs = dict(kwargs)
+    params = _small(engine=kwargs.pop("engine", "event"))
+    device = "cpu"
+    if "shard" in kwargs:
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+        monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+        device = "cuda"
     with pytest.raises(NotImplementedError, match=item):
-        fleet_run(_small(), seeds=[0], device="cpu", **kwargs)
+        fleet_run(params, seeds=[0, 1], device=device, **kwargs)
 
 
 def test_run_trace_raises():
-    with pytest.raises(NotImplementedError, match="item 12"):
-        run(_small(), device="cpu", trace=True)
+    """Telemetry runs on the event engine; the Python engine (item 14)
+    raises with or without it, and a capacity of 0 is refused."""
+    with pytest.raises(NotImplementedError, match="item 14"):
+        run(_small(engine="python"), device="cpu", trace=True)
+    with pytest.raises(ValueError, match="positive"):
+        run(_small(), device="cpu", trace=True, trace_capacity=0)
+    with pytest.raises(ValueError, match="positive"):
+        fleet_run(_small(), seeds=[0], device="cpu", trace=True, trace_capacity=0)
+    assert run(_small(), device="cpu", trace=True).trace is not None
 
 
 def test_unknown_scheduler_is_a_key_error():

@@ -11,12 +11,18 @@
 * (c) the event skip stays exact: the ``nxt_release`` register against
   the oracle at every event while deferred and retried offers are in
   flight.
+* (d) the reference's overload table of ``chip_smoke.py`` phase 6c (b)
+  (``tests/captures/torch_overload_reference.json``): its fault traces
+  round-trip through the port's records, and its ``queue_threshold`` row
+  is the CPU port's on them.
 
 The tapes come from numpy (``retry_storm``) and the fault traces of
 (b) and (c) from the port's generator on the CPU, so the counts that
 (b) asserts are the same on every machine.
 """
 import functools
+import json
+import pathlib
 
 import numpy as np
 import pytest
@@ -30,10 +36,14 @@ from repro.core.scenarios import retry_storm_params as j_retry_storm_params
 from repro_torch import SimParams, fleet_run, fleet_summary
 from repro_torch.bridge import state_to_arrays, workload_from_arrays
 from repro_torch.core import engine, executor
-from repro_torch.core.faults import attach_fault_traces
+from repro_torch.core.faults import (
+    attach_fault_traces,
+    fault_trace_from_records,
+    fault_trace_to_records,
+)
 from repro_torch.core.scenarios import retry_storm_params, scenario_lane_batch
 from repro_torch.core.scheduler import get_scheduler
-from repro_torch.core.state import init_state
+from repro_torch.core.state import init_state, tree_map
 from repro_torch.core.types import INF_TICK
 from repro_torch.core.workload import workload_batch_from_traces
 from test_torch_closed_loop import _arrays, _assert_contract
@@ -172,3 +182,36 @@ def test_next_event_registers_match_full_recompute_under_the_closed_loop(arm):
         state, n_events = new, n_events + 1
     assert n_events > 20
     assert int(state.deferred_total[0]) + int(state.client_retry_events[0]) > 0
+
+
+# ---------------------------------------------------------------------------
+# (d) the reference's overload table (chip_smoke.py phase 6c (b))
+# ---------------------------------------------------------------------------
+REFERENCE = pathlib.Path(__file__).parent / "captures" / "torch_overload_reference.json"
+
+
+def test_overload_reference_fixture_round_trips():
+    """The fixture of ``tests/captures/write_torch_overload_reference.py``:
+    its eight fault traces rebuild through the port's
+    ``fault_trace_from_records`` and write back to the same records, and
+    replayed on the CPU port under ``queue_threshold`` the eight lanes
+    give the reference's row."""
+    fx = json.loads(REFERENCE.read_text())
+    assert set(fx["rows"]) == {"admit_all", "queue_threshold", "token_bucket", "codel"}
+    _, _, wls, params = _storm(8, 11, **SMOKE, **ARMS["queue_threshold"])
+    traces = [fault_trace_from_records(r, params) for r in fx["fault_traces"]]
+    assert [fault_trace_to_records(t) for t in traces] == fx["fault_traces"]
+    wls = wls._replace(faults=tree_map(lambda *lane: torch.cat(lane), *traces))
+    states = fleet_run(params, workloads=wls, device="cpu")
+    drained = int((states.drain_tick < INF_TICK).sum())
+    row = {
+        "offered": _total(states, "offered_total"),
+        "admitted": _total(states, "admitted_total"),
+        "shed": _total(states, "shed_total"),
+        "deferred": _total(states, "deferred_total"),
+        "client_retries": _total(states, "client_retry_events"),
+        "goodput_per_s": fleet_summary(states, params)["throughput_per_s_mean"],
+        "drained_lanes": drained,
+        "metastable_lanes": 8 - drained,
+    }
+    assert row == fx["rows"]["queue_threshold"]
