@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch / CUDA port (``src/repro_torch``) on one NVIDIA GPU,
-and check it: the simulator's main path, and serving three LMs at their
-published widths under the policy the simulator picks.
+and check it: the simulator's main path, serving three LMs at their
+published widths under the policy the simulator picks, and the paper's
+surface (``eudoxia_torch``, the Python engine, the CLI).
 
     python3 chip_smoke.py
 
@@ -121,7 +122,27 @@ Phases, in order; any failure raises and the script exits non-zero:
    rungs=(0.5, 1.0))``) on CUDA and on the CPU port: the same candidate
    history and front, the objectives under the contract, every baseline
    weakly dominated by a front member; wall, evaluations, candidates/s,
-   lane evaluations/s, front size and the simulator kernels' launches.
+   lane evaluations/s, front size and the simulator kernels' launches;
+12. the paper's surface: (a) Listing 3,
+   ``eudoxia_torch.run_simulator("examples/project.toml")`` on CUDA (2 s,
+   two pools, MP 256, MC 64, ``cache_aware``, 8 GB of cache a pool),
+   every simulator kernel launched, held to ``run(engine="python")`` of
+   the same file; (b) the reference Python engine (host code, no kernel
+   launched) against the card's event engine on the reference's compared
+   fields (``tests/test_engine_equivalence.py``; its tolerant fields at
+   rtol 1e-3): phase 5c's five CUDA runs and a new ``priority`` run on
+   its workload, 6b's chaos ``run(seed 0)``, lane 0 of 6c (a)'s
+   closed-loop fleet (the closed-loop fields too) and, under
+   ``"policy"``, each of 5d's six points against its seed-0 lane; (c)
+   Listing 4's smallest-job-first scheduler of
+   ``examples/custom_scheduler.py``, registered through
+   ``eudoxia_torch.algorithm``, on the Python engine at 5c's
+   configuration, its summary beside ``priority``'s on CUDA; (d)
+   ``python -m repro_torch.launch.sim`` as a subprocess on CUDA on
+   ``project.toml`` cut to 0.5 s: exit 0, its four renderings and CSV
+   non-empty, its ``--json`` equal to the in-process run under the
+   contract; each Python-engine run's wall and events beside the
+   card's wall for the same run.
 
 Without a card, or from a directory that holds this script and nothing
 else of the repository, it prints why and exits 1 before any phase.
@@ -1092,19 +1113,22 @@ def cache_params(**kw):
     return SimParams(**{**base, **kw})
 
 
-def data_plane_phase(dev) -> list[dict]:
+def data_plane_phase(dev) -> tuple[list[dict], dict]:
     """Phase 5c: one shared workload under five schedulers with the data
     plane on, each ``run`` on CUDA against the CPU port; ``cache_aware``
-    profiled with the cache on and off. Returns each run's launches."""
+    profiled with the cache on and off. Returns each run's launches, and
+    the params, the workload and each scheduler's CUDA result and wall
+    (phase 12 holds the Python engine to them)."""
     from repro_torch import generate_workload, run
     from repro_torch.kernels import SIM_KERNELS
 
     base = cache_params()
     wl = generate_workload(base)
-    all_counts, rows = [], {}
+    all_counts, rows, held = [], {}, {"params": base, "wl": wl, "runs": {}}
     for algo in ("naive", "priority_pool", "cache_aware", "locality_pool", "sjf"):
         params = base.replace(scheduling_algo=algo)
         res, wall, counts = timed_run(params, wl, dev)
+        held["runs"][algo] = (res, wall)
         cpu = run(params, wl, device="cpu")
         compare_states(res.state, cpu.state, f"phase 5c: {algo}")
         s, c = res.summary(), cpu.summary()
@@ -1136,14 +1160,15 @@ def data_plane_phase(dev) -> list[dict]:
             print(f"{CARD}: phase 5c: cache_aware, {label}, first 0.5 s: {events} events, "
                   f"{busy['device_launches'] / events:.1f} device kernels an event, device busy "
                   f"{100 * busy['busy_share']:.1f}% of wall")
-    return all_counts
+    return all_counts, held
 
 
-def policy_grid_phase(dev) -> dict:
+def policy_grid_phase(dev) -> tuple[dict, dict]:
     """Phase 5d: the six named points over seeds 0-7 as one 48-lane
     ``"policy"`` fleet on CUDA, bit-equal lane for lane to the six named
     8-lane fleets on CUDA, and one seed per point against the CPU port.
-    Returns the grid run's launches."""
+    Returns the grid run's launches, and the params, the grid, its CUDA
+    states, wall, point names and seeds a point (for phase 12)."""
     from repro_torch import DEFAULT_POINTS, fleet_run, make_workload_batch, policy_grid_workloads
     from repro_torch.core.policy import PolicyParams
     from repro_torch.core.state import SimState, tree_map
@@ -1188,7 +1213,8 @@ def policy_grid_phase(dev) -> dict:
     if busy:
         print(f"{CARD}: phase 5d: device busy {100 * busy['busy_share']:.1f}% of wall under the "
               f"profiler, {busy['device_launches']} kernel launches")
-    return counts
+    return counts, {"params": params, "grid": grid, "states": states, "wall": wall,
+                    "names": names, "S": S}
 
 
 def profile_fleet(params, wls, dev, label: str) -> dict:
@@ -1236,12 +1262,13 @@ def profile_call(fn, label: str) -> dict:
     return {"busy_share": busy_ms / (wall * 1e3), "device_launches": launches, "result": out}
 
 
-def chaos_phase(dev, faults_off: dict) -> tuple[dict, dict]:
+def chaos_phase(dev, faults_off: dict) -> tuple[dict, dict, dict]:
     """Phase 6b: the chaos layer at phase 5's configuration with two pools
     and ``priority_pool``: ``run`` at seed 0 and the 64-lane
     ``fleet_run``, each on CUDA against the CPU port; every fault class
     fires over the fleet and ``retire_land`` runs its timeout branch.
-    Returns the launches of the run and of the fleet."""
+    Returns the launches of the run and of the fleet, and the run's
+    params, CUDA result and wall (for phase 12)."""
     import torch
 
     from repro_torch import fleet_run, generate_workload, make_workload_batch, run
@@ -1297,7 +1324,7 @@ def chaos_phase(dev, faults_off: dict) -> tuple[dict, dict]:
         print(f"{CARD}: phase 6b: device busy {100 * busy['busy_share']:.1f}% of wall under the "
               f"profiler ({100 * faults_off['busy_share']:.1f}% faults off, phase 5), "
               f"{busy['device_launches']} kernel launches ({faults_off['device_launches']})")
-    return run_counts, counts
+    return run_counts, counts, {"params": params, "res": res, "wall": run_wall}
 
 
 # the overload layer's knobs of phase 6c (a):
@@ -1353,7 +1380,7 @@ def overload_storm(policy: str, knobs: dict):
     return wls._replace(faults=faults), armed
 
 
-def overload_phase(dev, loop_off: dict) -> list[dict]:
+def overload_phase(dev, loop_off: dict) -> tuple[list[dict], dict]:
     """Phase 6c: the overload layer. (a) phase 5's 64-lane fleet with
     closed-loop clients and a queue threshold, on CUDA against the CPU
     port on its first 8 lanes, profiled as phase 5 is; (b)
@@ -1361,7 +1388,8 @@ def overload_phase(dev, loop_off: dict) -> list[dict]:
     the four admission policies with two early outages (the reference's
     fault traces), each arm's ``fleet_run`` on CUDA against the CPU port
     on its first 2 lanes and its row equal to the reference's. Returns
-    the launches of each run."""
+    the launches of each run, and (a)'s params, lane 0's workload and
+    CUDA state and the fleet's wall (for phase 12)."""
     import torch
 
     from repro_torch import fleet_run, fleet_summary, make_workload_batch
@@ -1412,6 +1440,8 @@ def overload_phase(dev, loop_off: dict) -> list[dict]:
               f"5), device busy {100 * busy['busy_share']:.1f}% of wall under the profiler "
               f"({100 * loop_off['busy_share']:.1f}%)")
     all_counts = [counts]
+    lane0 = {"params": params, "wl": head(wls, 1), "state": tree_map(lambda x: x[0], states),
+             "wall": wall, "lanes": len(seeds)}
 
     # ---- (b) the overload table ----------------------------------------------
     n_lanes, n = 8, CPU_LANES_6C["arm"]
@@ -1471,7 +1501,7 @@ def overload_phase(dev, loop_off: dict) -> list[dict]:
         raise AssertionError(f"phase 6c (b): queue_threshold shed or retried nothing: {shedder}")
     if rows["token_bucket"]["deferred"] <= 0:
         raise AssertionError(f"phase 6c (b): token_bucket deferred nothing: {rows['token_bucket']}")
-    return all_counts
+    return all_counts, lane0
 
 
 # lanes of phase 5e held to the CPU port's traced runs
@@ -1705,6 +1735,253 @@ def search_phase(dev) -> dict:
           f"front member; " + json.dumps(row))
     print("phase 11 launches:", json.dumps(counts))
     return counts
+
+
+# ---------------------------------------------------------------------------
+# Phase 12: the paper's surface (Listings 3 and 4, the Python engine, the
+# CLI).
+# ---------------------------------------------------------------------------
+# the fields the reference holds its two engines to exactly
+# (tests/test_engine_equivalence.py:16-51); its tolerant fields are the
+# contract's TOLERANT_FIELDS at rtol 1e-3, atol 1e-4 (:84-91)
+ENGINE_FIELDS = (
+    "pipe_status", "pipe_completion", "pipe_fails", "pipe_preempts", "done_count",
+    "failed_count", "oom_events", "preempt_events", "cache_hits", "cache_lookups",
+    "cold_starts", "warm_starts", "cold_start_tick_total", "cache_hit_gb", "bytes_moved_gb",
+    "cache_bytes", "cache_last", "pool_cache_used", "pipe_retries", "ctr_timed",
+    "pool_down_until", "crash_cursor", "outage_cursor", "nxt_fault", "crash_events",
+    "outage_events", "timeout_events", "retry_events", "fault_kills", "wasted_ticks",
+)
+ENGINE_RTOL, ENGINE_ATOL = 1e-3, 1e-4
+PROJECT_TOML = ROOT / "examples" / "project.toml"
+
+
+def compare_engines(python_state, event_state, ctx: str, closed_loop: bool = False) -> None:
+    """The Python engine's state against the event engine's: the
+    reference's compared fields (and, with the closed loop on, the
+    closed-loop fields) exactly, the tolerant fields at its tolerance."""
+    from repro_torch.core.state import CLOSED_LOOP_FIELDS
+
+    exact = ENGINE_FIELDS + (CLOSED_LOOP_FIELDS if closed_loop else ())
+    for name in exact + tuple(sorted(TOLERANT_FIELDS)):
+        a = getattr(python_state, name).cpu().numpy()
+        b = getattr(event_state, name).cpu().numpy()
+        if a.dtype != b.dtype or a.shape != b.shape:
+            raise AssertionError(f"{ctx}: field {name} {a.dtype}{a.shape} vs {b.dtype}{b.shape}")
+        if name in TOLERANT_FIELDS:
+            if not np.allclose(a, b, rtol=ENGINE_RTOL, atol=ENGINE_ATOL):
+                raise AssertionError(f"{ctx}: field {name} beyond rtol {ENGINE_RTOL}")
+        elif not np.array_equal(a, b):
+            raise AssertionError(f"{ctx}: field {name} differs between the engines")
+
+
+def assert_summary_equal(got: dict, want: dict, ctx: str) -> None:
+    """Two summaries under the contract: floats to rtol 1e-5 (NaN equal
+    to NaN), everything else exactly."""
+    if set(got) != set(want):
+        raise AssertionError(f"{ctx}: keys differ: {sorted(set(got) ^ set(want))}")
+    for key, w in want.items():
+        g = got[key]
+        if isinstance(w, dict):
+            assert_summary_equal(g, w, f"{ctx}.{key}")
+        elif isinstance(w, float) and not isinstance(w, bool):
+            if not (math.isclose(g, w, rel_tol=RTOL) or (g != g and w != w)):
+                raise AssertionError(f"{ctx}.{key}: {g!r} vs {w!r}")
+        elif g != w:
+            raise AssertionError(f"{ctx}.{key}: {g!r} vs {w!r}")
+
+
+def register_listing4() -> str:
+    """``examples/custom_scheduler.py``'s smallest-job-first scheduler
+    (paper Listings 4-6), registered through ``eudoxia_torch.algorithm``;
+    returns its key."""
+    from eudoxia_torch.algorithm import register_scheduler, register_scheduler_init
+    from eudoxia_torch.core import Assignment
+
+    @register_scheduler_init(key="my-scheduler")
+    def scheduler_init(sch):
+        sch.data["chunk"] = 0.25  # allocate quarter-pool containers
+
+    @register_scheduler(key="my-scheduler")
+    def scheduler_algo(sch, f, p):
+        suspends, assignments = [], []
+        frac = sch.data["chunk"]
+        want_cpu = frac * sch.pool_cpu_cap[0]
+        want_ram = frac * sch.pool_ram_cap[0]
+        free_cpu = list(sch.pool_cpu_free)
+        free_ram = list(sch.pool_ram_free)
+        # smallest job first (by op count, then priority)
+        for pid in sorted(
+            sch.waiting_pids(),
+            key=lambda pid: (sch.pipeline(pid).num_ops, -int(sch.pipeline(pid).priority)),
+        ):
+            pipe = sch.pipeline(pid)
+            cpu = max(want_cpu, pipe.last_cpus * 2 if pipe.failed_before else want_cpu)
+            ram = max(want_ram, pipe.last_ram_gb * 2 if pipe.failed_before else want_ram)
+            if free_cpu[0] >= cpu and free_ram[0] >= ram:
+                assignments.append(Assignment(pipe, 0, cpu, ram))
+                free_cpu[0] -= cpu
+                free_ram[0] -= ram
+        return suspends, assignments
+
+    return "my-scheduler"
+
+
+def surface_phase(dev, cache: dict, grid: dict, chaos: dict, loop: dict) -> list[dict]:
+    """Phase 12: the paper's surface on the card. (a) Listing 3:
+    ``eudoxia_torch.run_simulator(examples/project.toml)`` on CUDA, held
+    to ``run(engine="python")`` of the same file; (b) the Python engine
+    against the card's event engine at phase 5c's configuration (its five
+    CUDA states and one new ``priority`` run), against 6b's chaos run,
+    lane 0 of 6c (a)'s closed-loop fleet and, under ``"policy"``, each of
+    5d's six points; (c) Listing 4's scheduler on the Python engine
+    beside ``priority`` on CUDA; (d) the CLI as a subprocess on CUDA on
+    ``project.toml`` cut to 0.5 s, its JSON equal to the in-process run.
+    Returns the launches of the CUDA runs."""
+    import os
+    import tempfile
+
+    import torch
+
+    import eudoxia_torch as eudoxia
+    from repro_torch import run
+    from repro_torch.core.state import tree_map
+    from repro_torch.kernels import SIM_KERNELS, launch_counts, reset_launch_counts
+
+    def python_run(params, wl):
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        res = run(params, wl, engine="python", device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launched = {k: v for k, v in launch_counts().items() if v}
+        if launched:
+            raise AssertionError(f"phase 12: the Python engine launched kernels: {launched}")
+        return res, wall
+
+    def fleet_of_one(wl):
+        return tree_map(lambda x: x[None], wl)
+
+    rows = []
+
+    def report(label, py, py_wall, card_wall, card_what):
+        rows.append({"run": label, "python_wall_s": round(py_wall, 3), "events": py.events,
+                     "card_wall_s": round(card_wall, 3), "card_run": card_what})
+        print(f"{CARD}: phase 12: {label}: Python engine {py_wall:.3f} s wall, {py.events} "
+              f"events; the card's {card_what} {card_wall:.3f} s; equal on the reference's "
+              f"compared fields")
+
+    # ---- (a) Listing 3 --------------------------------------------------------
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = eudoxia.run_simulator(str(PROJECT_TOML), device=dev)
+    torch.cuda.synchronize()
+    card_wall = time.perf_counter() - t0
+    listing3_counts = launch_counts()
+    quiet = [name for name in SIM_KERNELS if listing3_counts[name] <= 0]
+    if quiet:
+        raise AssertionError(f"phase 12 (a): run_simulator launched no {quiet}")
+    py, py_wall = python_run(str(PROJECT_TOML), None)
+    for name in res.workload._fields[:10]:
+        if not torch.equal(getattr(res.workload, name), getattr(py.workload, name)):
+            raise AssertionError(f"phase 12 (a): the two runs' workloads differ in {name}")
+    compare_engines(py.state, res.state, "phase 12 (a): project.toml")
+    summary = res.summary()
+    if summary["done"] <= 0 or summary["cache_hits"] <= 0:
+        raise AssertionError(f"phase 12 (a): project.toml did no work or hit no cache: {summary}")
+    report("(a) run_simulator(project.toml)", py, py_wall, card_wall,
+           f"run_simulator ({res.events} events)")
+    print("phase 12 (a) summary:", json.dumps(summary, sort_keys=True))
+    print("phase 12 (a) launches:", json.dumps(listing3_counts))
+
+    # ---- (b) the Python engine against the card's event engine ---------------
+    base, wl = cache["params"], cache["wl"]
+    for algo, (event, wall) in cache["runs"].items():
+        py, py_wall = python_run(base.replace(scheduling_algo=algo), wl)
+        compare_engines(py.state, event.state, f"phase 12 (b): {algo}")
+        report(f"(b) 5c {algo}", py, py_wall, wall, "run (phase 5c)")
+    params = base.replace(scheduling_algo="priority")
+    event, wall, priority_counts = timed_run(params, wl, dev)
+    py, py_wall = python_run(params, wl)
+    compare_engines(py.state, event.state, "phase 12 (b): priority")
+    report("(b) 5c priority", py, py_wall, wall, "run (new)")
+    priority = event
+
+    res = chaos["res"]
+    py, py_wall = python_run(chaos["params"], fleet_of_one(res.workload))
+    compare_engines(py.state, res.state, "phase 12 (b): chaos run(seed 0)")
+    if int(py.state.retry_events) <= 0 or int(py.state.fault_kills) <= 0:
+        raise AssertionError("phase 12 (b): the chaos run retried or killed nothing")
+    report("(b) 6b chaos run(seed 0)", py, py_wall, chaos["wall"], "run (phase 6b)")
+
+    py, py_wall = python_run(loop["params"], loop["wl"])
+    compare_engines(py.state, loop["state"], "phase 12 (b): 6c (a) lane 0", closed_loop=True)
+    if int(py.state.offered_total) <= 0:
+        raise AssertionError("phase 12 (b): the closed-loop lane offered nothing")
+    report("(b) 6c (a) lane 0", py, py_wall, loop["wall"],
+           f"fleet_run of {loop['lanes']} lanes (phase 6c (a))")
+
+    params = grid["params"].replace(scheduling_algo="policy")
+    for c, name in enumerate(grid["names"]):
+        lane = c * grid["S"]
+        py, py_wall = python_run(params, tree_map(lambda x: x[lane:lane + 1], grid["grid"]))
+        compare_engines(py.state, tree_map(lambda x: x[lane], grid["states"]),
+                        f"phase 12 (b): policy point {name}")
+        report(f"(b) 5d policy {name}", py, py_wall, grid["wall"],
+               f"fleet_run of {grid['grid'].arrival.shape[0]} lanes (phase 5d)")
+
+    # ---- (c) Listing 4 ---------------------------------------------------------
+    key = register_listing4()
+    mine, mine_wall = python_run(base.replace(scheduling_algo=key), wl)
+    a, b = mine.summary(), priority.summary()
+    if a["done"] <= 0:
+        raise AssertionError(f"phase 12 (c): {key} completed nothing")
+    print(f"{CARD}: phase 12 (c): Listing 4's {key} on the Python engine at phase 5c's "
+          f"configuration: {mine_wall:.3f} s wall, {mine.events} events, state on "
+          f"{mine.state.done_count.device}")
+    print(f"  {'metric':22s} {key:>14s} {'priority':>14s}")
+    for k in ("done", "throughput_per_s", "mean_latency_s", "p99_latency_s",
+              "cpu_utilization", "oom_events", "cache_hit_rate"):
+        print(f"  {k:22s} {a[k]!s:>14.14s} {b[k]!s:>14.14s}")
+
+    # ---- (d) the CLI -----------------------------------------------------------
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = pathlib.Path(tmp)
+        toml = tmp / "project.toml"
+        text, n = re.subn(r"(?m)^duration = .*$", "duration = 0.5", PROJECT_TOML.read_text())
+        if n != 1:
+            raise AssertionError("phase 12 (d): project.toml holds no duration line")
+        toml.write_text(text)
+        out_json, out_csv = tmp / "summary.json", tmp / "timeline.csv"
+        env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.sim", str(toml), "--json", str(out_json),
+             "--csv", str(out_csv)],
+            cwd=ROOT, env=env, capture_output=True, text=True, timeout=600,
+        )
+        cli_wall = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"phase 12 (d): the CLI exited {proc.returncode}: "
+                                 f"{proc.stderr[-2000:]}")
+        sections = re.split(r"(?m)^== (.+) ==$", proc.stdout)
+        texts = dict(zip(sections[1::2], (t.strip() for t in sections[2::2])))
+        names = ("summary", "per priority", "utilisation", "latency distribution")
+        empty = [n for n in names if not texts.get(n)]
+        if empty or not out_csv.read_text().strip():
+            raise AssertionError(f"phase 12 (d): empty renderings {empty} or CSV")
+        inproc, _, cli_counts = timed_run(str(toml), None, dev)
+        assert_summary_equal(json.loads(out_json.read_text()), inproc.summary(),
+                             "phase 12 (d): --json")
+        print(f"{CARD}: phase 12 (d): python -m repro_torch.launch.sim on {dev} (project.toml "
+              f"at 0.5 s): exit 0 in {cli_wall:.3f} s with start-up, four renderings and "
+              f"{len(out_csv.read_text().splitlines())} CSV lines; --json equal to the "
+              f"in-process run under the contract")
+    print("phase 12 runs:", json.dumps(rows))
+    print("phase 12 launches:", json.dumps({"(b) priority": priority_counts,
+                                            "(d) in-process": cli_counts}))
+    return [listing3_counts, priority_counts, cli_counts]
 
 
 # ---------------------------------------------------------------------------
@@ -2051,13 +2328,13 @@ def main() -> int:
     run_counts = phase(4, run_phase, dev)
     fleet_counts, faults_off, fleet = phase(5, fleet_phase, dev)
     replay_counts = phase("5b", replay_phase, dev, fleet)
-    cache_counts = phase("5c", data_plane_phase, dev)
-    grid_counts = phase("5d", policy_grid_phase, dev)
+    cache_counts, cache_runs = phase("5c", data_plane_phase, dev)
+    grid_counts, grid = phase("5d", policy_grid_phase, dev)
     telemetry_counts = phase("5e", telemetry_phase, dev, fleet, fleet_counts, faults_off)
     del fleet
     phase(6, sim_launch_phase, run_counts, fleet_counts)
-    chaos_counts = phase("6b", chaos_phase, dev, faults_off)
-    overload_counts = phase("6c", overload_phase, dev, faults_off)
+    *chaos_counts, chaos_run = phase("6b", chaos_phase, dev, faults_off)
+    overload_counts, loop_lane = phase("6c", overload_phase, dev, faults_off)
     rwkv_counts = phase(7, serve_phase, 7, "rwkv6_7b", ("rwkv6_scan",), dev)
     gemma_counts = phase(8, serve_phase, 8, "gemma3_12b", ("flash_attention",), dev)
     phase(9, parity_phase, dev)
@@ -2066,6 +2343,8 @@ def main() -> int:
     jamba_counts = phase(10, serve_phase, 10, "jamba_1p5_large_398b",
                          ("ssm_scan", "flash_attention"), dev, n_layers=5)
     search_counts = phase(11, search_phase, dev)
+    surface_counts = phase(12, surface_phase, dev, cache_runs, grid, chaos_run, loop_lane)
+    del cache_runs, grid, chaos_run, loop_lane
     print(f"{CARD}: phase walls (s): " + json.dumps({str(k): round(v, 3) for k, v in walls.items()})
           + f", total {time.perf_counter() - t_all:.2f}")
 
@@ -2087,7 +2366,7 @@ def main() -> int:
     }
     main_runs = (run_counts, fleet_counts, *replay_counts, *cache_counts, grid_counts,
                  *telemetry_counts, *chaos_counts, *overload_counts, rwkv_counts, gemma_counts,
-                 jamba_counts, search_counts)
+                 jamba_counts, search_counts, *surface_counts)
     rows = []
     for name in KERNELS:
         m = measured[name]

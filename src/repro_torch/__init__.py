@@ -15,9 +15,13 @@ over fleets (``repro_torch.search``: ``cem_search``) — through four
 hand-written CUDA kernels, and serving (``launch/serve.py``: the
 simulator picks the policy, ``serving/`` batches requests through
 ``models/`` for ``rwkv6_7b``, ``gemma3_12b`` and jamba) through three
-more (``kernels/``, sources in ``csrc/``). Entry points run on CUDA unless
-the caller passes ``device="cpu"``, which runs the kernels' plain
-PyTorch versions instead.
+more (``kernels/``, sources in ``csrc/``). The paper's surface is here
+too: ``run_simulator`` (Listing 3), user schedulers of Listing 4 on the
+reference Python engine (``run(engine="python")``,
+``core/engine_python.py``), ``core/viz.py``, the CLI
+``python -m repro_torch.launch.sim`` and the ``eudoxia_torch`` facade.
+Entry points run on CUDA unless the caller passes ``device="cpu"``,
+which runs the kernels' plain PyTorch versions instead.
 """
 from .core import (
     DEFAULT_POINTS,
@@ -25,6 +29,7 @@ from .core import (
     PolicyParams,
     SimParams,
     SimResult,
+    Scheduler,
     SimState,
     Workload,
     attach_policies,
@@ -44,11 +49,14 @@ from .core import (
     policy_grid_workloads,
     register_admission_policy,
     register_admission_policy_py,
+    register_scheduler,
+    register_scheduler_init,
     register_vector_scheduler,
     register_vector_scheduler_family,
     register_vector_scheduler_init,
     retry_storm_params,
     run,
+    run_simulator,
     scenario_fleet,
     scenario_lane_batch,
     summarize,
@@ -63,6 +71,7 @@ __all__ = [
     "PolicyParams",
     "SimParams",
     "SimResult",
+    "Scheduler",
     "SimState",
     "Workload",
     "attach_policies",
@@ -82,11 +91,14 @@ __all__ = [
     "policy_grid_workloads",
     "register_admission_policy",
     "register_admission_policy_py",
+    "register_scheduler",
+    "register_scheduler_init",
     "register_vector_scheduler",
     "register_vector_scheduler_family",
     "register_vector_scheduler_init",
     "retry_storm_params",
     "run",
+    "run_simulator",
     "scenario_fleet",
     "scenario_lane_batch",
     "summarize",

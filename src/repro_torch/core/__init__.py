@@ -1,4 +1,11 @@
-"""The simulator core of the PyTorch / CUDA port (lane-major tensors)."""
+"""The simulator core of the PyTorch / CUDA port (lane-major tensors).
+
+Public API mirrors the paper (§4.1): ``run_simulator(paramfile)``, the
+``Scheduler`` class, the ``Failure`` / ``Assignment`` / ``Suspension`` /
+``Pipeline`` records and the registration decorators of
+``repro_torch.core.algorithm``, as ``repro.core`` exports them; every
+entry point runs on CUDA unless the caller passes ``device="cpu"``.
+"""
 from .admission import (
     AdmissionView,
     has_admission_policy,
@@ -6,7 +13,9 @@ from .admission import (
     register_admission_policy,
     register_admission_policy_py,
 )
+from .algorithm import register_scheduler, register_scheduler_init
 from .engine import SimResult, run
+from .engine_python import Scheduler
 from .faults import (
     attach_fault_trace,
     attach_fault_traces,
@@ -44,6 +53,7 @@ from .state import (
     init_state,
     used_resources,
 )
+from . import telemetry
 from .telemetry import (
     EventKind,
     Span,
@@ -62,13 +72,17 @@ from .sweep import (
 from .types import (
     INF_TICK,
     TICKS_PER_SECOND,
+    Assignment,
     ContainerStatus,
+    Failure,
     Operator,
     Pipeline,
     PipeStatus,
     Priority,
+    Suspension,
 )
-# registers 'sjf' and 'sjf_ref'
+# registers 'sjf' and 'sjf_ref', and the Python twins of 'sjf',
+# 'cache_aware' and 'locality_pool'
 from . import extra_schedulers  # noqa: E402,F401
 from . import scenarios  # noqa: E402
 from .scenarios import (  # noqa: E402
@@ -90,8 +104,23 @@ from .workload import (
     workload_to_trace_records,
 )
 
+
+def run_simulator(paramfile, **kw) -> SimResult:
+    """Paper Listing 3 entry point: ``run(paramfile, **kw)``, on CUDA
+    unless ``device="cpu"`` is passed."""
+    return run(paramfile, **kw)
+
+
 __all__ = [
     "AdmissionView",
+    "Assignment",
+    "Failure",
+    "register_scheduler",
+    "register_scheduler_init",
+    "run_simulator",
+    "Scheduler",
+    "Suspension",
+    "telemetry",
     "attach_fault_trace",
     "attach_fault_traces",
     "attach_policies",

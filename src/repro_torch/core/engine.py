@@ -77,17 +77,9 @@ class SimResult:
         return summarize(self.state, self.workload, self.params, trace=self.trace)
 
 
-def _raise_later(what: str, slice_: str):
-    raise NotImplementedError(f"{what} waits for ROADMAP queue 1, {slice_}")
-
-
 def check_main_path(params: SimParams) -> None:
-    """Raise ``NotImplementedError`` for an optional layer the port does
-    not have yet, naming the ROADMAP item that brings it, and
-    ``KeyError`` for an admission policy nobody registered, before the
-    run starts."""
-    if params.engine != "event":
-        _raise_later(f"engine={params.engine!r}", "item 14 (the paper's surface)")
+    """Raise ``KeyError`` for an admission policy nobody registered,
+    before the run starts."""
     if params.admission_active:
         admission.get_admission_policy(params.admission_policy)
 
@@ -365,15 +357,35 @@ def run(
     ``bridge.workload_from_arrays``) or None for the seed generator.
     The result's state and workload have the lane axis squeezed.
 
+    ``engine`` (default ``params.engine``) is ``"event"``, the lane-major
+    engine on ``device``, or ``"python"``, the reference engine
+    (``engine_python.run_python_engine``: the paper's Listing-4
+    schedulers on plain Python objects, on the host), whose final state
+    lands on ``device`` too.
+
     ``trace=True`` records an event trace of up to ``trace_capacity``
     records and decodes it into ``result.trace``
     (:class:`telemetry.TraceEvents`); the simulated state is the same
     bit for bit either way. On overflow the earliest records win and
-    ``result.trace.events_dropped`` counts the rest."""
+    ``result.trace.events_dropped`` counts the rest. The Python engine
+    records no trace."""
     params = load_params(paramfile)
     if engine is not None and engine != params.engine:
         params = params.replace(engine=engine)
+    if params.engine not in ("event", "python"):
+        raise ValueError(
+            f"unknown engine {params.engine!r}: the per-tick scan engine was removed "
+            "in the lane-major unification (the event core is "
+            "bitwise-identical and strictly faster); use engine='event' "
+            "(default) or the reference engine='python'"
+        )
     check_main_path(params)
+    python = params.engine == "python"
+    if python and trace:
+        raise ValueError(
+            "trace=True requires the compiled event engine; the "
+            "Python reference engine records no telemetry"
+        )
     capacity = int(trace_capacity) if trace else 0
     if trace and capacity <= 0:
         raise ValueError(f"trace_capacity must be positive, got {trace_capacity}")
@@ -387,6 +399,10 @@ def run(
     wl = workload_to(wl, device)
     if wl.arrival.shape[0] != 1:
         raise ValueError("run() takes a fleet of one; use fleet_run for more lanes")
+    if python:
+        from .engine_python import run_python_engine
+
+        return run_python_engine(params, wl)
     state, sched_state, events, tbuf = run_lane_major_engine(
         params, wl, params.scheduling_algo, capacity)
     return SimResult(

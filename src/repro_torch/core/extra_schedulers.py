@@ -8,14 +8,21 @@ loop :func:`_sjf_like` stays registered as the ``sjf_ref`` oracle, and
 :func:`_select_sjf` is the five-pass oracle of its queue head.
 
 The data-plane schedulers ``cache_aware`` and ``locality_pool`` register
-in ``scheduler.py``.
+in ``scheduler.py``. The Python engine's twins of all three
+(``sjf_python``, ``cache_aware_python``, ``locality_pool_python``)
+register here through ``algorithm.py``, as in the reference.
 """
 from __future__ import annotations
 
+from typing import List
+
+import numpy as np
 import torch
 
 from ..kernels.sched_select import select_sjf
 from ..kernels.state_update.ref import first_true
+from .algorithm import register_scheduler, register_scheduler_init
+from .engine_python import Scheduler, _priority_like_py
 from .params import SimParams
 from .policy import DEFAULT_POINTS
 from .scheduler import (
@@ -30,7 +37,7 @@ from .scheduler import (
     take,
 )
 from .state import SimState, Workload
-from .types import INF_TICK, PipeStatus
+from .types import INF_TICK, Assignment, Failure, Pipeline, PipeStatus, Suspension
 
 CHUNK = 0.25
 CAP = 0.50
@@ -106,4 +113,87 @@ register_vector_scheduler_family("sjf_ref")(_sjf_like)
 sjf_vector = get_vector_scheduler("sjf")
 
 
-__all__ = ["sjf_vector"]
+@register_scheduler_init(key="sjf")
+def _sjf_init(sch: Scheduler) -> None:
+    pass
+
+
+@register_scheduler(key="sjf")
+def sjf_python(sch: Scheduler, failures: List[Failure], new: List[Pipeline]):
+    f32 = np.float32
+    total_cpu, total_ram = sch.total_cpus, sch.total_ram_gb
+    chunk_cpu, chunk_ram = f32(CHUNK) * total_cpu, f32(CHUNK) * total_ram
+    cap_cpu, cap_ram = f32(CAP) * total_cpu, f32(CAP) * total_ram
+    eps = f32(EPS)
+
+    suspends: list[Suspension] = []
+    assignments = []
+    free_cpu = sch.pool_cpu_free.copy()
+    free_ram = sch.pool_ram_free.copy()
+    rejects = [
+        pid for pid in sch.waiting_pids()
+        if sch.pipelines[pid].failed_before
+        and f32(sch.pipelines[pid].last_ram_gb) >= cap_ram - eps
+    ]
+    sch.data["rejects"] = rejects
+    tried = set(rejects)
+    for _ in range(sch.params.max_assignments_per_tick):
+        cands = [
+            pid for pid in sch.status
+            if sch.status[pid] == PipeStatus.WAITING and pid not in tried
+        ]
+        if not cands:
+            break
+        pid = min(
+            cands,
+            key=lambda pid: (
+                sch.pipelines[pid].num_ops,
+                -int(sch.pipelines[pid].priority),
+                sch.entered[pid],
+                pid,
+            ),
+        )
+        tried.add(pid)
+        p = sch.pipelines[pid]
+        if p.failed_before:
+            want_cpu = np.minimum(f32(2.0) * f32(p.last_cpus), cap_cpu)
+            want_ram = np.minimum(f32(2.0) * f32(p.last_ram_gb), cap_ram)
+        elif p.last_ram_gb > 0.0:
+            want_cpu, want_ram = f32(p.last_cpus), f32(p.last_ram_gb)
+        else:
+            want_cpu, want_ram = chunk_cpu, chunk_ram
+        if free_cpu[0] >= want_cpu - eps and free_ram[0] >= want_ram - eps:
+            assignments.append(Assignment(p, 0, want_cpu, want_ram))
+            free_cpu[0] -= want_cpu
+            free_ram[0] -= want_ram
+    return suspends, assignments
+
+
+# the data-plane schedulers' Python twins reuse the mirrored priority
+# machinery of engine_python.py
+@register_scheduler_init(key="cache_aware")
+def _cache_aware_init(sch: Scheduler) -> None:
+    pass
+
+
+@register_scheduler(key="cache_aware")
+def cache_aware_python(sch: Scheduler, failures: List[Failure], new: List[Pipeline]):
+    return _priority_like_py(sch, "cache")
+
+
+@register_scheduler_init(key="locality_pool")
+def _locality_pool_init(sch: Scheduler) -> None:
+    pass
+
+
+@register_scheduler(key="locality_pool")
+def locality_pool_python(sch: Scheduler, failures: List[Failure], new: List[Pipeline]):
+    return _priority_like_py(sch, "locality")
+
+
+__all__ = [
+    "sjf_vector",
+    "sjf_python",
+    "cache_aware_python",
+    "locality_pool_python",
+]

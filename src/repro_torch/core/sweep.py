@@ -13,7 +13,9 @@ binned by event density, ``bin_lanes_by_density``, and padded to a
 multiple of the devices, ``pad_lanes``) is ROADMAP queue 1, item 16.
 ``fleet_summary`` aggregates a fleet's final states. With
 ``trace=True`` every lane records its events (``core/telemetry``) and
-``fleet_run`` returns ``(states, traces)``.
+``fleet_run`` returns ``(states, traces)``. A fleet always runs the
+lane-major event engine, whatever ``params.engine`` says, as in the
+reference (the Python engine is ``run(engine="python")``'s alone).
 """
 from __future__ import annotations
 

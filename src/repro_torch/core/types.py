@@ -5,14 +5,18 @@ nothing of the JAX package): the tick length, the priority levels and
 the pipeline / container status codes that every ``SimState`` column
 stores as int32. ``INF_TICK`` marks "never" in tick-valued columns.
 ``Operator`` and ``Pipeline`` are the trace records that
-``workload.workload_from_pipelines`` packs (the Python scheduler's retry
-bookkeeping on ``Pipeline`` comes with ``engine="python"``, ROADMAP
-queue 1, item 14).
+``workload.workload_from_pipelines`` packs, and with ``Failure``,
+``Assignment`` and ``Suspension`` the plain Python objects that user
+schedulers of the paper's Listing 4 read and return in the Python engine
+(``engine_python.py``).
 """
 from __future__ import annotations
 
 import dataclasses
 import enum
+from typing import Optional
+
+import numpy as np
 
 # one loop iteration == 1 tick ~= 10 microseconds (paper §3.2)
 TICK_SECONDS: float = 10e-6
@@ -49,7 +53,7 @@ N_PRIO = len(Priority)
 
 
 # ---------------------------------------------------------------------------
-# Python-facing records of a trace (paper §3.2.1), as in the reference.
+# Python-facing records (paper §3.2.1 and Listing 4), as in the reference.
 # ---------------------------------------------------------------------------
 @dataclasses.dataclass
 class Operator:
@@ -61,6 +65,10 @@ class Operator:
     level: int             # topological depth inside the pipeline DAG
     out_gb: float = 0.0    # intermediate output dataset size (data plane)
 
+    def runtime_ticks(self, cpus: float) -> int:
+        eff = max(float(cpus), 1e-6)
+        return max(1, int(np.ceil(self.base_ticks / (eff ** self.alpha))))
+
 
 @dataclasses.dataclass
 class Pipeline:
@@ -70,6 +78,63 @@ class Pipeline:
     priority: Priority
     arrival_tick: int
     ops: list[Operator]
+    # -- retry bookkeeping (priority scheduler, paper §4.1.2) --
+    failed_before: bool = False
+    last_cpus: float = 0.0
+    last_ram_gb: float = 0.0
+
+    @property
+    def num_ops(self) -> int:
+        return len(self.ops)
+
+    @property
+    def total_ram_gb(self) -> float:
+        return float(sum(o.ram_gb for o in self.ops))
+
+    @property
+    def total_out_gb(self) -> float:
+        """Total intermediate dataset bytes the pipeline materialises."""
+        return float(sum(o.out_gb for o in self.ops))
+
+    def level_ram(self) -> list[float]:
+        if not self.ops:
+            return [0.0]
+        depth = max(o.level for o in self.ops) + 1
+        out = [0.0] * depth
+        for o in self.ops:
+            out[o.level] += o.ram_gb
+        return out
+
+
+@dataclasses.dataclass
+class Failure:
+    """An executor-reported failure (OOM) from the previous tick."""
+
+    pipeline: Pipeline
+    tick: int
+    cpus: float
+    ram_gb: float
+    reason: str = "oom"
+
+
+@dataclasses.dataclass
+class Assignment:
+    """Scheduler -> Executor: create this container (paper §4.1.3 (2))."""
+
+    pipeline: Pipeline
+    pool: int
+    cpus: float
+    ram_gb: float
+    # Optional subset of operator indices to run (None == whole pipeline).
+    op_indices: Optional[list[int]] = None
+
+
+@dataclasses.dataclass
+class Suspension:
+    """Scheduler -> Executor: preempt the container running this pipeline."""
+
+    pipeline: Pipeline
+    reason: str = "preempted"
 
 
 __all__ = [
@@ -82,4 +147,7 @@ __all__ = [
     "ContainerStatus",
     "Operator",
     "Pipeline",
+    "Failure",
+    "Assignment",
+    "Suspension",
 ]

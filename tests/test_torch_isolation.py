@@ -1,8 +1,9 @@
 """The port stands alone, runs where it is told, and refuses what it has
 not ported yet.
 
-* No module of ``src/repro_torch`` and not ``chip_smoke.py`` imports JAX
-  or the JAX package (``repro``): an AST scan of every import.
+* No module of ``src/repro_torch`` or ``src/eudoxia_torch`` and not
+  ``chip_smoke.py`` imports JAX or the JAX package (``repro``,
+  ``eudoxia``): an AST scan of every import.
 * The entry points run on CUDA unless the caller asks for the CPU, and
   without a card the default raises instead of running on the CPU.
 * Every optional layer of a later slice raises ``NotImplementedError``
@@ -20,7 +21,8 @@ from repro_torch import SimParams, fleet_run, run
 from repro_torch.core import engine
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
-PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+PORT_FILES = (sorted((REPO / "src" / "repro_torch").rglob("*.py"))
+              + sorted((REPO / "src" / "eudoxia_torch").rglob("*.py")) + [REPO / "chip_smoke.py"])
 
 
 def _imported_roots(path: pathlib.Path):
@@ -35,7 +37,7 @@ def _imported_roots(path: pathlib.Path):
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(REPO)))
 def test_no_jax_and_no_reference_package_imports(path):
     roots = set(_imported_roots(path))
-    assert not roots & {"jax", "jaxlib", "repro", "flax", "optax"}, (path, roots)
+    assert not roots & {"jax", "jaxlib", "repro", "eudoxia", "flax", "optax"}, (path, roots)
 
 
 def test_port_has_files_to_scan():
@@ -44,6 +46,8 @@ def test_port_has_files_to_scan():
             "lm.py", "attention.py", "rwkv.py", "batching.py", "serve.py"} <= names
     assert {"ssm.py", "mlp.py"} <= names
     assert {"admission.py", "families.py"} <= names
+    assert {"algorithm.py", "engine_python.py", "viz.py", "sim.py", "core.py"} <= names
+    assert (REPO / "src" / "eudoxia_torch" / "__init__.py") in PORT_FILES
     assert {p.name for p in (REPO / "src" / "repro_torch" / "csrc").glob("*.cu")} == {
         "sim_tick.cu", "state_update.cu", "sched_select.cu", "rwkv6_scan.cu", "flash_attention.cu",
         "ssm_scan.cu",
@@ -69,6 +73,7 @@ def test_cpu_run_stays_on_the_cpu():
     assert res.state.tick.shape == () and int(res.state.tick) == 1000
 
 
+# knobs that raised until the ROADMAP item named beside each ported them
 LATER_KNOBS = [
     ("engine", "python", "item 14"),
 ]
@@ -76,9 +81,13 @@ LATER_KNOBS = [
 
 @pytest.mark.parametrize("knob,value,item", LATER_KNOBS, ids=lambda v: str(v))
 def test_optional_layers_raise(knob, value, item):
-    params = _small(**{knob: value})
-    with pytest.raises(NotImplementedError, match=item):
-        run(params, device="cpu")
+    """Once refused, these knobs run: the Python engine (item 14) runs on
+    the CPU when asked to, and its state stays there."""
+    res = run(_small(waiting_ticks_mean=100.0, **{knob: value}), device="cpu")
+    assert res.params.engine == value and res.events > 0
+    assert all(x.device.type == "cpu" for x in res.state)
+    assert res.state.tick.shape == () and int(res.state.tick) == 1000
+    assert res.summary()["submitted"] > 0
 
 
 # the data plane's knobs run (ROADMAP queue 1, item 9), each moving the
@@ -172,11 +181,24 @@ def test_closed_loop_knobs_run(name, knobs, live):
     ({"shard": 2, "trace": True}, "item 16"),
 ])
 def test_fleet_options_of_later_slices_raise(kwargs, item, monkeypatch):
-    """The Python engine (item 14) and a fleet over several cards (item
-    16) raise, traced or not; a fleet over two cards is asked of a
-    machine that reports two, and refused before any work on them."""
+    """A fleet runs the event engine whatever ``params.engine`` says, as
+    the reference's does (item 14 ported the Python engine to ``run``
+    alone): its states and traces equal the event engine's. A fleet over
+    several cards (item 16) raises, traced or not; a fleet over two cards
+    is asked of a machine that reports two, and refused before any work
+    on them."""
     kwargs = dict(kwargs)
-    params = _small(engine=kwargs.pop("engine", "event"))
+    params = _small(engine=kwargs.pop("engine", "event"), waiting_ticks_mean=50.0,
+                    op_base_seconds_mean=0.002)
+    if item == "item 14":
+        states, traces = fleet_run(params, seeds=[0, 1], device="cpu", **kwargs)
+        want, want_traces = fleet_run(params.replace(engine="event"), seeds=[0, 1],
+                                      device="cpu", **kwargs)
+        for name in states._fields:
+            assert torch.equal(getattr(states, name), getattr(want, name)), name
+        assert [t.counts_by_kind() for t in traces] == [t.counts_by_kind() for t in want_traces]
+        assert int(states.done_count.sum()) > 0
+        return
     device = "cpu"
     if "shard" in kwargs:
         monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
@@ -187,9 +209,10 @@ def test_fleet_options_of_later_slices_raise(kwargs, item, monkeypatch):
 
 
 def test_run_trace_raises():
-    """Telemetry runs on the event engine; the Python engine (item 14)
-    raises with or without it, and a capacity of 0 is refused."""
-    with pytest.raises(NotImplementedError, match="item 14"):
+    """Telemetry runs on the event engine: the Python engine raises
+    ``ValueError`` with a trace asked of it, as the reference's does, and
+    a capacity of 0 is refused."""
+    with pytest.raises(ValueError, match="compiled event engine"):
         run(_small(engine="python"), device="cpu", trace=True)
     with pytest.raises(ValueError, match="positive"):
         run(_small(), device="cpu", trace=True, trace_capacity=0)
