@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch / CUDA port (``src/repro_torch``) on one NVIDIA GPU,
-and check it: the simulator's main path, serving three LMs at their
-published widths under the policy the simulator picks, and the paper's
-surface (``eudoxia_torch``, the Python engine, the CLI).
+and check it: the simulator's main path, serving every architecture of
+``configs/`` at its published width under the policy the simulator
+picks, and the paper's surface (``eudoxia_torch``, the Python engine,
+the CLI).
 
     python3 chip_smoke.py
 
@@ -32,7 +33,13 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``flash_attention`` and ``ssm_scan`` at rwkv6_7b's, gemma3_12b's and
    jamba's prefill shapes (``ssm_scan`` at 2048 tokens, a ragged 2000
    and the served prompt's 1838), bf16 outputs to 2e-2 and f32 states
-   to 2e-4;
+   to 2e-4, ``flash_attention``'s also in norm (|diff| <= 2e-2
+   |plain|); ``flash_attention`` also at the rest of the zoo's shapes
+   (``ZOO_ATTENTION``: phi3's head dim 96, granite's 48 heads on one KV
+   head against its cache, whisper's non-causal encoder at 8 x 1,500
+   and 1 x 32,768 frames, the plain version on the first 2,048 queries
+   of the latter, and its cross-attention of 4 and 1 queries against
+   1,500 frames);
    the time of each call, its device time per call (summed over the
    kernel's launches, with the launches per call), of its plain version
    and, for attention, of PyTorch's ``scaled_dot_product_attention``;
@@ -111,8 +118,11 @@ Phases, in order; any failure raises and the script exits non-zero:
    every request served, every logit finite, ``rwkv6_scan`` launched;
 8. the same for gemma3_12b (``max_len`` 4096, prompts past the
    1024-token window), ``flash_attention`` launched;
-9. the three smoke configs in f32 through the batcher on CUDA and on the
-   CPU port: equal greedy tokens, prefill logits within 2e-4;
+9. the smoke configs in f32 on CUDA and on the CPU port, equal greedy
+   tokens, prefill logits within 2e-4: the nine decoder-only ones
+   through the batcher, internvl2_2b once more through ``lm_prefill``
+   with patch embeddings, whisper_small through
+   ``runtime.make_serve_steps``;
 10. the same as 7 for jamba_1p5_large_398b at full width, cut to the first
    five layers of its period (one H100 holds five, not 72), with
    ``ssm_scan`` and ``flash_attention`` launched;
@@ -142,7 +152,22 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``project.toml`` cut to 0.5 s: exit 0, its four renderings and CSV
    non-empty, its ``--json`` equal to the in-process run under the
    contract; each Python-engine run's wall and events beside the
-   card's wall for the same run.
+   card's wall for the same run;
+13. the same as 7 for the five text configs at their published widths:
+   gemma3_27b, granite_34b and phi3_mini_3p8b whole, arctic_480b cut to
+   two layers and llama4_maverick_400b_a17b to four (one 128-expert
+   layer is 26.8 and 32.2 GB), ``flash_attention`` launched for each;
+   profiled for arctic and llama4 only (the dense three's windows cost
+   most of the phase's wall under the profiler);
+14. internvl2_2b at full size: (a) as 7; (b) 4 requests whose first 256
+   positions are patch embeddings [4, 256, 1024] from a numpy seed, a
+   1,024-position ``lm_prefill`` and 16 greedy steps, every logit
+   finite, the prefill logits moving with the embeddings;
+15. whisper_small at full size through ``runtime.make_serve_steps``: 8
+   clips of 1,500 frames (32 greedy steps) and one of 32,768 (16
+   steps); encoder, prefill and step times, peak memory, every logit
+   finite, the encoder's and every cross-attention call's
+   ``flash_attention`` launched without the causal mask.
 
 Without a card, or from a directory that holds this script and nothing
 else of the repository, it prints why and exits 1 before any phase.
@@ -203,6 +228,12 @@ DATA_PLANE = dict(
 # the LM kernels against their plain versions: bf16 outputs 2e-2 (an
 # ulp of bf16 apart after sums in another order), f32 2e-4
 LM_TOL = {"bf16": 2e-2, "f32": 2e-4}
+# flash_attention's bf16 outputs also in norm, |got - plain| <= 2e-2
+# |plain| (the rule of tests/test_torch_models.py): attention over many
+# keys averages its values down (an output of about 0.009 at 32,768 keys),
+# below the elementwise 2e-2 (1 + |plain|), while a kernel that leaves
+# out even one 128-key tile there moves the outputs by more than this
+ATTN_NORM_TOL = 2e-2
 # the card's name and power limit (nvidia-smi), set by phase 1, named
 # beside every measurement
 CARD = "card not read"
@@ -299,6 +330,13 @@ def close_err(got, want, tols) -> tuple[float, float]:
         if bool((scaled > tol).any()):
             raise AssertionError(f"output {i} beyond tolerance {tol} (max |diff| {diff.max().item()})")
     return err, rel
+
+
+def norm_err(got, want) -> float:
+    """Largest |got - want| / |want| (Frobenius norms) over the
+    outputs."""
+    return max(((a.double() - b.double()).norm() / b.double().norm()).item()
+               for a, b in zip(got, want))
 
 
 # ---------------------------------------------------------------------------
@@ -574,26 +612,42 @@ def ssm_inputs(rng, dev, S: int, dim: int = 16384, N: int = 16):
             f32(0.1 * rng.standard_normal((1, dim, N))))
 
 
-def attn_inputs(rng, dev, Sq: int, Skv: int, H: int = 16, KV: int = 8, D: int = 256):
+def attn_inputs(rng, dev, Sq: int, Skv: int, H: int = 16, KV: int = 8, D: int = 256,
+                B: int = 1):
     import torch
 
     def bf16(shape):
         return torch.tensor(rng.standard_normal(shape), dtype=torch.float32, device=dev).to(torch.bfloat16)
 
-    return bf16((1, Sq, H, D)), bf16((1, Skv, KV, D)), bf16((1, Skv, KV, D))
+    return bf16((B, Sq, H, D)), bf16((B, Skv, KV, D)), bf16((B, Skv, KV, D))
 
 
-def attn_mask(Sq, Skv, window, q_offset, kv_len, dev):
+def attn_mask(Sq, Skv, window, q_offset, kv_len, dev, causal: bool = True):
     """The [Sq, Skv] visibility of the flash kernel's masks (True =
     attend), for the library call."""
     import torch
 
     q_pos = q_offset + torch.arange(Sq, device=dev)[:, None]
     k_pos = torch.arange(Skv, device=dev)[None, :]
-    ok = (k_pos < kv_len) & (k_pos <= q_pos)
+    ok = (k_pos < kv_len) & ((k_pos <= q_pos) if causal else (q_pos >= 0))
     if window > 0:
         ok &= k_pos > q_pos - window
     return ok
+
+
+# flash_attention at the shapes the rest of the served zoo gives it (its
+# own draws, so the other cases draw what they drew): label, B, Sq, Skv,
+# causal, kv_len, H, KV, D, query rows held to the plain version (None:
+# all)
+ZOO_ATTENTION = (
+    ("phi3 D=96 causal", 1, 2048, 2048, True, None, 32, 32, 96, None),
+    ("granite MQA global Skv=4096 kv_len=2048", 1, 2048, 4096, True, 2048, 48, 1, 128, None),
+    ("whisper encoder B=8 S=1500 not causal", 8, 1500, 1500, False, None, 12, 12, 64, None),
+    ("whisper encoder S=32768 not causal (plain on the first 2048 queries)", 1, 32768, 32768,
+     False, None, 12, 12, 64, 2048),
+    ("whisper cross-attention prefill Sq=4 Skv=1500", 8, 4, 1500, False, None, 12, 12, 64, None),
+    ("whisper cross-attention decode Sq=1 Skv=1500", 8, 1, 1500, False, None, 12, 12, 64, None),
+)
 
 
 def check_kernels(dev) -> dict:
@@ -619,7 +673,9 @@ def check_kernels(dev) -> dict:
     # name, label, kernel, plain, bytes in, {bound: (count, rate)} beside
     # bytes, library, tolerances, options: "plain_reps" (fewer repeats of
     # a slow plain version), "represent" (False: the case never stands
-    # for its kernel in the JSON line)
+    # for its kernel in the JSON line), "attach" (rides in its kernel's
+    # row under this key), "rows" (only the first query rows held to the
+    # plain version), "norm_tol" (also held in norm)
     cases = []
     for NP in (1, 3):
         args = tick_inputs(rng, dev, NP)
@@ -749,7 +805,37 @@ def check_kernels(dev) -> dict:
                       lambda q=q, k=k, v=v, kw=kw: flash_attention(q, k, v, **kw),
                       lambda q=q, k=k, v=v, kw=kw: flash_attention_ref(q, k, v, **kw),
                       needed, {"operations": (4.0 * H * visible * D, BF16_TENSOR_OPS_PER_S)},
-                      library, (LM_TOL["bf16"],), {"represent": H == 16}))
+                      library, (LM_TOL["bf16"],), {"represent": H == 16, "norm_tol": ATTN_NORM_TOL}))
+    # the rest of the zoo: phi3's head width 96, granite's 48 heads on one
+    # KV head against its cache, whisper's encoder (not causal, 1,500 and
+    # 32,768 frames) and its cross-attention (4 and 1 queries against
+    # 1,500 frames); none stands for the kernel in the JSON line
+    zoo_rng = np.random.default_rng(23)
+    for label, B, Sq, Skv, causal, kv_len, H, KV, D, rows in ZOO_ATTENTION:
+        q, k, v = attn_inputs(zoo_rng, dev, Sq, Skv, H, KV, D, B=B)
+        kw = dict(causal=causal, window=0, q_offset=0, kv_len=kv_len)
+        n_keys = Skv if kv_len is None else kv_len
+        # an unmasked call needs no mask: the library runs without one
+        mask = None if not causal and n_keys == Skv else attn_mask(Sq, Skv, 0, 0, n_keys, dev, causal)
+        visible = B * (Sq * n_keys if mask is None else int(mask.sum().item()))
+        needed = (q, k[:, :n_keys], v[:, :n_keys])
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+
+        def library(qt=qt, kt=kt, vt=vt, mask=mask):
+            return Fn.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, enable_gqa=True)
+
+        extra = {"represent": False, "norm_tol": ATTN_NORM_TOL}
+        if rows is not None:
+            # the plain version on the first `rows` queries (not causal,
+            # so a query's output does not depend on the others)
+            extra.update(rows=rows, plain_reps=dict(reps=3, inner=1))
+        elif B * Sq * Skv * H > 2**30:
+            extra["plain_reps"] = dict(reps=3, inner=1)
+        cases.append(("flash_attention", f"B={B} Sq={Sq} Skv={Skv} H={H} KV={KV} D={D} {label} bf16",
+                      lambda q=q, k=k, v=v, kw=kw: flash_attention(q, k, v, **kw),
+                      lambda q=q, k=k, v=v, kw=kw, r=rows: flash_attention_ref(q[:, :r], k, v, **kw),
+                      needed, {"operations": (4.0 * H * visible * D, BF16_TENSOR_OPS_PER_S)},
+                      library, (LM_TOL["bf16"],), extra))
 
     # jamba's Mamba prefill: B = 1, dim 16384, N 16; 2048 tokens, a ragged
     # 2000 and the served prompt's 1838, each handed to the kernel unpadded.
@@ -781,11 +867,21 @@ def check_kernels(dev) -> dict:
         want = plain()
         if not isinstance(got, tuple):
             got, want = (got,), (want,)
+        # a case with "rows" holds only its first query rows to the plain
+        # version (which ran on those alone)
+        held = tuple(g[:, :options["rows"]] for g in got) if "rows" in options else got
         if tols is None:
-            err, kind, reps = max_abs_err(got, want), "exact", {}
+            err, kind, reps = max_abs_err(held, want), "exact", {}
         else:
-            err, rel = close_err(got, want, tols)
+            err, rel = close_err(held, want, tols)
             kind = f"within {tols} of 1 + |plain| (max |diff| / (1 + |plain|) = {rel:.3g})"
+            if "norm_tol" in options:
+                norm = norm_err(held, want)
+                if norm > options["norm_tol"]:
+                    raise AssertionError(f"{name} [{label}]: |diff| / |plain| = {norm} in norm, "
+                                         f"beyond {options['norm_tol']}")
+                kind += (f" and in norm (|diff| / |plain| = {norm:.4g} <= {options['norm_tol']}, "
+                         f"max |plain| = {max(w.abs().max().item() for w in want):.4g})")
             reps = dict(reps=11, inner=5)   # milliseconds per call: fewer repeats
         ms = timed_ms(kernel, **reps)
         plain_ms = timed_ms(plain, **options.get("plain_reps", reps))
@@ -2034,11 +2130,12 @@ class ServeMeter:
 
 
 def serve_phase(phase: int, arch_name: str, lm_kernels: tuple, dev, *, seed: int = 0,
-                n_layers: int | None = None) -> dict:
+                n_layers: int | None = None, profile: bool = True) -> dict:
     """Serve 8 requests (512-2048 prompt tokens, 16 new, 40 % interactive)
     on ``arch_name`` at its published width (and depth, unless
     ``n_layers`` cuts it), under the policy that ``evaluate_policies`` on
-    CUDA picks; returns the launches; the profile breaks out ``lm_kernels``."""
+    CUDA picks; returns the launches; the profile (unless ``profile`` is
+    False) breaks out ``lm_kernels``."""
     import torch
 
     from repro_torch.configs import get_arch
@@ -2109,12 +2206,17 @@ def serve_phase(phase: int, arch_name: str, lm_kernels: tuple, dev, *, seed: int
           f"{len(meter.decode_s)} decode steps of 4 slots, "
           f"{1e3 * statistics.mean(meter.decode_s):.3f} ms per step (median "
           f"{1e3 * statistics.median(meter.decode_s):.3f}); peak memory "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; every logit finite")
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB of the card's "
+          f"{torch.cuda.get_device_properties(0).total_memory / 2**30:.2f}; every logit finite")
     print(f"phase {phase} prompts: {[int(r.prompt_tokens) for r in trace]}, interactive "
           f"{[r.interactive for r in trace]}, outputs {[(r.rid, len(r.out)) for r in done]}")
     print(f"phase {phase} launches:", json.dumps(counts))
-    longest = max(prompts, key=len)
-    profile_serving(phase, cfg, params, batcher, longest, lm_kernels, dev)
+    if profile:
+        t_prof = time.perf_counter()
+        profile_serving(phase, cfg, params, batcher, max(prompts, key=len), lm_kernels, dev)
+        print(f"phase {phase} profile windows: {time.perf_counter() - t_prof:.2f} s")
+    else:
+        print(f"phase {phase} profile windows: cut for {arch_name}")
     del params, batcher, done
     gc.collect()
     torch.cuda.empty_cache()
@@ -2165,20 +2267,66 @@ def profile_serving(phase, cfg, params, batcher, prompt, lm_kernels, dev) -> Non
             print(f"  {e.device_time_total / 1e3:9.3f} ms  {e.count:6d}x  {e.key[:90]}")
 
 
-def parity_phase(dev) -> None:
-    """Phase 9: the three smoke configs in f32, the batcher on CUDA against
-    the CPU port: equal greedy tokens, prefill logits within 2e-4. jamba
-    smoke puts the Mamba prefill (``ssm_scan``) and decode, and the
-    per-row and global MoE, on the card."""
+def parity_archs() -> list[str]:
+    """Every decoder-only architecture of the registry (all but the
+    audio family), in the registry's order."""
+    from repro_torch.configs import get_arch, list_archs
+
+    return [name for name in list_archs() if get_arch(name).model.family != "audio"]
+
+
+def f32_smoke(name: str):
     import torch
 
     from repro_torch.configs import get_arch
-    from repro_torch.models import lm
+
+    return dataclasses.replace(get_arch(name).smoke, param_dtype=torch.float32,
+                               compute_dtype=torch.float32)
+
+
+def parity_phase(dev) -> None:
+    """Phase 9: the smoke configs in f32 on CUDA against the CPU port:
+    equal greedy tokens, prefill logits within 2e-4. Every decoder-only
+    one through the batcher (jamba smoke puts the Mamba prefill
+    (``ssm_scan``) and decode, and the per-row and global MoE, on the
+    card; arctic the dense MLP beside the MoE, llama4 the shared expert,
+    granite MQA and GELU); internvl2_2b once more through ``lm_prefill``
+    with patch embeddings in its first positions and 4 greedy steps;
+    whisper_small through ``runtime.make_serve_steps`` (encoder, decoder
+    prefill, 6 greedy steps)."""
+    import torch
+
+    from repro_torch.models import VIT_DIM, encdec, lm
+    from repro_torch.runtime import make_serve_steps, model_init
     from repro_torch.serving import ContinuousBatcher, Request
 
-    for name in ("rwkv6_7b", "gemma3_12b", "jamba_1p5_large_398b"):
-        cfg = dataclasses.replace(get_arch(name).smoke, param_dtype=torch.float32,
-                                  compute_dtype=torch.float32)
+    def check(name, logits, outs, what):
+        err = (logits["cuda"].cpu() - logits["cpu"]).abs().max().item()
+        if err > 2e-4:
+            raise AssertionError(f"phase 9: {name} {what} prefill logits differ by {err}")
+        if outs["cuda"] != outs["cpu"]:
+            raise AssertionError(f"phase 9: {name} {what} tokens differ: {outs['cuda']} vs "
+                                 f"{outs['cpu']}")
+        return err
+
+    def greedy_parity(name, what, base, prefill, decode, batch, max_len, start, steps):
+        """``prefill`` then ``steps`` greedy ``decode`` steps from
+        position ``start``, on the card and on the CPU from copies of
+        ``base``; checked by ``check``."""
+        outs, logits = {}, {}
+        for d in (dev, torch.device("cpu")):
+            params = copy.deepcopy(base).to(d)
+            lg, caches = prefill(params, {k: v.to(d) for k, v in batch.items()}, max_len)
+            logits[d.type], out = lg, []
+            for pos in range(start, start + steps):
+                nxt = torch.argmax(lg, dim=-1).to(torch.int32)
+                out.append(nxt.tolist())
+                lg, caches = decode(params, caches, nxt, pos)
+            outs[d.type] = out
+        return check(name, logits, outs, what)
+
+    for name in parity_archs():
+        cfg = f32_smoke(name)
         base = lm.lm_init(cfg, 0, device="cpu")
         rng = np.random.default_rng(1)
         prompts = [rng.integers(2, cfg.vocab, n).astype(np.int32) for n in (11, 23, 17, 30)]
@@ -2191,14 +2339,234 @@ def parity_phase(dev) -> None:
             for i, p in enumerate(prompts):
                 b.submit(Request(rid=i, tokens=p, max_new=6, interactive=i == 3))
             outs[d.type] = [(r.rid, r.out) for r in b.run_to_completion()]
-        err = (logits["cuda"].cpu() - logits["cpu"]).abs().max().item()
-        if err > 2e-4:
-            raise AssertionError(f"phase 9: {name} prefill logits differ by {err}")
-        if outs["cuda"] != outs["cpu"]:
-            raise AssertionError(f"phase 9: {name} tokens differ: {outs['cuda']} vs {outs['cpu']}")
+        err = check(name, logits, outs, "batcher")
         print(f"{CARD}: phase 9: {cfg.name} f32, CUDA == CPU: {len(outs['cpu'])} requests, "
               f"{sum(len(o) for _, o in outs['cpu'])} greedy tokens equal, prefill logits "
               f"max |diff| {err:.3g} (<= 2e-4)")
+
+    # internvl2_2b's frontend: 8 patch embeddings then tokens, 4 greedy steps
+    cfg = f32_smoke("internvl2_2b")
+    base = lm.lm_init(cfg, 0, device="cpu")
+    rng = np.random.default_rng(2)
+    toks = torch.from_numpy(rng.integers(2, cfg.vocab, (2, 24)).astype(np.int32))
+    fe = torch.from_numpy(rng.standard_normal((2, cfg.n_img_tokens, VIT_DIM)).astype(np.float32))
+    err = greedy_parity(
+        "internvl2_2b", "frontend", base,
+        lambda params, batch, max_len: lm.lm_prefill(cfg, params, batch, max_len=max_len),
+        lambda params, caches, nxt, pos: lm.lm_decode_step(cfg, params, caches, nxt, pos),
+        {"tokens": toks, "frontend_embeds": fe}, 32, 24, 4)
+    print(f"{CARD}: phase 9: {cfg.name} f32 with {cfg.n_img_tokens} patch embeddings, CUDA == CPU: "
+          f"2 x 4 greedy tokens equal, prefill logits max |diff| {err:.3g} (<= 2e-4)")
+
+    # whisper_small: encoder over 150 frames, 4 start tokens, 6 greedy steps
+    cfg = f32_smoke("whisper_small")
+    base = model_init(cfg, 0, device="cpu")
+    prefill, decode = make_serve_steps(cfg)
+    rng = np.random.default_rng(3)
+    frames = torch.from_numpy(rng.standard_normal((2, 150, VIT_DIM)).astype(np.float32))
+    toks = torch.from_numpy(rng.integers(2, cfg.vocab, (2, 4)).astype(np.int32))
+    err = greedy_parity("whisper_small", "make_serve_steps", base, prefill, decode,
+                        {"tokens": toks, "frontend_embeds": frames}, encdec.dec_len(cfg, 150), 4, 6)
+    print(f"{CARD}: phase 9: {cfg.name} f32 through make_serve_steps, CUDA == CPU: 2 x 6 greedy "
+          f"tokens equal, prefill logits max |diff| {err:.3g} (<= 2e-4)")
+
+
+# ---------------------------------------------------------------------------
+# Phases 13-15: the rest of the served zoo at published width.
+# ---------------------------------------------------------------------------
+# arch, layers served (None: every one), profiled. arctic: 128 experts of
+# 3 x 7168 x 4864 are 26.8 GB a layer, so two layers (55.4 GB of weights)
+# and not three (82.7); llama4: two (attn+dense, attn+moe) periods, 70.7
+# GB. The dense three are not profiled: tracing their 4,000-30,000
+# kernels a window on the host took most of the phase's wall
+ZOO_SERVED = (
+    ("gemma3_27b", None, False), ("granite_34b", None, False), ("phi3_mini_3p8b", None, False),
+    ("arctic_480b", 2, True), ("llama4_maverick_400b_a17b", 4, True),
+)
+
+
+# phase 14 (b): requests, positions (the first 256 patch embeddings), steps
+VLM_FRONTEND = (4, 1024, 16)
+# phase 15: label, clips, frames a clip, greedy steps
+WHISPER_CLIPS = (("(a)", 8, 1500, 32), ("(b)", 1, 32768, 16))
+
+
+def zoo_phase(dev) -> list[dict]:
+    """Phase 13: the five text configs at their published widths through
+    ``serve_phase``; returns each one's launches."""
+    return [serve_phase(13, name, ("flash_attention",), dev, n_layers=n_layers, profile=profile)
+            for name, n_layers, profile in ZOO_SERVED]
+
+
+class FlashCalls:
+    """Records (causal, B, Sq, Skv) of every ``flash_attention`` call the
+    models make (the kernel's wrapper counts its launches itself)."""
+
+    def __enter__(self):
+        from repro_torch.models import attention
+
+        self.module, self.saved, self.calls = attention, attention.flash_attention, []
+
+        def recorded(q, k, v, **kw):
+            self.calls.append((bool(kw.get("causal", True)), q.shape[0], q.shape[1], k.shape[1]))
+            return self.saved(q, k, v, **kw)
+
+        attention.flash_attention = recorded
+        return self
+
+    def __exit__(self, *exc):
+        self.module.flash_attention = self.saved
+
+
+def finite(logits, what: str) -> None:
+    import torch
+
+    if not bool(torch.isfinite(logits.float()).all()):
+        raise AssertionError(f"{what} produced a logit that is not finite")
+
+
+def vlm_phase(dev) -> list[dict]:
+    """Phase 14: internvl2_2b at full size: (a) the batcher serve of
+    ``serve_phase``; (b) its frontend path: 4 requests whose first 256
+    positions are patch embeddings [4, 256, 1024] from a numpy seed, one
+    1,024-position ``lm_prefill`` of the 4, then 16 greedy decode steps;
+    every logit finite, and the prefill logits move when the embeddings
+    do. Returns the launches of (a) and (b)."""
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import VIT_DIM, lm
+
+    served = serve_phase(14, "internvl2_2b", ("flash_attention",), dev)
+    cfg = get_arch("internvl2_2b").model
+    params = lm.lm_init(cfg, 0, device=dev)
+    rng = np.random.default_rng(14)
+    B, S, steps = VLM_FRONTEND
+    toks = torch.as_tensor(rng.integers(2, cfg.vocab, (B, S)).astype(np.int32), device=dev)
+    fe = torch.as_tensor(rng.standard_normal((B, cfg.n_img_tokens, VIT_DIM)).astype(np.float32),
+                         device=dev)
+    reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, caches = lm.lm_prefill(cfg, params, {"tokens": toks, "frontend_embeds": fe},
+                                   max_len=S + steps)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    finite(logits, "phase 14 (b) prefill")
+    first = logits.float()
+    step_s = []
+    for pos in range(S, S + steps):
+        nxt = torch.argmax(logits, dim=-1).to(torch.int32)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, caches = lm.lm_decode_step(cfg, params, caches, nxt, pos)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        finite(logits, "phase 14 (b) decode")
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    # the same prompts with other patch embeddings: the logits move
+    other, _ = lm.lm_prefill(cfg, params, {"tokens": toks, "frontend_embeds": -fe}, max_len=S + steps)
+    moved = (other.float() - first).abs().max().item()
+    if not moved > 0:
+        raise AssertionError("phase 14 (b): the prefill logits do not move with the embeddings")
+    if counts["flash_attention"] <= 0:
+        raise AssertionError("phase 14 (b): flash_attention was not launched")
+    print(f"{CARD}: phase 14 (b): internvl2_2b frontend path, {B} requests of {cfg.n_img_tokens} "
+          f"patch embeddings + {S - cfg.n_img_tokens} tokens: prefill {1e3 * prefill_s:.3f} ms "
+          f"({B * S / prefill_s:.1f} tokens/s), {steps} decode steps "
+          f"{1e3 * statistics.mean(step_s):.3f} ms per step (median "
+          f"{1e3 * statistics.median(step_s):.3f}), peak memory {peak:.2f} GiB; every logit finite; "
+          f"other embeddings move the prefill logits by up to {moved:.4g}; launches "
+          f"{json.dumps(counts)}")
+    del params, caches
+    gc.collect()
+    torch.cuda.empty_cache()
+    return [served, counts]
+
+
+def whisper_phase(dev) -> list[dict]:
+    """Phase 15: whisper_small at full size through
+    ``runtime.make_serve_steps``: (a) 8 clips of 1,500 frames (the 30 s
+    window after the stride-2 convolution), 4 start tokens, 32 greedy
+    steps, ``max_dec = dec_len(1500)``; (b) one long-form clip of 32,768
+    frames, 16 steps. Encoder ms, prefill ms (encoder included), ms per
+    decode step and peak memory; every logit finite, ``flash_attention``
+    launched, not causal for the encoder and every cross-attention call.
+    Returns the launches of (a) and (b)."""
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import VIT_DIM, encdec
+    from repro_torch.models.common import param_count
+    from repro_torch.runtime import make_serve_steps, model_init
+
+    cfg = get_arch("whisper_small").model
+    t0 = time.perf_counter()
+    params = model_init(cfg, 0, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    prefill, decode = make_serve_steps(cfg)
+    rng = np.random.default_rng(15)
+    out = []
+    for label, B, S_enc, steps in WHISPER_CLIPS:
+        frames = torch.as_tensor(rng.standard_normal((B, S_enc, VIT_DIM)).astype(np.float32),
+                                 device=dev)
+        toks = torch.as_tensor(rng.integers(2, cfg.vocab, (B, 4)).astype(np.int32), device=dev)
+        max_dec = encdec.dec_len(cfg, S_enc)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        enc = encdec.encode(cfg, params, frames)
+        torch.cuda.synchronize()
+        enc_s = time.perf_counter() - t0
+        del enc
+        reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        step_s = []
+        with FlashCalls() as flash:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, caches = prefill(params, {"tokens": toks, "frontend_embeds": frames}, max_dec)
+            torch.cuda.synchronize()
+            prefill_s = time.perf_counter() - t0
+            finite(logits, f"phase 15 {label} prefill")
+            for pos in range(4, 4 + steps):
+                nxt = torch.argmax(logits, dim=-1).to(torch.int32)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                logits, caches = decode(params, caches, nxt, pos)
+                torch.cuda.synchronize()
+                step_s.append(time.perf_counter() - t0)
+                finite(logits, f"phase 15 {label} decode")
+        counts = launch_counts()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        non_causal = [c for c in flash.calls if not c[0]]
+        # every encoder layer and every decoder layer's cross-attention,
+        # at prefill and at each step, is a call without the causal mask
+        want = cfg.n_enc_layers + cfg.n_layers * (1 + steps)
+        if len(non_causal) != want or counts["flash_attention"] != len(flash.calls):
+            raise AssertionError(f"phase 15 {label}: {len(non_causal)} non-causal flash_attention "
+                                 f"calls (want {want}), {counts['flash_attention']} launches of "
+                                 f"{len(flash.calls)} calls")
+        shapes = sorted({c[1:] for c in non_causal})
+        print(f"{CARD}: phase 15 {label}: whisper_small at full size ({param_count(params)} "
+              f"parameters, {cfg.param_dtype}, drawn on the card in {init_s:.2f} s), {B} clip(s) of "
+              f"{S_enc} frames, max_dec {max_dec}: encoder {1e3 * enc_s:.3f} ms, prefill "
+              f"{1e3 * prefill_s:.3f} ms (encoder included), {steps} decode steps "
+              f"{1e3 * statistics.mean(step_s):.3f} ms per step (median "
+              f"{1e3 * statistics.median(step_s):.3f}), peak memory {peak:.2f} GiB; every logit "
+              f"finite; flash_attention {counts['flash_attention']} launches, {len(non_causal)} "
+              f"not causal at (B, Sq, Skv) {shapes}")
+        print(f"phase 15 {label} launches:", json.dumps(counts))
+        out.append(counts)
+        del caches, logits, frames
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
 
 
 def card_phase():
@@ -2345,6 +2713,9 @@ def main() -> int:
     search_counts = phase(11, search_phase, dev)
     surface_counts = phase(12, surface_phase, dev, cache_runs, grid, chaos_run, loop_lane)
     del cache_runs, grid, chaos_run, loop_lane
+    zoo_counts = phase(13, zoo_phase, dev)
+    vlm_counts = phase(14, vlm_phase, dev)
+    whisper_counts = phase(15, whisper_phase, dev)
     print(f"{CARD}: phase walls (s): " + json.dumps({str(k): round(v, 3) for k, v in walls.items()})
           + f", total {time.perf_counter() - t_all:.2f}")
 
@@ -2366,7 +2737,8 @@ def main() -> int:
     }
     main_runs = (run_counts, fleet_counts, *replay_counts, *cache_counts, grid_counts,
                  *telemetry_counts, *chaos_counts, *overload_counts, rwkv_counts, gemma_counts,
-                 jamba_counts, search_counts, *surface_counts)
+                 jamba_counts, search_counts, *surface_counts, *zoo_counts, *vlm_counts,
+                 *whisper_counts)
     rows = []
     for name in KERNELS:
         m = measured[name]

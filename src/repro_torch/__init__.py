@@ -14,8 +14,11 @@ library (``core.scenarios``: ``scenario_fleet``), with event tracing
 over fleets (``repro_torch.search``: ``cem_search``) — through four
 hand-written CUDA kernels, and serving (``launch/serve.py``: the
 simulator picks the policy, ``serving/`` batches requests through
-``models/`` for ``rwkv6_7b``, ``gemma3_12b`` and jamba) through three
-more (``kernels/``, sources in ``csrc/``). The paper's surface is here
+``models/`` for every architecture of ``configs/``: the decoder-only
+LMs, MoE, hybrid and RWKV stacks, ``internvl2_2b``'s stubbed vision
+frontend, and ``whisper_small``'s encoder-decoder through
+``runtime.make_serve_steps``) through three more (``kernels/``,
+sources in ``csrc/``). The paper's surface is here
 too: ``run_simulator`` (Listing 3), user schedulers of Listing 4 on the
 reference Python engine (``run(engine="python")``,
 ``core/engine_python.py``), ``core/viz.py``, the CLI

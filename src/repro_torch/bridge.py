@@ -5,8 +5,9 @@ Both packages use the same field names; the JAX package's ``Workload``
 and ``SimState`` become numpy arrays (``np.asarray`` of every field) on
 its side, and these functions turn such arrays into the port's lane-major
 tensors and back. A per-lane array set (no fleet axis) gains a lane
-axis of one. ``lm_params_from_arrays`` turns the JAX ``lm_init``
-parameter tree into the port's per-layer modules. Used by the parity
+axis of one. ``lm_params_from_arrays`` and ``encdec_params_from_arrays``
+turn the JAX ``lm_init`` and ``encdec_init`` parameter trees into the
+port's per-layer modules. Used by the parity
 tests; nothing on the simulation or serving path calls it.
 """
 from __future__ import annotations
@@ -80,6 +81,14 @@ def _param_tensor(a) -> torch.Tensor:
     return torch.from_numpy(a.copy())
 
 
+def _tensors(node, index=None):
+    """A numpy tree (nested mappings) as CPU tensors; ``index`` takes
+    slice ``index`` of every leaf's leading axis."""
+    if isinstance(node, Mapping):
+        return {name: _tensors(child, index) for name, child in node.items()}
+    return _param_tensor(node if index is None else np.asarray(node)[index])
+
+
 def lm_params_from_arrays(cfg, tree):
     """The port's ``LM`` parameters (on the CPU) from the JAX package's
     ``lm_init`` parameter tree given as numpy arrays. The JAX tree stacks
@@ -89,24 +98,34 @@ def lm_params_from_arrays(cfg, tree):
     from .models.blocks import Block
     from .models.lm import LM
 
-    def tensors(node, index=None):
-        if isinstance(node, Mapping):
-            return {name: tensors(child, index) for name, child in node.items()}
-        return _param_tensor(node if index is None else np.asarray(node)[index])
-
     layers = [None] * cfg.n_layers
     for i, stacked in enumerate(tree["stack"]["periods"]):
         for p in range(cfg.n_periods):
-            layers[p * cfg.period + i] = Block(cfg.pattern[i], tensors(stacked, p))
+            layers[p * cfg.period + i] = Block(cfg.pattern[i], _tensors(stacked, p))
     base = cfg.n_periods * cfg.period
     for t, layer in enumerate(tree["stack"]["tail"]):
-        layers[base + t] = Block(cfg.pattern[t % cfg.period], tensors(layer))
-    head = tree.get("head")
+        layers[base + t] = Block(cfg.pattern[t % cfg.period], _tensors(layer))
+    head, frontend = tree.get("head"), tree.get("frontend_proj")
     return LM(_param_tensor(tree["embed"]), _param_tensor(tree["final_norm"]),
-              None if head is None else _param_tensor(head), layers)
+              None if head is None else _param_tensor(head), layers,
+              None if frontend is None else _param_tensor(frontend))
+
+
+def encdec_params_from_arrays(cfg, tree):
+    """The port's ``EncDec`` parameters (on the CPU) from the JAX
+    package's ``encdec_init`` parameter tree given as numpy arrays. The
+    JAX tree stacks the encoder and decoder layers on a leading axis
+    (``enc``, ``dec``): slice ``i`` becomes layer ``i``."""
+    from .models.encdec import EncDec, EncDecLayer
+
+    enc = [EncDecLayer(_tensors(tree["enc"], i)) for i in range(cfg.n_enc_layers)]
+    dec = [EncDecLayer(_tensors(tree["dec"], i)) for i in range(cfg.n_layers)]
+    return EncDec(*(_param_tensor(tree[name]) for name in
+                    ("frontend_proj", "embed", "enc_norm", "final_norm", "head")), enc, dec)
 
 
 __all__ = [
+    "encdec_params_from_arrays",
     "lm_params_from_arrays",
     "state_from_arrays",
     "state_to_arrays",

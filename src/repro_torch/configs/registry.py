@@ -1,10 +1,12 @@
 """Architecture registry of the port: full configs + reduced smoke configs.
 
-Each ported architecture registers an :class:`ArchSpec` from its own
-module (``configs/<id>.py``), its ``model`` and ``smoke`` configs copied
-field for field from ``repro.configs.<id>`` (without ``attn_impl``).
-``get_arch`` of an architecture the JAX package has and the port does
-not yet raises ``NotImplementedError`` naming the ROADMAP item.
+Every architecture of the JAX package registers an :class:`ArchSpec`
+from its own module (``configs/<id>.py``), its ``model`` and ``smoke``
+configs copied field for field from ``repro.configs.<id>`` (without
+``attn_impl``). ``ArchSpec`` holds what serving reads; the training
+fields of the JAX package's (``optimizer``, ``opt_state_dtype``,
+``train_microbatches``, ``shapes``, ``skip``) wait for ROADMAP queue 1,
+item 15 (c), and its sharding overrides for item 16.
 """
 from __future__ import annotations
 
@@ -27,12 +29,18 @@ class ArchSpec:
 
 _REGISTRY: dict[str, ArchSpec] = {}
 
-ARCH_MODULES = ["gemma3_12b", "jamba_1p5_large_398b", "rwkv6_7b"]
-# the JAX package's other architectures, each waiting for its layers
-LATER_ARCHS = (
-    "arctic_480b", "gemma3_27b", "granite_34b", "internvl2_2b",
-    "llama4_maverick_400b_a17b", "phi3_mini_3p8b", "whisper_small",
-)
+ARCH_MODULES = [
+    "gemma3_12b",
+    "granite_34b",
+    "phi3_mini_3p8b",
+    "gemma3_27b",
+    "internvl2_2b",
+    "llama4_maverick_400b_a17b",
+    "arctic_480b",
+    "whisper_small",
+    "jamba_1p5_large_398b",
+    "rwkv6_7b",
+]
 
 
 def register(spec: ArchSpec) -> ArchSpec:
@@ -52,11 +60,6 @@ def get_arch(name: str) -> ArchSpec:
     for cand in (name, key):
         if cand in _REGISTRY:
             return _REGISTRY[cand]
-        if cand in LATER_ARCHS:
-            raise NotImplementedError(
-                f"arch {cand!r} is not ported yet: its config and layers wait for "
-                "ROADMAP queue 1, item 15"
-            )
     raise KeyError(f"unknown arch {name!r}; ported: {sorted(_REGISTRY)}")
 
 
@@ -66,4 +69,9 @@ def list_archs() -> list[str]:
     return sorted(_REGISTRY)
 
 
-__all__ = ["ArchSpec", "register", "get_arch", "list_archs"]
+def pad_vocab(v: int, multiple: int = 256) -> int:
+    """Pad vocab to a multiple so it TP-shards cleanly (noted per config)."""
+    return ((v + multiple - 1) // multiple) * multiple
+
+
+__all__ = ["ArchSpec", "register", "get_arch", "list_archs", "pad_vocab"]

@@ -8,7 +8,8 @@ port of ``repro.launch.serve``.
 2. Replays it in the simulator under each candidate scheduling policy
    (paper §4) and picks the winner.
 3. Serves the trace through the continuous batcher (smoke config) with
-   that policy.
+   that policy. The batcher serves decoder-only architectures; whisper's
+   encoder-decoder stops before this step, as in the JAX package.
 
 Everything runs on ``--device`` (CUDA unless the caller asks for the
 CPU, where the kernels' plain versions run).
@@ -65,6 +66,8 @@ def main(argv=None) -> None:
     print(f"-> selected policy: {policy}")
 
     # ---- 3. real serving under the chosen policy -------------------------
+    if cfg.family == "audio":
+        raise SystemExit("serve demo supports decoder-only archs")
     params = lm.lm_init(cfg, 0, device=args.device)
     batcher = ContinuousBatcher(cfg, params, slots=args.slots, max_len=64, policy=policy)
     for i, r in enumerate(trace):

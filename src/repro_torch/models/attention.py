@@ -1,15 +1,16 @@
 """GQA attention block: projections + RoPE + flash attention + KV cache.
 
-A port of ``repro.models.attention`` for decoder self-attention: MQA,
-MHA and GQA, sliding-window local layers with a ring-buffer cache
-(gemma3 5:1 local:global), and one-token decode against a cache.
-Every multi-token call goes to ``kernels.flash_attention`` (the CUDA
-kernel for CUDA tensors): the full-sequence prefill of a ring-cache
-layer, and the prefill of a plain-cache layer against its cache with
-``q_offset``/``kv_len``. One-token decode is ``decode_attention``, a
-plain masked einsum, as in the JAX package. The cache-free call of
-training, non-causal encoder attention, cross-attention and
-``encode_kv`` (whisper) wait for ROADMAP queue 1, item 15.
+A port of ``repro.models.attention``: MQA (granite kv=1), MHA (phi3
+kv=32), GQA (everything else), sliding-window local layers with a
+ring-buffer cache (gemma3 5:1 local:global), non-causal encoder
+attention and cross-attention (whisper), and one-token decode against a
+cache. Every multi-token call goes to ``kernels.flash_attention`` (the
+CUDA kernel for CUDA tensors): the cache-free call over the K/V in
+flight (the encoder's, non-causal), the full-sequence prefill of a
+ring-cache layer, the prefill of a plain-cache layer against its cache
+with ``q_offset``/``kv_len``, and every cross-attention call, one-token
+decode included. One-token decode against a self-attention cache is
+``decode_attention``, a plain masked einsum, as in the JAX package.
 
 Caches are updated in place (the JAX package returns new arrays): a
 cache belongs to its caller, and writing into it saves a copy of every
@@ -36,6 +37,10 @@ def attn_init(cfg: ModelConfig, gen: torch.Generator) -> dict:
     }
 
 
+def cross_attn_init(cfg: ModelConfig, gen: torch.Generator) -> dict:
+    return attn_init(cfg, gen)
+
+
 class KVCache(NamedTuple):
     k: torch.Tensor  # [B, S_max, KV, hd]
     v: torch.Tensor
@@ -56,16 +61,32 @@ def attn_apply(
     *,
     positions: torch.Tensor,           # [S] int
     window: int = 0,
-    cache: KVCache,
+    causal: bool = True,
+    use_rope: bool = True,
+    cache: KVCache | None = None,
     cache_index: int = 0,              # tokens already in the cache
+    kv_override: tuple | None = None,  # (k, v) for cross-attention
 ):
-    """Causal self-attention against ``cache``, which is written in
-    place. Returns (y [B,S,d], cache)."""
-    B, S, _ = x.shape
-    q = rotary(torch.einsum("bsd,dhn->bshn", x, p["wq"]), positions, cfg.rope_theta)
-    k = rotary(torch.einsum("bsd,dkn->bskn", x, p["wk"]), positions, cfg.rope_theta)
-    v = torch.einsum("bsd,dkn->bskn", x, p["wv"])
+    """Returns (y [B,S,d], cache). With ``cache`` and no ``kv_override``
+    the fresh K/V are written into the cache in place (causal, as in the
+    JAX package); otherwise the call attends over the K/V in flight (or
+    ``kv_override``'s) and returns no cache."""
+    q = torch.einsum("bsd,dhn->bshn", x, p["wq"])
+    if kv_override is None:
+        k = torch.einsum("bsd,dkn->bskn", x, p["wk"])
+        v = torch.einsum("bsd,dkn->bskn", x, p["wv"])
+        if use_rope:
+            k = rotary(k, positions, cfg.rope_theta)
+    else:
+        k, v = kv_override
+    if use_rope:
+        q = rotary(q, positions, cfg.rope_theta)
 
+    if cache is None or kv_override is not None:
+        y = flash_attention(q, k, v, causal=causal, window=window)
+        return torch.einsum("bshn,hnd->bsd", y, p["wo"]), None
+
+    S = x.shape[1]
     idx = int(cache_index)
     if window > 0 and cache.k.shape[1] == window:
         return _ring_cache_attend(p, q, k, v, cache, idx, S, window)
@@ -76,7 +97,7 @@ def attn_apply(
     if S == 1:
         y = decode_attention(q, cache.k, cache.v, kv_len=kv_len, window=window, q_pos=idx)
     else:
-        y = flash_attention(q, cache.k, cache.v, causal=True, window=window,
+        y = flash_attention(q, cache.k, cache.v, causal=causal, window=window,
                             q_offset=idx, kv_len=kv_len)
     return torch.einsum("bshn,hnd->bsd", y, p["wo"]), cache
 
@@ -131,10 +152,20 @@ def decode_attention(q, k, v, *, kv_len, window=0, q_pos=0, slot_pos=None):
     return out.reshape(B, 1, H, D).to(q.dtype)
 
 
+def encode_kv(cfg: ModelConfig, p, enc_out: torch.Tensor):
+    """Cross-attention K/V of the encoder output (whisper): [B, S_enc,
+    KV, hd] each, no rotary."""
+    k = torch.einsum("bsd,dkn->bskn", enc_out, p["wk"])
+    v = torch.einsum("bsd,dkn->bskn", enc_out, p["wv"])
+    return k, v
+
+
 __all__ = [
     "KVCache",
     "attn_apply",
     "attn_init",
+    "cross_attn_init",
     "decode_attention",
+    "encode_kv",
     "init_kv_cache",
 ]

@@ -1,10 +1,13 @@
-"""Causal LM: init, prefill, decode.
+"""Causal LM (+ VLM variant): init, prefill, decode.
 
 A port of ``repro.models.lm`` for serving. The JAX package scans over
 stacked repeats of the layer pattern; the port keeps one ``Block``
 module per layer, layer ``i`` having spec ``cfg.pattern[i % period]``,
-and caches as one entry per layer. ``lm_loss`` (training) and the
-vlm/audio frontends wait for later slices and raise.
+and caches as one entry per layer. The vlm and audio families carry the
+stubbed frontend's projector ``frontend_proj`` [VIT_DIM, d]: a batch's
+``frontend_embeds`` [B, n_img, VIT_DIM] take the first ``n_img``
+positions. ``lm_loss`` (training) waits for ROADMAP queue 1, item 15 (c),
+and raises.
 
 The entry points run where the parameters live: ``lm_init`` puts them on
 CUDA unless the caller asks for the CPU.
@@ -17,27 +20,27 @@ import torch
 from torch import nn
 
 from ..core.engine import resolve_device
-from .blocks import Block, block_apply, block_init, init_block_cache
+from .blocks import Block, _frozen, block_apply, block_init, init_block_cache
 from .common import ModelConfig, normal, rms_norm
 
 
-def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family in ("vlm", "audio"):
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family} frontend waits for ROADMAP queue 1, item 15"
-        )
+VIT_DIM = 1024  # stubbed vision/audio frontend embedding width
 
 
 class LM(nn.Module):
     """The parameters of a causal LM: ``embed`` [V, d], ``final_norm``
-    [d], ``head`` [d, V] (None with tied embeddings) and ``layers``."""
+    [d], ``head`` [d, V] (None with tied embeddings), ``layers`` and
+    ``frontend_proj`` [VIT_DIM, d] (None outside the vlm and audio
+    families)."""
 
     def __init__(self, embed: torch.Tensor, final_norm: torch.Tensor,
-                 head: torch.Tensor | None, layers: Sequence[Block]):
+                 head: torch.Tensor | None, layers: Sequence[Block],
+                 frontend_proj: torch.Tensor | None = None):
         super().__init__()
-        self.embed = nn.Parameter(embed, requires_grad=False)
-        self.final_norm = nn.Parameter(final_norm, requires_grad=False)
-        self.head = None if head is None else nn.Parameter(head, requires_grad=False)
+        self.embed = _frozen(embed)
+        self.final_norm = _frozen(final_norm)
+        self.head = None if head is None else _frozen(head)
+        self.frontend_proj = None if frontend_proj is None else _frozen(frontend_proj)
         self.layers = nn.ModuleList(layers)
 
     @property
@@ -49,14 +52,16 @@ def lm_init(cfg: ModelConfig, seed: int = 0, *, device="cuda") -> LM:
     """Parameters drawn from ``seed`` on ``device`` (CUDA unless the
     caller asks for the CPU), with the scales of the JAX init."""
     cfg.validate()
-    _check_family(cfg)
     device = resolve_device(device)
     gen = torch.Generator(device=device).manual_seed(int(seed))
     embed = normal(gen, (cfg.vocab, cfg.d_model), 0.02, cfg.param_dtype)
     final_norm = torch.zeros((cfg.d_model,), dtype=torch.float32, device=device)
     head = None if cfg.tie_embeddings else normal(gen, (cfg.d_model, cfg.vocab), 0.02, cfg.param_dtype)
+    frontend_proj = None
+    if cfg.family in ("vlm", "audio"):
+        frontend_proj = normal(gen, (VIT_DIM, cfg.d_model), 0.02, cfg.param_dtype)
     layers = [block_init(cfg, cfg.layer_spec(i), gen) for i in range(cfg.n_layers)]
-    return LM(embed, final_norm, head, layers)
+    return LM(embed, final_norm, head, layers, frontend_proj)
 
 
 def init_caches(cfg: ModelConfig, batch: int, max_len: int, device) -> list:
@@ -67,9 +72,13 @@ def init_caches(cfg: ModelConfig, batch: int, max_len: int, device) -> list:
 
 
 def _embed(cfg: ModelConfig, params: LM, batch: dict) -> torch.Tensor:
-    if "frontend_embeds" in batch:
-        _check_family(cfg)
-    return params.embed[batch["tokens"].long()].to(cfg.compute_dtype)
+    x = params.embed[batch["tokens"].long()].to(cfg.compute_dtype)
+    if cfg.family in ("vlm", "audio") and "frontend_embeds" in batch:
+        fe = torch.einsum("bsv,vd->bsd", batch["frontend_embeds"].to(cfg.compute_dtype),
+                          params.frontend_proj)
+        n_img = fe.shape[1]
+        x = torch.cat([fe, x[:, n_img:]], dim=1)
+    return x
 
 
 def _stack_apply(cfg: ModelConfig, params: LM, x, *, positions, mode: str, caches, cache_index):
@@ -88,7 +97,7 @@ def _logits(cfg: ModelConfig, params: LM, h: torch.Tensor) -> torch.Tensor:
 
 
 def lm_loss(cfg: ModelConfig, params: LM, batch: dict, **_):
-    raise NotImplementedError("lm_loss (training) waits for ROADMAP queue 1, item 15")
+    raise NotImplementedError("lm_loss (training) waits for ROADMAP queue 1, item 15 (c)")
 
 
 @torch.no_grad()
@@ -120,6 +129,7 @@ def lm_decode_step(cfg: ModelConfig, params: LM, caches, token: torch.Tensor, po
 
 __all__ = [
     "LM",
+    "VIT_DIM",
     "init_caches",
     "lm_decode_step",
     "lm_init",

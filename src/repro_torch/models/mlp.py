@@ -21,7 +21,7 @@ the sort ``torch.sort(stable=True)`` and the combine ``index_add_``
 (at most ``K`` contributions reach a token, so the sum is exact in any
 order). The JAX package's sharded dispatch (``shard_map`` over the batch
 and expert axes) waits for ROADMAP queue 1, item 16, and the auxiliary
-load-balance loss for training (item 15).
+load-balance loss for training (item 15 (c)).
 """
 from __future__ import annotations
 

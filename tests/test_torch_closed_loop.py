@@ -51,6 +51,7 @@ from repro_torch.core.faults import attach_fault_traces
 from repro_torch.core.state import CLOSED_LOOP_FIELDS, SimState, init_state, tree_map
 from repro_torch.core.sweep import make_workload_batch
 from repro_torch.core.types import INF_TICK
+from test_torch_models import release_jax_executables  # noqa: F401 (autouse)
 
 TOLERANT = {
     "sum_latency_s", "sum_latency_s_prio", "util_cpu_s", "util_ram_s",

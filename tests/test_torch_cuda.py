@@ -29,7 +29,7 @@ from repro_torch import (
     workload_batch_from_traces,
     workload_to_trace_records,
 )
-from repro_torch.configs import get_arch
+from repro_torch.configs import get_arch, list_archs
 from repro_torch.core.state import workload_lane
 from repro_torch.kernels import (
     KERNELS,
@@ -681,6 +681,12 @@ FLASH_CUDA_CASES = [
     (1, 256, 256, 16, 2, 128, True, 0, 0, None),     # jamba's head width, G = 8
     (1, 100, 384, 4, 2, 256, True, 96, 150, 250),    # D 256: q_offset, kv_len and window
     (2, 200, 200, 8, 4, 64, True, 0, 0, None),       # Sq not a multiple of the query tile
+    (1, 200, 200, 4, 4, 96, True, 0, 0, None),       # phi3's head width 96 (padded to 128)
+    (1, 64, 300, 2, 2, 96, False, 0, 0, None),       # D 96 over five key tiles, both ring stages
+    (1, 130, 256, 48, 1, 128, True, 0, 0, 130),      # granite's MQA: 48 heads on one KV head
+    (2, 300, 1500, 4, 4, 64, False, 0, 0, None),     # whisper's encoder: 1,500 keys, not causal
+    (2, 4, 1500, 4, 4, 64, False, 0, 0, None),       # cross-attention at prefill (Sq 4)
+    (3, 1, 1500, 12, 12, 64, False, 0, 0, None),     # cross-attention at a decode step (Sq 1)
 ]
 
 
@@ -779,8 +785,12 @@ def test_ssm_scan_kernel_without_state_and_empty_batch(cuda):
     assert y.shape == (0, 24, 32) and h.shape == (0, 32, 16)
 
 
+# every decoder-only architecture of the registry (all but the audio family)
+SERVED_SMOKE = [name for name in list_archs() if get_arch(name).model.family != "audio"]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("name", ["rwkv6_7b", "gemma3_12b", "jamba_1p5_large_398b"])
+@pytest.mark.parametrize("name", SERVED_SMOKE)
 def test_serving_goes_through_the_lm_kernels(cuda, name):
     from repro_torch.models import lm
     from repro_torch.serving.batching import ContinuousBatcher, Request
@@ -798,10 +808,75 @@ def test_serving_goes_through_the_lm_kernels(cuda, name):
         outs[dev.type] = [(r.rid, r.out) for r in b.run_to_completion()]
         counts = launch_counts()
         if dev.type == "cuda":
-            kernels = {"rwkv6_7b": ("rwkv6_scan",), "gemma3_12b": ("flash_attention",),
-                       "jamba_1p5_large_398b": ("ssm_scan", "flash_attention")}[name]
+            kernels = {"rwkv6_7b": ("rwkv6_scan",),
+                       "jamba_1p5_large_398b": ("ssm_scan", "flash_attention")}.get(
+                           name, ("flash_attention",))
             assert all(counts[k] > 0 for k in kernels), counts
     assert outs["cuda"] == outs["cpu"]
+
+
+def _greedy_on_both(cuda, base, prefill, decode, batch, max_len, start, steps):
+    """``prefill`` then ``steps`` greedy ``decode`` steps from position
+    ``start``, on the card and on the CPU from copies of ``base``: for
+    each device the prefill logits (on the CPU), the tokens and the
+    ``flash_attention`` launches."""
+    got = {}
+    for dev in (cuda, torch.device("cpu")):
+        params = copy.deepcopy(base).to(dev)
+        reset_launch_counts()
+        logits, caches = prefill(params, {k: v.to(dev) for k, v in batch.items()}, max_len)
+        first, out = logits.cpu(), []
+        for pos in range(start, start + steps):
+            nxt = torch.argmax(logits, dim=-1).to(torch.int32)
+            out.append(nxt.tolist())
+            logits, caches = decode(params, caches, nxt, pos)
+        got[dev.type] = (first, out, launch_counts()["flash_attention"])
+    return got
+
+
+@pytest.mark.cuda
+def test_vlm_frontend_prefill_on_the_card(cuda):
+    """internvl2_2b smoke in f32 with patch embeddings in its first
+    positions: the card's prefill logits within 2e-4 of the CPU port's,
+    and three greedy decode steps give the same tokens."""
+    from repro_torch.models import VIT_DIM, lm
+
+    cfg = dataclasses.replace(get_arch("internvl2_2b").smoke, param_dtype=torch.float32,
+                              compute_dtype=torch.float32)
+    base = lm.lm_init(cfg, 0, device="cpu")
+    rng = np.random.default_rng(5)
+    toks = torch.from_numpy(rng.integers(2, cfg.vocab, (2, 20)).astype(np.int32))
+    fe = torch.from_numpy(rng.standard_normal((2, cfg.n_img_tokens, VIT_DIM)).astype(np.float32))
+    got = _greedy_on_both(
+        cuda, base, lambda params, batch, max_len: lm.lm_prefill(cfg, params, batch, max_len=max_len),
+        lambda params, caches, nxt, pos: lm.lm_decode_step(cfg, params, caches, nxt, pos),
+        {"tokens": toks, "frontend_embeds": fe}, 32, 20, 3)
+    assert got["cuda"][2] > 0 and got["cuda"][1] == got["cpu"][1]
+    assert (got["cuda"][0] - got["cpu"][0]).abs().max().item() <= 2e-4
+
+
+@pytest.mark.cuda
+def test_whisper_serve_steps_on_the_card(cuda):
+    """whisper_small smoke in f32 through ``runtime.make_serve_steps``:
+    encoder, decoder prefill and four greedy decode steps on the card
+    give the CPU port's tokens, with ``flash_attention`` launched for
+    the encoder and for the cross-attention of every step."""
+    from repro_torch.models import VIT_DIM, encdec
+    from repro_torch.runtime import make_serve_steps, model_init
+
+    cfg = dataclasses.replace(get_arch("whisper_small").smoke, param_dtype=torch.float32,
+                              compute_dtype=torch.float32)
+    base = model_init(cfg, 0, device="cpu")
+    rng = np.random.default_rng(6)
+    frames = torch.from_numpy(rng.standard_normal((2, 150, VIT_DIM)).astype(np.float32))
+    toks = torch.from_numpy(rng.integers(2, cfg.vocab, (2, 4)).astype(np.int32))
+    prefill, decode = make_serve_steps(cfg)
+    got = _greedy_on_both(cuda, base, prefill, decode, {"tokens": toks, "frontend_embeds": frames},
+                          encdec.dec_len(cfg, 150), 4, 4)
+    # encoder layers + decoder prefill (self and cross) + one cross call a step
+    n = cfg.n_enc_layers + 2 * cfg.n_layers + 4 * cfg.n_layers
+    assert got["cuda"][2] == n and got["cuda"][1] == got["cpu"][1]
+    assert (got["cuda"][0] - got["cpu"][0]).abs().max().item() <= 2e-4
 
 
 # ---------------------------------------------------------------------------

@@ -35,6 +35,7 @@ from repro_torch.core.workload import (
     workload_from_pipelines,
     workload_from_trace_records,
 )
+from test_torch_models import release_jax_executables  # noqa: F401 (autouse)
 
 TOLERANT = {
     "sum_latency_s", "sum_latency_s_prio", "util_cpu_s", "util_ram_s",

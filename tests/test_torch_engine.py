@@ -30,6 +30,7 @@ from repro_torch.core.executor import bucket_edges
 from repro_torch.core.scheduler import get_scheduler
 from repro_torch.core.state import init_state
 from test_torch_serving import _assert_summary_equal
+from test_torch_models import release_jax_executables  # noqa: F401 (autouse)
 
 TOLERANT = {
     "sum_latency_s", "sum_latency_s_prio", "util_cpu_s", "util_ram_s",

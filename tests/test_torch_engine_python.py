@@ -48,6 +48,7 @@ from repro_torch.bridge import workload_from_arrays
 from repro_torch.core import engine_python, executor
 from repro_torch.core.state import CLOSED_LOOP_FIELDS
 from repro_torch.core.types import Operator, Pipeline, Priority
+from test_torch_models import release_jax_executables  # noqa: F401 (autouse)
 
 TOLERANT = {
     "sum_latency_s", "sum_latency_s_prio", "util_cpu_s", "util_ram_s",

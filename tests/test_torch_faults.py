@@ -48,6 +48,7 @@ from repro_torch.core.state import FaultTrace, init_state
 from repro_torch.core.types import INF_TICK
 from repro_torch.kernels.state_update import retire_land
 from test_torch_kernels import LAT_OUTPUTS, _retire_tables, _same, _t
+from test_torch_models import release_jax_executables  # noqa: F401 (autouse)
 
 TOLERANT = {
     "sum_latency_s", "sum_latency_s_prio", "util_cpu_s", "util_ram_s",

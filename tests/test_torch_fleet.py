@@ -36,6 +36,7 @@ from repro_torch import (
 from repro_torch.bridge import state_from_arrays, state_to_arrays, workload_from_arrays
 from repro_torch.core import sweep
 from repro_torch.core.state import SimState, workload_lane
+from test_torch_models import release_jax_executables  # noqa: F401 (autouse)
 
 TOLERANT = {
     "sum_latency_s", "sum_latency_s_prio", "util_cpu_s", "util_ram_s",

@@ -9,9 +9,11 @@ not ported yet.
 * Every optional layer of a later slice raises ``NotImplementedError``
   naming its ROADMAP item, never a silent fallback; the layer kinds that
   a slice has ported run (the chaos layer's, the data plane's and the
-  overload layer's knobs, and every registered scheduler, among them).
+  overload layer's knobs, every registered scheduler, every
+  architecture of the registry and the stubbed frontends, among them).
 """
 import ast
+import dataclasses
 import pathlib
 
 import pytest
@@ -47,6 +49,7 @@ def test_port_has_files_to_scan():
     assert {"ssm.py", "mlp.py"} <= names
     assert {"admission.py", "families.py"} <= names
     assert {"algorithm.py", "engine_python.py", "viz.py", "sim.py", "core.py"} <= names
+    assert {"encdec.py", "steps.py"} <= names
     assert (REPO / "src" / "eudoxia_torch" / "__init__.py") in PORT_FILES
     assert {p.name for p in (REPO / "src" / "repro_torch" / "csrc").glob("*.cu")} == {
         "sim_tick.cu", "state_update.cu", "sched_select.cu", "rwkv6_scan.cu", "flash_attention.cu",
@@ -263,16 +266,53 @@ def test_lm_loss_raises():
 
     cfg = _tiny_lm_config()
     params = lm.lm_init(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 15"):
+    with pytest.raises(NotImplementedError, match=r"item 15 \(c\)"):
         lm.lm_loss(cfg, params, {"tokens": torch.zeros((1, 4), dtype=torch.int32)})
+
+
+@pytest.mark.parametrize("entry", ["lm_loss", "encdec_loss", "loss_fn", "make_train_step"])
+def test_training_waits_for_item_15c(entry):
+    """Training (ROADMAP queue 1, item 15 (c)) raises, naming its item."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import encdec, lm
+    from repro_torch.runtime import steps
+
+    cfg = dataclasses.replace(get_arch("whisper_small").smoke, param_dtype=torch.float32,
+                              compute_dtype=torch.float32)
+    batch = {"tokens": torch.zeros((1, 4), dtype=torch.int32),
+             "frontend_embeds": torch.zeros((1, 8, 1024))}
+    call = {
+        "lm_loss": lambda: lm.lm_loss(cfg, None, batch),
+        "encdec_loss": lambda: encdec.encdec_loss(cfg, steps.model_init(cfg, device="cpu"), batch),
+        "loss_fn": lambda: steps.loss_fn(cfg, None, batch),
+        "make_train_step": lambda: steps.make_train_step(cfg, None),
+    }[entry]
+    with pytest.raises(NotImplementedError, match=r"item 15 \(c\)"):
+        call()
 
 
 @pytest.mark.parametrize("family", ["vlm", "audio"])
 def test_frontends_raise(family):
-    from repro_torch.models import lm
+    """The name is historical: the frontends were once refused and run
+    now (item 15 (b)). ``lm_init`` of either family draws
+    ``frontend_proj`` [1024, d] on the CPU, and a prefill whose first
+    positions are frontend embeddings gives finite logits that move with
+    the embeddings."""
+    from repro_torch.models import VIT_DIM, lm
 
-    with pytest.raises(NotImplementedError, match="item 15"):
-        lm.lm_init(_tiny_lm_config(family=family), device="cpu")
+    cfg = _tiny_lm_config(family=family)
+    params = lm.lm_init(cfg, device="cpu")
+    assert params.frontend_proj.shape == (VIT_DIM, 32)
+    assert lm.lm_init(_tiny_lm_config(), device="cpu").frontend_proj is None
+    toks = torch.arange(2, 12)[None]
+    gen = torch.Generator().manual_seed(0)
+    logits = {}
+    for scale in (1.0, 2.0):
+        fe = scale * torch.randn((1, 4, VIT_DIM), generator=gen.manual_seed(0))
+        logits[scale], _ = lm.lm_prefill(cfg, params, {"tokens": toks, "frontend_embeds": fe},
+                                         max_len=16)
+        assert logits[scale].shape == (1, 64) and bool(torch.isfinite(logits[scale]).all())
+    assert not torch.equal(logits[1.0], logits[2.0])
 
 
 @pytest.mark.parametrize("name", [
@@ -280,18 +320,35 @@ def test_frontends_raise(family):
     "llama4_maverick_400b_a17b", "phi3_mini_3p8b", "whisper_small",
 ])
 def test_archs_not_yet_ported_raise(name):
+    """The name is historical: these architectures were once refused and
+    are ported now (item 15 (a), (b)). Each loads its smoke config on the
+    CPU and runs one prefill through ``runtime.make_serve_steps`` to
+    finite logits."""
     from repro_torch.configs import get_arch
+    from repro_torch.runtime import make_serve_steps, model_init
 
-    with pytest.raises(NotImplementedError, match="item 15"):
-        get_arch(name)
+    cfg = get_arch(name).smoke
+    params = model_init(cfg, 0, device="cpu")
+    batch = {"tokens": torch.arange(2, 12)[None]}
+    if cfg.family in ("vlm", "audio"):
+        n = cfg.n_img_tokens or 24
+        batch["frontend_embeds"] = torch.randn((1, n, 1024), generator=torch.Generator().manual_seed(0))
+    prefill, _ = make_serve_steps(cfg)
+    logits, _ = prefill(params, batch, 64)
+    assert logits.shape == (1, cfg.vocab) and bool(torch.isfinite(logits.float()).all())
 
 
 def test_ported_archs_and_unknown_names():
     from repro_torch.configs import get_arch, list_archs
 
-    assert list_archs() == ["gemma3_12b", "jamba_1p5_large_398b", "rwkv6_7b"]
+    assert list_archs() == [
+        "arctic_480b", "gemma3_12b", "gemma3_27b", "granite_34b", "internvl2_2b",
+        "jamba_1p5_large_398b", "llama4_maverick_400b_a17b", "phi3_mini_3p8b", "rwkv6_7b",
+        "whisper_small",
+    ]
     assert get_arch("jamba-1.5-large-398b").model.n_layers == 72
     assert get_arch("rwkv6-7b").model.n_layers == 32
+    assert get_arch("phi3-mini-3.8b") is get_arch("phi3_mini_3p8b")
     with pytest.raises(KeyError, match="ported"):
         get_arch("no_such_arch")
 

@@ -40,6 +40,7 @@ from repro_torch.kernels.sched_select import (
 )
 from repro_torch.kernels.sim_tick import fleet_tick, fleet_tick_ref
 from repro_torch.kernels.state_update import assign_gather, retire_land
+from test_torch_models import release_jax_executables  # noqa: F401 (autouse)
 
 INF = 2**31 - 1
 LAT_OUTPUTS = {5, 6}  # retire_land: lat_sum, lat_prio

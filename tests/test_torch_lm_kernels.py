@@ -34,6 +34,7 @@ from repro_torch.kernels.flash_attention import flash_attention, flash_attention
 from repro_torch.kernels.rwkv6_scan import rwkv6_decode_step, rwkv6_ref, rwkv6_scan
 from repro_torch.kernels.ssm_scan import ops as ssm_ops
 from repro_torch.kernels.ssm_scan import ssm_decode_step, ssm_scan, ssm_scan_ref
+from test_torch_models import release_jax_executables  # noqa: F401 (autouse)
 
 TOL = dict(rtol=2e-2, atol=2e-2)       # bf16 inputs
 TOL32 = dict(rtol=2e-4, atol=2e-4)     # f32 inputs

@@ -31,6 +31,7 @@ from repro.models.attention import unzip
 from repro_torch.bridge import _param_tensor
 from repro_torch.configs import get_arch
 from repro_torch.models import common, mlp, ssm
+from test_torch_models import release_jax_executables  # noqa: F401 (autouse)
 
 TOL32 = dict(rtol=2e-4, atol=2e-4)
 TOL16 = dict(rtol=2e-2, atol=2e-2)

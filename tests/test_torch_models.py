@@ -24,6 +24,7 @@ chosen on both sides. Tolerances: f32 ``rtol=atol=2e-4``, bf16 ``2e-2`` (as
 """
 import contextlib
 import dataclasses
+import gc
 
 import jax
 import jax.numpy as jnp
@@ -54,6 +55,18 @@ def configs(name, dtype):
 
 def to_numpy(tree):
     return jax.tree.map(np.asarray, tree)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def release_jax_executables():
+    """Free the module's compiled JAX programs when it ends. Each holds
+    memory maps of its own, and one pytest worker that runs many model
+    modules would otherwise reach the kernel's limit on them
+    (``vm.max_map_count``), where XLA's compiler aborts the process. A
+    module that imports this fixture gets it too."""
+    yield
+    jax.clear_caches()
+    gc.collect()
 
 
 @pytest.fixture(scope="module", params=[

@@ -47,6 +47,7 @@ from repro_torch.core.state import init_state, tree_map
 from repro_torch.core.types import INF_TICK
 from repro_torch.core.workload import workload_batch_from_traces
 from test_torch_closed_loop import _arrays, _assert_contract
+from test_torch_models import release_jax_executables  # noqa: F401 (autouse)
 
 # the policies' knobs of benchmarks/scheduler_comparison.py's OVERLOAD_POLICIES
 ARMS = {

@@ -18,6 +18,7 @@ from repro.core import scenarios as j_scenarios
 from repro_torch import SimParams
 from repro_torch.core import admission, scenarios
 from repro_torch.core.scenarios import families
+from test_torch_models import release_jax_executables  # noqa: F401 (autouse)
 
 BASE = dict(duration=0.2, waiting_ticks_mean=400.0, max_pipelines=64)
 # each family at its defaults and with its knobs moved

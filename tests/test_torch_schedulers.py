@@ -43,6 +43,7 @@ from repro_torch.core.policy import DEFAULT_POINTS, N_POLICY_PARAMS, PolicyParam
 from repro_torch.core.state import tree_map
 from repro_torch.core.sweep import attach_policies, policy_grid_workloads
 from repro_torch.kernels.sched_select import select_sjf, select_sjf_ref
+from test_torch_models import release_jax_executables  # noqa: F401 (autouse)
 
 NAMED = sorted(DEFAULT_POINTS)
 TOLERANT = {

@@ -51,6 +51,7 @@ from repro_torch.search import (
     weakly_dominates,
 )
 from repro_torch.search.driver import DOMINANCE_COLUMNS, generation_generator
+from test_torch_models import release_jax_executables  # noqa: F401 (autouse)
 
 ARENA = dict(
     duration=0.02, seed=0, scheduling_algo="policy", num_pools=2,

@@ -33,6 +33,7 @@ from repro_torch.bridge import lm_params_from_arrays
 from repro_torch.configs import get_arch
 from repro_torch.core import workload_from_pipelines
 from repro_torch.serving import batching, bridge
+from test_torch_models import release_jax_executables  # noqa: F401 (autouse)
 
 TOLERANT_KEYS = {"cpu_utilization", "ram_utilization", "cost_dollars"}
 
@@ -137,3 +138,21 @@ def test_batcher_tokens_match_jax(models, case):
         # had made before its eviction kept in its prompt, not its output
         assert [rid for rid, _ in got] == [0, 2, 1]
         assert len(got[-1][1]) < 5
+
+
+def test_serve_launcher_serves_the_vlm_and_stops_at_whisper(capsys):
+    """``python -m repro_torch.launch.serve`` on the CPU: internvl2_2b's
+    smoke config serves every request through the batcher (its LM
+    backbone, token prompts); whisper's encoder-decoder stops after the
+    policy comparison with the JAX package's message."""
+    import json
+
+    from repro_torch.launch import serve
+
+    serve.main(["--arch", "internvl2_2b", "--device", "cpu", "--requests", "6",
+                "--max-new", "4"])
+    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert out["served"] == 6 and out["sample_output_lens"] == [4] * 6
+    with pytest.raises(SystemExit, match="serve demo supports decoder-only archs"):
+        serve.main(["--arch", "whisper_small", "--device", "cpu", "--requests", "2"])
+    assert "selected policy" in capsys.readouterr().out

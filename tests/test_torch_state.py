@@ -18,6 +18,7 @@ from repro.core.workload import generate_workload as j_generate
 from repro_torch.bridge import state_from_arrays, state_to_arrays, workload_from_arrays
 from repro_torch.core import params, policy, state, types
 from repro_torch.core.workload import generate_workload, get_workload
+from test_torch_models import release_jax_executables  # noqa: F401 (autouse)
 
 EXAMPLE_TOML = pathlib.Path(__file__).resolve().parents[1] / "examples" / "project.toml"
 

@@ -39,6 +39,7 @@ from repro_torch.core import viz
 from repro_torch.core.algorithm import PY_SCHEDULERS
 from test_torch_engine_python import _arrays, _assert_contract
 from test_torch_serving import _assert_summary_equal
+from test_torch_models import release_jax_executables  # noqa: F401 (autouse)
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 KEY = "surface-sjf"

@@ -46,6 +46,7 @@ from repro_torch.core.telemetry import record
 from repro_torch.core.telemetry.schema import COL_A, COL_B, COL_PIPE, COL_TICK
 from repro_torch.core.types import INF_TICK
 from test_torch_closed_loop import _arrays
+from test_torch_models import release_jax_executables  # noqa: F401 (autouse)
 
 DATA_PLANE = dict(cache_gb_per_pool=4.0, scan_ticks_per_gb=50.0, cold_start_ticks=40,
                   container_warm_ticks=2_000)

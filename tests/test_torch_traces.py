@@ -31,6 +31,7 @@ from repro_torch import (
     workload_to_trace_records,
 )
 from repro_torch.bridge import state_to_arrays, workload_from_arrays
+from test_torch_models import release_jax_executables  # noqa: F401 (autouse)
 
 TOLERANT = {
     "sum_latency_s", "sum_latency_s_prio", "util_cpu_s", "util_ram_s",
