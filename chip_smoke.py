@@ -39,7 +39,14 @@ Phases, in order; any failure raises and the script exits non-zero:
    head against its cache, whisper's non-causal encoder at 8 x 1,500
    and 1 x 32,768 frames, the plain version on the first 2,048 queries
    of the latter, and its cross-attention of 4 and 1 queries against
-   1,500 frames);
+   1,500 frames); the training backward ``flash_attention_bwd``
+   (``TRAIN_ATTENTION``: gemma3_12b's 2,048 causal with a window of 1,024
+   and without, phi3's 4,096 causal, whisper's encoder and its
+   cross-attention of 187 queries against 1,500 frames, bf16 to 2e-2
+   elementwise and in norm; the cross-attention in f32 to 2e-4) against
+   ``flash_attention_bwd_ref`` on the forward kernel's own out and
+   ``lse``, that ``lse`` first held to the plain forward's to 2e-4, the
+   library's time PyTorch's SDPA backward with the same mask;
    the time of each call, its device time per call (summed over the
    kernel's launches, with the launches per call), of its plain version
    and, for attention, of PyTorch's ``scaled_dot_product_attention``;
@@ -57,7 +64,7 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``shard="auto"`` equal to the unsharded run, ``fleet_summary`` equal
    to the CPU port's under the contract;
 5c. the data plane at ``benchmarks/scheduler_comparison.py``'s
-   ``cache_sensitivity`` (2 s, two pools, MP 256, MC 64, 2 GB outputs,
+   ``cache_sensitivity`` (cut from 2 s to 1 s, two pools, MP 256, MC 64, 2 GB outputs,
    scan 50 ticks/GB, cold start 100 ticks, warm 50,000, seed 11, one
    shared workload) at 8 GB of cache a pool: ``run`` under ``naive``,
    ``priority_pool``, ``cache_aware``, ``locality_pool`` and ``sjf`` on
@@ -167,7 +174,23 @@ Phases, in order; any failure raises and the script exits non-zero:
    clips of 1,500 frames (32 greedy steps) and one of 32,768 (16
    steps); encoder, prefill and step times, peak memory, every logit
    finite, the encoder's and every cross-attention call's
-   ``flash_attention`` launched without the causal mask.
+   ``flash_attention`` launched without the causal mask;
+16. training: (a) phi3_mini_3p8b whole (32 layers, d 3,072, bf16
+   parameters, AdamW with f32 state) through ``make_train_step``, 5
+   steps at 4 x 4,096 tokens of ``SyntheticLM(seed=0)`` in 4
+   microbatches; (b) whisper_small whole, 3 steps of ``encdec_loss`` on
+   8 clips of 1,500 frames and 187 decoder tokens; each with step ms,
+   tokens/s, peak GiB, the device's busy share of one more step under
+   the profiler, ``flash_attention``'s and ``flash_attention_bwd``'s
+   shares of its device time and the model-FLOP share of the bf16 peak;
+   finite losses and norms, parameters that changed; (c) every smoke
+   config in f32, 2 steps of 2 microbatches on the card against the CPU
+   port (losses and gradient norms to 1e-4; Adafactor, bf16 optimizer
+   state and the MoE's load-balance loss on the card); rwkv6_7b and jamba
+   raise, naming ROADMAP item 15 (d); (d) phi3's smoke config through
+   ``run_training`` with a checkpoint every 2 steps and an injected
+   failure, under deterministic algorithms: the resumed run's losses
+   bit-equal to an uninterrupted run's.
 
 Without a card, or from a directory that holds this script and nothing
 else of the repository, it prints why and exits 1 before any phase.
@@ -650,6 +673,19 @@ ZOO_ATTENTION = (
 )
 
 
+# the attention backward at the shapes training gives it: label, B, Sq,
+# Skv, causal, window, H, KV, D, dtype (phase 3; phase 16 trains phi3 at
+# 4,096 and whisper at 8 x 1,500 frames with 187 decoder tokens)
+TRAIN_ATTENTION = (
+    ("gemma3_12b local causal window=1024", 1, 2048, 2048, True, 1024, 16, 8, 256, "bf16"),
+    ("gemma3_12b global causal", 1, 2048, 2048, True, 0, 16, 8, 256, "bf16"),
+    ("phi3 causal", 1, 4096, 4096, True, 0, 32, 32, 96, "bf16"),
+    ("whisper encoder not causal", 8, 1500, 1500, False, 0, 12, 12, 64, "bf16"),
+    ("whisper cross-attention not causal", 8, 187, 1500, False, 0, 12, 12, 64, "bf16"),
+    ("whisper cross-attention not causal", 8, 187, 1500, False, 0, 12, 12, 64, "f32"),
+)
+
+
 def check_kernels(dev) -> dict:
     """Phase 3: every kernel against its plain version; returns the
     per-kernel measurements for the JSON line."""
@@ -657,7 +693,11 @@ def check_kernels(dev) -> dict:
     import torch.nn.functional as Fn
 
     from repro_torch.kernels import LM_KERNELS
-    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_ref
+    from repro_torch.kernels.flash_attention import (
+        flash_attention, flash_attention_bwd, flash_attention_bwd_ref, flash_attention_fwd_lse_ref,
+        flash_attention_ref,
+    )
+    from repro_torch.kernels.flash_attention import ops as flash_ops
     from repro_torch.kernels.rwkv6_scan import rwkv6_chunked_ref, rwkv6_scan
     from repro_torch.kernels.sched_select import (
         masked_lex_argmin, masked_lex_argmin_ref, select_sjf, select_sjf_ref,
@@ -836,6 +876,49 @@ def check_kernels(dev) -> dict:
                       lambda q=q, k=k, v=v, kw=kw, r=rows: flash_attention_ref(q[:, :r], k, v, **kw),
                       needed, {"operations": (4.0 * H * visible * D, BF16_TENSOR_OPS_PER_S)},
                       library, (LM_TOL["bf16"],), extra))
+
+    # the attention backward of training (phase 16's path): each case's
+    # forward kernel with its lse (held to the plain forward's out and lse),
+    # then flash_attention_bwd against flash_attention_bwd_ref on that out,
+    # lse and a random dO; bound: 5 products of 2 H D (visible pairs)
+    bwd_rng = np.random.default_rng(24)
+    for label, B, Sq, Skv, causal, window, H, KV, D, dtype in TRAIN_ATTENTION:
+        q, k, v = attn_inputs(bwd_rng, dev, Sq, Skv, H, KV, D, B=B)
+        dout = attn_inputs(bwd_rng, dev, Sq, 1, H, 1, D, B=B)[0]
+        if dtype == "f32":
+            q, k, v, dout = (x.float() for x in (q, k, v, dout))
+        out, lse = flash_ops._launch(q, k, v, causal, window, 0, None, with_lse=True)
+        plain_out, plain_lse = flash_attention_fwd_lse_ref(q, k, v, causal=causal, window=window)
+        lse_err, lse_rel = close_err((lse,), (plain_lse.reshape(B, Sq, H),), (LM_TOL["f32"],))
+        out_err, _ = close_err((out,), (plain_out,), (LM_TOL[dtype],))
+        print(f"{CARD}: kernel flash_attention [{label} {dtype}, forward with lse]: lse within "
+              f"2e-4 of 1 + |plain| (max |diff| {lse_err:.3g}, / (1 + |plain|) {lse_rel:.3g}), "
+              f"out max |diff| {out_err:.3g}")
+        del plain_out, plain_lse
+        ins = (q, k, v, out, lse, dout)
+        kw = dict(causal=causal, window=window)
+        mask = None if not causal and window == 0 else attn_mask(Sq, Skv, window, 0, Skv, dev,
+                                                                 causal)
+        visible = B * (Sq * Skv if mask is None else int(mask.sum().item()))
+        qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
+        # the library's backward alone: SDPA's forward once, its backward timed
+        lib_out = Fn.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=None if causal and window == 0 else mask,
+            is_causal=causal and window == 0, enable_gqa=True)
+        dout_t = dout.transpose(1, 2)
+
+        def library(o=lib_out, leaves=(qt, kt, vt), g=dout_t):
+            return torch.autograd.grad(o, leaves, g, retain_graph=True)
+
+        rate = BF16_TENSOR_OPS_PER_S if dtype == "bf16" else CORE_OPS_PER_S
+        cases.append(("flash_attention_bwd", f"B={B} Sq={Sq} Skv={Skv} H={H} KV={KV} D={D} "
+                      f"{label} {dtype}",
+                      lambda a=ins, kw=kw: flash_attention_bwd(*a, **kw),
+                      lambda a=ins, kw=kw: flash_attention_bwd_ref(*a, **kw),
+                      ins, {"operations": (5 * 2.0 * H * D * visible, rate)}, library,
+                      (LM_TOL[dtype],) * 3,
+                      {"represent": dtype == "bf16", "norm_tol": ATTN_NORM_TOL,
+                       "plain_reps": dict(reps=3, inner=1)}))
 
     # jamba's Mamba prefill: B = 1, dim 16384, N 16; 2048 tokens, a ragged
     # 2000 and the served prompt's 1838, each handed to the kernel unpadded.
@@ -1199,11 +1282,12 @@ def timed_run(params, wl, dev, scheduler_key=None):
 
 def cache_params(**kw):
     """Phase 5c's configuration: benchmarks/scheduler_comparison.py's
-    cache_sensitivity (its shared workload, seed 11) at 8 GB a pool."""
+    cache_sensitivity (its shared workload, seed 11) at 8 GB a pool, its
+    2 s horizon cut to 1 s to make room for phase 16."""
     from repro_torch import SimParams
 
     base = dict(
-        duration=2.0, waiting_ticks_mean=1500, num_pools=2, op_base_seconds_mean=0.02,
+        duration=1.0, waiting_ticks_mean=1500, num_pools=2, op_base_seconds_mean=0.02,
         op_ram_gb_mean=3.0, max_pipelines=256, max_containers=64, seed=11, **DATA_PLANE,
     )
     return SimParams(**{**base, **kw})
@@ -1355,7 +1439,8 @@ def profile_call(fn, label: str) -> dict:
           f"{launches} kernel launches")
     for name, (ns, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]:
         print(f"  {ns / 1e6:9.3f} ms  {n:6d}x  {name[:90]}")
-    return {"busy_share": busy_ms / (wall * 1e3), "device_launches": launches, "result": out}
+    return {"busy_share": busy_ms / (wall * 1e3), "device_launches": launches, "result": out,
+            "busy_ms": busy_ms, "by_name": by_name}
 
 
 def chaos_phase(dev, faults_off: dict) -> tuple[dict, dict, dict]:
@@ -2569,6 +2654,257 @@ def whisper_phase(dev) -> list[dict]:
     return out
 
 
+# phase 16 (a), (b): the whole models' training steps
+TRAIN_PHI3 = dict(seq_len=4096, global_batch=4, steps=5)
+TRAIN_WHISPER = dict(clips=8, frames=1500, steps=3)
+# phase 16 (c): the smoke configs, f32, on the card against the CPU port
+TRAIN_SMOKE = dict(seq_len=32, global_batch=4, microbatches=2, steps=2)
+SCANS_WAIT = ("rwkv6_7b", "jamba_1p5_large_398b")   # item 15 (d)
+
+
+def _kernel_ms(by_name: dict, kernel: str) -> float:
+    return sum(ns for name, (ns, _) in by_name.items() if kernel in name) / 1e6
+
+
+def timed_train(step_fn, state, batches, label: str):
+    """Run ``step_fn`` over ``batches``; the step walls (host clock, each
+    ending in a synchronize), losses and gradient norms; raises on a
+    loss or norm that is not finite."""
+    import torch
+
+    walls, losses, norms = [], [], []
+    for batch in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step_fn(state, batch)
+        loss, norm = float(m["loss"]), float(m["grad_norm"])
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        losses.append(loss)
+        norms.append(norm)
+        if not (math.isfinite(loss) and math.isfinite(norm)):
+            raise AssertionError(f"{label}: step {len(walls)}: loss {loss}, grad norm {norm}")
+    return state, walls, losses, norms
+
+
+def whole_model_training(dev, label, cfg, arch, batches, tokens: int, model_flops: float,
+                         attention_flops: float, profile_batch) -> dict:
+    """Phase 16 (a) / (b): ``make_train_step`` of ``arch``'s optimizer and
+    microbatches on ``cfg``, the batches in turn, then one more step under
+    the profiler. Returns the launches of the timed steps."""
+    import torch
+
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.runtime import make_train_step, opt_config
+
+    ocfg = opt_config(arch)
+    init_fn, step_fn = make_train_step(cfg, ocfg, microbatches=arch.train_microbatches,
+                                       device=dev)
+    torch.cuda.reset_peak_memory_stats()
+    state = init_fn(0)
+    n_params = sum(p.numel() for p in state.params.parameters())
+    watched = [p for p in state.params.parameters() if p.dim() >= 2][:3] + [
+        state.params.final_norm]
+    before = [p.detach().flatten()[:4096].clone() for p in watched]
+    reset_launch_counts()
+    state, walls, losses, norms = timed_train(step_fn, state, batches, label)
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    moved = [not torch.equal(b, p.detach().flatten()[:4096]) for b, p in zip(before, watched)]
+    if not all(moved):
+        raise AssertionError(f"{label}: parameters that did not change: {moved}")
+    for name in ("flash_attention", "flash_attention_bwd"):
+        if counts[name] <= 0:
+            raise AssertionError(f"{label}: {name} was not launched")
+    if peak >= 79:
+        raise AssertionError(f"{label}: peak {peak:.2f} GiB")
+    step_s = statistics.median(walls[1:])
+    busy = profile_call(lambda: step_fn(state, profile_batch), f"{label} one step")
+    shares = ""
+    if busy:
+        shares = ", ".join(
+            f"{k} {_kernel_ms(busy['by_name'], f'{k}_kernel'):.1f} ms "
+            f"({100 * _kernel_ms(busy['by_name'], f'{k}_kernel') / busy['busy_ms']:.1f}% of the "
+            f"step's device time)" for k in ("flash_attention", "flash_attention_bwd"))
+        shares = f"; device busy {100 * busy['busy_share']:.1f}% of the profiled step's wall; " \
+                 + shares
+    mfu = (model_flops + attention_flops) / (step_s * BF16_TENSOR_OPS_PER_S)
+    print(f"{CARD}: {label}: {n_params} parameters ({cfg.param_dtype}), {ocfg.name} with "
+          f"{ocfg.state_dtype} state, {arch.train_microbatches} microbatches; step walls (s) "
+          f"{[round(w, 3) for w in walls]}, step {step_s * 1e3:.1f} ms (median of steps "
+          f"2-{len(walls)}), {tokens / step_s:.0f} tokens/s, peak {peak:.2f} GiB; losses "
+          f"{[round(x, 4) for x in losses]}, grad norms {[round(x, 4) for x in norms]}; "
+          f"model-FLOP share of the bf16 peak {100 * mfu:.1f}% ((6 N T = "
+          f"{model_flops:.4g} + attention {attention_flops:.4g}) FLOP a step){shares}")
+    print(f"{label} launches:", json.dumps(counts))
+    del state, init_fn, step_fn
+    torch.cuda.empty_cache()
+    return counts
+
+
+def train_phase(dev) -> list[dict]:
+    """Phase 16: training on the card. (a) phi3_mini_3p8b whole (32
+    layers, d 3,072, bf16, AdamW with f32 state, 4 microbatches): 5 steps
+    of ``make_train_step`` at 4 x 4,096 tokens of ``SyntheticLM(seed=0)``;
+    (b) whisper_small whole: 3 steps of ``encdec_loss`` on 8 clips of
+    1,500 frames and 187 decoder tokens; each with step ms, tokens/s, peak
+    GiB, the device's busy share of one more step under the profiler,
+    ``flash_attention``'s and ``flash_attention_bwd``'s shares of its
+    device time and the model-FLOP share of the bf16 peak; finite losses,
+    parameters that changed. (c) every smoke config in f32, 2 steps with 2
+    microbatches on the card against the CPU port's (losses and norms to
+    1e-4); rwkv6_7b and jamba raise, naming item 15 (d). (d) phi3's smoke
+    config through ``run_training`` with checkpoints every 2 steps and an
+    injected failure, under deterministic algorithms: the resumed run's
+    losses bit-equal to an uninterrupted run's. Returns the launches."""
+    import tempfile
+    import warnings
+
+    import torch
+
+    from repro_torch.configs import get_arch, list_archs
+    from repro_torch.data import SyntheticLM, make_batch_iterator
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import VIT_DIM, encdec
+    from repro_torch.runtime import FailureInjector, make_train_step, opt_config, run_training
+
+    all_counts = []
+    # ---- (a) phi3_mini_3p8b whole --------------------------------------------
+    arch = get_arch("phi3_mini_3p8b")
+    cfg = arch.model
+    S, Bg, n = TRAIN_PHI3["seq_len"], TRAIN_PHI3["global_batch"], TRAIN_PHI3["steps"]
+    it = make_batch_iterator(SyntheticLM(vocab=cfg.vocab, seq_len=S, global_batch=Bg, seed=0),
+                             device=dev)
+    batches = [next(it) for _ in range(n + 1)]
+    # 6 N T with N every parameter (embedding and head included) and the
+    # attention's own products, forward and backward (3 x 4 H D a visible pair)
+    N = cfg.vocab * cfg.d_model * 2 + cfg.d_model + cfg.n_layers * (
+        2 * cfg.d_model + cfg.d_model * cfg.hd * (2 * cfg.n_heads + 2 * cfg.n_kv_heads)
+        + 3 * cfg.d_model * cfg.d_ff)
+    T = Bg * S
+    attn = 3 * 4.0 * cfg.n_heads * cfg.hd * (S * (S + 1) // 2) * Bg * cfg.n_layers
+    all_counts.append(whole_model_training(
+        dev, "phase 16 (a) phi3_mini_3p8b training", cfg, arch, batches[:n], T, 6.0 * N * T,
+        attn, batches[n]))
+
+    # ---- (b) whisper_small whole ---------------------------------------------
+    arch = get_arch("whisper_small")
+    cfg = arch.model
+    clips, frames, n = TRAIN_WHISPER["clips"], TRAIN_WHISPER["frames"], TRAIN_WHISPER["steps"]
+    S_dec = encdec.dec_len(cfg, frames)
+    rng = np.random.default_rng(16)
+    it = make_batch_iterator(SyntheticLM(vocab=cfg.vocab, seq_len=S_dec, global_batch=clips,
+                                         seed=0), device=dev)
+    batches = [{**next(it), "frontend_embeds": torch.as_tensor(
+        rng.standard_normal((clips, frames, VIT_DIM), dtype=np.float32), device=dev)}
+        for _ in range(n + 1)]
+    d, f, hd, H = cfg.d_model, cfg.d_ff, cfg.hd, cfg.n_heads
+    attn_params = d * hd * 4 * H
+    mlp_params = (3 if cfg.mlp_type == "swiglu" else 2) * d * f
+    n_enc = VIT_DIM * d + cfg.n_enc_layers * (attn_params + mlp_params + 2 * d) + d
+    n_dec = 2 * cfg.vocab * d + cfg.n_layers * (2 * attn_params + mlp_params + 3 * d) + d
+    model_flops = 6.0 * (n_enc * clips * frames + n_dec * clips * S_dec)
+    attn = 3 * 4.0 * H * hd * clips * (cfg.n_enc_layers * frames * frames + cfg.n_layers * (
+        S_dec * (S_dec + 1) // 2 + S_dec * frames))
+    all_counts.append(whole_model_training(
+        dev, "phase 16 (b) whisper_small training", cfg, arch, batches[:n],
+        clips * (frames + S_dec), model_flops, attn, batches[n]))
+
+    # ---- (c) every smoke config, f32, on the card against the CPU port --------
+    reset_launch_counts()
+    held = []
+    for name in list_archs():
+        arch, cfg = get_arch(name), f32_smoke(name)
+        ocfg = opt_config(arch)
+        ds = SyntheticLM(vocab=cfg.vocab, seq_len=TRAIN_SMOKE["seq_len"],
+                         global_batch=TRAIN_SMOKE["global_batch"], seed=0, family=cfg.family,
+                         n_img_tokens=cfg.n_img_tokens)
+        if name in SCANS_WAIT:
+            init_fn, step_fn = make_train_step(cfg, ocfg, microbatches=TRAIN_SMOKE["microbatches"],
+                                               device=dev)
+            try:
+                step_fn(init_fn(0), next(make_batch_iterator(ds, device=dev)))
+            except NotImplementedError as e:
+                if "item 15 (d)" not in str(e):
+                    raise
+                print(f"phase 16 (c): {name} on {dev}: raises NotImplementedError ({e})")
+                continue
+            raise AssertionError(f"phase 16 (c): {name} trained on {dev} through a scan that "
+                                 "has no backward kernel")
+        runs, start = {}, None
+        for where in ("cpu", dev):
+            init_fn, step_fn = make_train_step(cfg, ocfg, microbatches=TRAIN_SMOKE["microbatches"],
+                                               device=where)
+            state = init_fn(0)
+            with torch.no_grad():
+                if start is None:
+                    start = [p.detach().clone() for p in state.params.parameters()]
+                else:   # the CPU port's parameters, on the card
+                    for a, b in zip(state.params.parameters(), start):
+                        a.copy_(b)
+            it = make_batch_iterator(ds, device=where)
+            losses, norms = [], []
+            for _ in range(TRAIN_SMOKE["steps"]):
+                state, m = step_fn(state, next(it))
+                losses.append(float(m["loss"]))
+                norms.append(float(m["grad_norm"]))
+            runs[where] = (losses, norms)
+        (cl, cn), (gl, gn) = runs["cpu"], runs[dev]
+        for a, b, what in ((gl, cl, "losses"), (gn, cn, "grad norms")):
+            if not np.allclose(a, b, rtol=1e-4, atol=0):
+                raise AssertionError(f"phase 16 (c): {name}: {what} on {dev} {a} against the CPU "
+                                     f"port's {b}")
+        held.append(name)
+        print(f"phase 16 (c): {name} ({ocfg.name}, {ocfg.state_dtype} state): losses {gl} and "
+              f"grad norms {gn} on {dev}, within 1e-4 of the CPU port's {cl}, {cn}")
+    counts = launch_counts()
+    print(f"{CARD}: phase 16 (c): {len(held)} smoke configs trained on {dev} as on the CPU port "
+          f"({', '.join(held)}); {', '.join(SCANS_WAIT)} wait for item 15 (d)")
+    print("phase 16 (c) launches:", json.dumps(counts))
+    for k in ("flash_attention", "flash_attention_bwd"):
+        if counts[k] <= 0:
+            raise AssertionError(f"phase 16 (c): {k} was not launched")
+    all_counts.append(counts)
+
+    # ---- (d) checkpoint and resume on the card --------------------------------
+    arch = get_arch("phi3_mini_3p8b")
+    was = torch.are_deterministic_algorithms_enabled()
+    reset_launch_counts()
+    with warnings.catch_warnings(record=True) as caught, tempfile.TemporaryDirectory() as tmp:
+        warnings.simplefilter("always")
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            kw = dict(steps=6, global_batch=2, seq_len=64, device=dev)
+            whole, resumed = {}, []
+            run_training(arch, on_metrics=lambda s, m: whole.setdefault(s, m["loss"]), **kw)
+            injector = FailureInjector(seed=1, mtbf_steps=3.0, max_failures=1)
+            cut = run_training(arch, ckpt_dir=tmp, ckpt_every=2, injector=injector,
+                               on_metrics=lambda s, m: resumed.append((s, m["loss"])), **kw)
+        finally:
+            torch.use_deterministic_algorithms(was)
+    nondeterministic = sorted({str(w.message).split(" does not have a deterministic")[0]
+                               for w in caught if "deterministic" in str(w.message)})
+    if cut.restarts != 1:
+        raise AssertionError(f"phase 16 (d): {cut.restarts} restarts")
+    exact = all(loss == whole[s] for s, loss in resumed)
+    if not exact:
+        worst = max(abs(loss - whole[s]) / abs(whole[s]) for s, loss in resumed)
+        if not nondeterministic or worst > 1e-6:
+            raise AssertionError(f"phase 16 (d): resumed losses {resumed} against {whole} "
+                                 f"(ops without a deterministic version: {nondeterministic})")
+    counts = launch_counts()
+    back = next(i for i in range(1, len(resumed)) if resumed[i][0] <= resumed[i - 1][0])
+    print(f"{CARD}: phase 16 (d): phi3 smoke, failure at step {injector.schedule[0]}, resumed "
+          f"at step {resumed[back][0]} from the newest checkpoint: {len(resumed)} steps run for "
+          f"6; resumed losses "
+          f"{'bit-equal' if exact else 'within 1e-6'} to the uninterrupted run's "
+          f"{[whole[s] for s in sorted(whole)]}; ops without a deterministic CUDA version: "
+          f"{nondeterministic or 'none'}")
+    print("phase 16 (d) launches:", json.dumps(counts))
+    all_counts.append(counts)
+    return all_counts
+
+
 def card_phase():
     """Phase 1: the card, its capability, TF32 off; returns the device."""
     import torch
@@ -2627,7 +2963,8 @@ def build_phase() -> None:
     for line in sass.splitlines():
         if "Function :" in line:
             fn = line.split("Function :")[1].strip()
-            if not any(k in fn for k in ("flash_attention_kernel", "rwkv6_scan_kernel",
+            if not any(k in fn for k in ("flash_attention_kernel", "flash_attention_bwd_kernel",
+                                         "rwkv6_scan_kernel",
                                          "ssm_scan_kernel", "retire_land_kernel", *NO_SPILL)):
                 fn = None
         elif fn:
@@ -2716,6 +3053,7 @@ def main() -> int:
     zoo_counts = phase(13, zoo_phase, dev)
     vlm_counts = phase(14, vlm_phase, dev)
     whisper_counts = phase(15, whisper_phase, dev)
+    train_counts = phase(16, train_phase, dev)
     print(f"{CARD}: phase walls (s): " + json.dumps({str(k): round(v, 3) for k, v in walls.items()})
           + f", total {time.perf_counter() - t_all:.2f}")
 
@@ -2732,13 +3070,16 @@ def main() -> int:
                        "src/repro/kernels/rwkv6_scan/kernel.py:87"),
         "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
                             "src/repro/kernels/flash_attention/kernel.py:113"),
+        # the backward is a jnp custom VJP in the JAX package, not a Pallas call
+        "flash_attention_bwd": ("src/repro_torch/csrc/flash_attention_bwd.cu",
+                                "src/repro/kernels/flash_attention/ref.py:201"),
         "ssm_scan": ("src/repro_torch/csrc/ssm_scan.cu",
                      "src/repro/kernels/ssm_scan/kernel.py:60"),
     }
     main_runs = (run_counts, fleet_counts, *replay_counts, *cache_counts, grid_counts,
                  *telemetry_counts, *chaos_counts, *overload_counts, rwkv_counts, gemma_counts,
                  jamba_counts, search_counts, *surface_counts, *zoo_counts, *vlm_counts,
-                 *whisper_counts)
+                 *whisper_counts, *train_counts)
     rows = []
     for name in KERNELS:
         m = measured[name]

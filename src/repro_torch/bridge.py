@@ -7,8 +7,12 @@ its side, and these functions turn such arrays into the port's lane-major
 tensors and back. A per-lane array set (no fleet axis) gains a lane
 axis of one. ``lm_params_from_arrays`` and ``encdec_params_from_arrays``
 turn the JAX ``lm_init`` and ``encdec_init`` parameter trees into the
-port's per-layer modules. Used by the parity
-tests; nothing on the simulation or serving path calls it.
+port's per-layer modules, and ``params_into_arrays`` writes a port
+model's parameters back into such a tree; ``named_from_tree`` reads any
+tree of the parameters' structure (gradients, moments) by the port's
+parameter names, and ``opt_state_from_arrays`` carries a JAX
+``OptState`` into the port's. Used by the parity tests; nothing on the simulation, serving or
+training path calls it.
 """
 from __future__ import annotations
 
@@ -124,9 +128,82 @@ def encdec_params_from_arrays(cfg, tree):
                     ("frontend_proj", "embed", "enc_norm", "final_norm", "head")), enc, dec)
 
 
+def _jax_node(cfg, tree, name: str):
+    """The node of a JAX parameter-structured tree that holds the port's
+    parameter ``name``, and the index of its layer along the stacked
+    axis (None for an unstacked node)."""
+    parts = name.split(".")
+    if parts[0] == "layers":
+        layer, rest = int(parts[1]), parts[2:]
+        base = cfg.n_periods * cfg.period
+        if layer < base:
+            node, index = tree["stack"]["periods"][layer % cfg.period], layer // cfg.period
+        else:
+            node, index = tree["stack"]["tail"][layer - base], None
+    elif parts[0] in ("enc", "dec"):
+        node, index, rest = tree[parts[0]], int(parts[1]), parts[2:]
+    else:
+        node, index, rest = tree, None, parts
+    for key in rest:
+        node = node[key]
+    return node, index
+
+
+def named_from_tree(cfg, model, tree) -> dict:
+    """``{name: tensor}`` over the port ``model``'s parameter names, from a
+    JAX tree of the parameters' structure given as numpy arrays (the
+    gradients of ``jax.grad``, AdamW's moments); a leaf that is a mapping
+    (Adafactor's ``{"vr", "vc"}``) becomes a mapping of tensors."""
+    def take(node, index):
+        if isinstance(node, Mapping):
+            return {k: take(v, index) for k, v in node.items()}
+        return _param_tensor(node if index is None else np.asarray(node)[index])
+
+    return {name: take(*_jax_node(cfg, tree, name)) for name, _ in model.named_parameters()}
+
+
+def params_into_arrays(cfg, model, tree):
+    """Write ``model``'s parameters into ``tree``, a JAX parameter tree of
+    numpy arrays (zeros of the ``lm_init`` / ``encdec_init`` shapes and
+    dtypes, stacked as the JAX package stacks its layers), in place;
+    returns it. bf16 values pass through f32 exactly."""
+    for name, p in model.named_parameters():
+        leaf, index = _jax_node(cfg, tree, name)
+        leaf[... if index is None else index] = (
+            p.detach().to(torch.float32).numpy().astype(leaf.dtype))
+    return tree
+
+
+def opt_state_from_arrays(cfg, model, opt):
+    """The port's ``OptState`` (on the CPU) from the JAX package's
+    ``OptState`` of ``model``'s parameters with numpy leaves: AdamW's
+    ``{"m", "v"}`` by parameter name, or Adafactor's ``{"vr", "vc"}`` /
+    ``{"v"}`` by leaf of ``runtime.steps.stacked_leaves`` (the JAX
+    tree's own leaves, stacked layers and all), bf16 kept bit for bit."""
+    from .optim.optimizers import OptState
+    from .runtime.steps import stacked_leaves
+
+    inner = opt.inner
+    if isinstance(inner, Mapping) and set(inner) == {"m", "v"}:
+        inner = {k: named_from_tree(cfg, model, inner[k]) for k in ("m", "v")}
+    else:
+        def node(key):
+            n = inner
+            for part in key.split("."):
+                n = n[int(part)] if isinstance(n, (list, tuple)) else n[part]
+            return {k: _param_tensor(v) for k, v in n.items()}
+
+        names = [n for n, _ in model.named_parameters()]
+        inner = {key: node(key) for key in stacked_leaves(cfg, names)}
+    return OptState(step=torch.tensor(int(np.asarray(opt.step)), dtype=torch.int32), inner=inner)
+
+
 __all__ = [
     "encdec_params_from_arrays",
     "lm_params_from_arrays",
+    "named_from_tree",
+    "opt_state_from_arrays",
+    "params_into_arrays",
     "state_from_arrays",
     "state_to_arrays",
     "workload_from_arrays",

@@ -1,3 +1,3 @@
-from .registry import ArchSpec, get_arch, list_archs, pad_vocab
+from .registry import ALL_SHAPES, ArchSpec, get_arch, list_archs, pad_vocab
 
-__all__ = ["ArchSpec", "get_arch", "list_archs", "pad_vocab"]
+__all__ = ["ALL_SHAPES", "ArchSpec", "get_arch", "list_archs", "pad_vocab"]

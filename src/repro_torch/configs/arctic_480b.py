@@ -39,6 +39,10 @@ register(
             moe=MoEConfig(n_experts=8, top_k=2, expert_ff=96),
             pattern=(LayerSpec("attn", "moe_dense"),),
         ),
+        optimizer="adafactor",
+        opt_state_dtype="bfloat16",
+        train_microbatches=8,
+        skip={"long_500k": "full attention (quadratic)"},
         notes="dense residual MLP parallel to 128e top-2 MoE every layer.",
     )
 )

@@ -40,6 +40,8 @@ register(
                 LayerSpec("attn", "dense", window=0),
             ),
         ),
+        optimizer="adamw",
+        skip={"long_500k": "global layers are full attention (quadratic)"},
         notes="5:1 local:global via period-6 pattern; a 2-layer local tail.",
     )
 )

@@ -35,6 +35,8 @@ register(
             mlp_type="gelu",
             pattern=(LayerSpec("attn", "dense"),),
         ),
+        optimizer="adamw",
+        skip={"long_500k": "full attention (quadratic)"},
         notes="MQA: 48 query heads on one KV head.",
     )
 )

@@ -36,6 +36,8 @@ register(
             n_img_tokens=8,
             pattern=(LayerSpec("attn", "dense"),),
         ),
+        optimizer="adamw",
+        skip={"long_500k": "full attention (quadratic)"},
         notes="LM backbone only; vision tower stubbed.",
     )
 )

@@ -48,6 +48,9 @@ register(
                 LayerSpec("mamba", "moe"),
             ),
         ),
+        optimizer="adafactor",
+        opt_state_dtype="bfloat16",
+        train_microbatches=8,
         notes="long_500k runs: mamba state is O(1); attention KV at 500k "
         "shards over the model axis (SP/context parallelism).",
     )

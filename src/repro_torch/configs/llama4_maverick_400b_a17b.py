@@ -45,6 +45,10 @@ register(
             ),
             pattern=(LayerSpec("attn", "dense"), LayerSpec("attn", "moe")),
         ),
+        optimizer="adafactor",
+        opt_state_dtype="bfloat16",
+        train_microbatches=8,
+        skip={"long_500k": "global attention layers (quadratic)"},
         notes="Q heads padded 40->48.",
     )
 )

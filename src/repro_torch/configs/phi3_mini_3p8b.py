@@ -32,5 +32,7 @@ register(
             vocab=512,
             pattern=(LayerSpec("attn", "dense"),),
         ),
+        optimizer="adamw",
+        skip={"long_500k": "full attention (quadratic)"},
     )
 )

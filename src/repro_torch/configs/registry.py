@@ -3,28 +3,39 @@
 Every architecture of the JAX package registers an :class:`ArchSpec`
 from its own module (``configs/<id>.py``), its ``model`` and ``smoke``
 configs copied field for field from ``repro.configs.<id>`` (without
-``attn_impl``). ``ArchSpec`` holds what serving reads; the training
-fields of the JAX package's (``optimizer``, ``opt_state_dtype``,
-``train_microbatches``, ``shapes``, ``skip``) wait for ROADMAP queue 1,
-item 15 (c), and its sharding overrides for item 16.
+``attn_impl``), and the training fields (``optimizer``,
+``opt_state_dtype``, ``train_microbatches``, ``shapes``, ``skip``)
+copied from the same ``ArchSpec``. Its sharding overrides wait for
+ROADMAP queue 1, item 16.
 """
 from __future__ import annotations
 
 import dataclasses
 import importlib
+from typing import Mapping
 
 from ..models.common import ModelConfig
+
+ALL_SHAPES = ("train_4k", "prefill_32k", "decode_32k", "long_500k")
 
 
 @dataclasses.dataclass(frozen=True)
 class ArchSpec:
     model: ModelConfig
     smoke: ModelConfig
+    optimizer: str = "adamw"            # "adamw" | "adafactor"
+    opt_state_dtype: str = "float32"    # "float32" | "bfloat16" (giants)
+    train_microbatches: int = 4         # gradient-accumulation splits
+    shapes: tuple[str, ...] = ALL_SHAPES
+    skip: Mapping[str, str] = dataclasses.field(default_factory=dict)
     notes: str = ""
 
     @property
     def name(self) -> str:
         return self.model.name
+
+    def runnable_shapes(self) -> tuple[str, ...]:
+        return tuple(s for s in self.shapes if s not in self.skip)
 
 
 _REGISTRY: dict[str, ArchSpec] = {}
@@ -74,4 +85,4 @@ def pad_vocab(v: int, multiple: int = 256) -> int:
     return ((v + multiple - 1) // multiple) * multiple
 
 
-__all__ = ["ArchSpec", "register", "get_arch", "list_archs", "pad_vocab"]
+__all__ = ["ALL_SHAPES", "ArchSpec", "register", "get_arch", "list_archs", "pad_vocab"]

@@ -29,6 +29,7 @@ register(
             rwkv=RWKVConfig(head_dim=16, chunk=8),
             pattern=(LayerSpec("rwkv", "dense"),),
         ),
+        optimizer="adamw",
         notes="attention-free; Eudoxia's scheduling layer treats its "
         "decode ops exactly like attention archs (technique is "
         "architecture-agnostic).",

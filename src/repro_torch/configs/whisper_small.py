@@ -38,6 +38,8 @@ register(
             mlp_type="gelu",
             pattern=(LayerSpec("attn", "dense"),),
         ),
+        optimizer="adamw",
+        skip={"long_500k": "500k-frame encoder self-attention is quadratic"},
         notes="encoder-decoder: bidirectional encoder, causal decoder with "
         "cross-attention over the encoder output.",
     )

@@ -43,6 +43,10 @@
 // Shared memory: Q 128 x Dp + 2 stages of K and V 64 x Dp, bf16: 192 KB
 // at D = 256, 96 KB at D = 128.
 //
+// lse: both kernels write the log-sum-exp of each query row's scores
+// (natural log, f32, [B, Sq, H]) when the pointer is non-null, for the
+// backward (flash_attention_bwd.cu); serving passes null and stores none.
+//
 // f32 inputs: flash_attention_kernel_f32, the CUDA-core kernel (32 x 32
 // tiles of f32 in shared memory, f32 products). The f32 path holds the
 // CPU port to 2e-4 and gives the same greedy tokens (the smoke configs
@@ -65,6 +69,7 @@ constexpr int kWG = 2;           // consumer warpgroups per block
 constexpr int kBQ = 64 * kWG;    // queries per block
 constexpr int kThreadsBf16 = 128 * kWG;
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -173,7 +178,8 @@ inline size_t bf16_smem_bytes(int DP) {
 template <int DP>
 __global__ void __launch_bounds__(kThreadsBf16, 1) flash_attention_kernel_bf16(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-    const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out, int B, int Sq,
+    const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out,
+    float* __restrict__ lse, int B, int Sq,
     int Skv, int H, int KV, int D, int causal, int window, int q_offset, int kv_len,
     float scale_log2) {
   constexpr int NCB = DP / 64;                     // 64-column blocks
@@ -336,6 +342,11 @@ __global__ void __launch_bounds__(kThreadsBf16, 1) flash_attention_kernel_bf16(
   l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
   const float d0 = fmaxf(l0, 1e-30f), d1 = fmaxf(l1, 1e-30f);
   const int row0 = pos0 - q_offset, row1 = pos1 - q_offset;   // query indices
+  if (lse != nullptr && lane % 4 == 0) {
+    // m and the scores are in log2 units: ln(sum e^s) = (m + log2 l) ln 2
+    if (row0 < Sq) lse[((size_t)b * Sq + row0) * H + h] = (m0 + log2f(d0)) * kLn2;
+    if (row1 < Sq) lse[((size_t)b * Sq + row1) * H + h] = (m1 + log2f(d1)) * kLn2;
+  }
 #pragma unroll
   for (int cb = 0; cb < NCB; ++cb)
 #pragma unroll
@@ -350,7 +361,8 @@ __global__ void __launch_bounds__(kThreadsBf16, 1) flash_attention_kernel_bf16(
 }
 
 template <int DP>
-int launch_bf16(const void* q, const void* k, const void* v, void* out, int B, int Sq, int Skv,
+int launch_bf16(const void* q, const void* k, const void* v, void* out, void* lse, int B,
+                int Sq, int Skv,
                 int H, int KV, int D, int causal, int window, int q_offset, int kv_len,
                 float scale, cudaStream_t stream) {
   const size_t smem = bf16_smem_bytes(DP);
@@ -360,7 +372,7 @@ int launch_bf16(const void* q, const void* k, const void* v, void* out, int B, i
   const int grid = ((Sq + kBQ - 1) / kBQ) * B * H;
   flash_attention_kernel_bf16<DP><<<grid, kThreadsBf16, smem, stream>>>(
       (const __nv_bfloat16*)q, (const __nv_bfloat16*)k, (const __nv_bfloat16*)v,
-      (__nv_bfloat16*)out, B, Sq, Skv, H, KV, D, causal, window, q_offset, kv_len,
+      (__nv_bfloat16*)out, (float*)lse, B, Sq, Skv, H, KV, D, causal, window, q_offset, kv_len,
       scale * kLog2e);
   return repro::launch_status();
 }
@@ -388,7 +400,8 @@ inline size_t f32_smem_bytes(int D) {
 template <int NG>
 __global__ void __launch_bounds__(kThreads32) flash_attention_kernel_f32(
     const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
-    float* __restrict__ out, int Sq, int Skv, int H, int KV, int D, int causal,
+    float* __restrict__ out, float* __restrict__ lse, int Sq, int Skv, int H, int KV, int D,
+    int causal,
     int window, int q_offset, int kv_len, float scale) {
   extern __shared__ __align__(16) float sm[];
   const int LD = D + 4;
@@ -504,6 +517,7 @@ __global__ void __launch_bounds__(kThreads32) flash_attention_kernel_f32(
 
   if (q_start + row >= Sq) return;
   const float denom = fmaxf(l_i, 1e-30f);
+  if (lse != nullptr && part == 0) lse[((size_t)b * Sq + q_start + row) * H + h] = m_i + logf(denom);
   float* dst = out + (((size_t)b * Sq + q_start + row) * H + h) * D;
 #pragma unroll
   for (int g = 0; g < NG; ++g) {
@@ -515,7 +529,8 @@ __global__ void __launch_bounds__(kThreads32) flash_attention_kernel_f32(
 }
 
 template <int NG>
-int launch_f32(const void* q, const void* k, const void* v, void* out, int B, int Sq, int Skv,
+int launch_f32(const void* q, const void* k, const void* v, void* out, void* lse, int B, int Sq,
+               int Skv,
                int H, int KV, int D, int causal, int window, int q_offset, int kv_len,
                float scale, cudaStream_t stream) {
   const size_t smem = f32_smem_bytes(D);
@@ -524,7 +539,8 @@ int launch_f32(const void* q, const void* k, const void* v, void* out, int B, in
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((Sq + kBQ32 - 1) / kBQ32, H, B);
   flash_attention_kernel_f32<NG><<<grid, kThreads32, smem, stream>>>(
-      (const float*)q, (const float*)k, (const float*)v, (float*)out, Sq, Skv, H, KV, D,
+      (const float*)q, (const float*)k, (const float*)v, (float*)out, (float*)lse, Sq, Skv, H,
+      KV, D,
       causal, window, q_offset, kv_len, scale);
   return repro::launch_status();
 }
@@ -533,9 +549,9 @@ int launch_f32(const void* q, const void* k, const void* v, void* out, int B, in
 
 // q, out: [B, Sq, H, D]; k, v: [B, Skv, KV, D]; all bf16 (is_bf16 = 1,
 // D % 8 == 0) or all f32 (D % 4 == 0). D <= 256, H % KV == 0,
-// kv_len <= Skv.
+// kv_len <= Skv. lse: [B, Sq, H] f32, or null (no log-sum-exp stored).
 REPRO_EXPORT int repro_flash_attention(const void* q, const void* k,
-                                       const void* v, void* out, int B, int Sq,
+                                       const void* v, void* out, void* lse, int B, int Sq,
                                        int Skv, int H, int KV, int D,
                                        int causal, int window, int q_offset,
                                        int kv_len, float scale, int is_bf16,
@@ -547,7 +563,7 @@ REPRO_EXPORT int repro_flash_attention(const void* q, const void* k,
     if (D % 8) return (int)cudaErrorInvalidValue;
 #define REPRO_FLASH_BF16(DP)                                                        \
   if (D <= DP)                                                                      \
-    return launch_bf16<DP>(q, k, v, out, B, Sq, Skv, H, KV, D, causal, window,      \
+    return launch_bf16<DP>(q, k, v, out, lse, B, Sq, Skv, H, KV, D, causal, window, \
                            q_offset, kv_len, scale, st);
     REPRO_FLASH_BF16(64)
     REPRO_FLASH_BF16(128)
@@ -557,7 +573,7 @@ REPRO_EXPORT int repro_flash_attention(const void* q, const void* k,
   }
 #define REPRO_FLASH_F32(NG)                                                         \
   if (D <= 16 * NG)                                                                 \
-    return launch_f32<NG>(q, k, v, out, B, Sq, Skv, H, KV, D, causal, window,       \
+    return launch_f32<NG>(q, k, v, out, lse, B, Sq, Skv, H, KV, D, causal, window,  \
                           q_offset, kv_len, scale, st);
   REPRO_FLASH_F32(1)
   REPRO_FLASH_F32(2)

@@ -1,8 +1,8 @@
 """Hand-written CUDA kernels of the port, each beside its plain PyTorch
 version (``<subsystem>/ref.py``) and a wrapper (``<subsystem>/ops.py``)
-that picks one by the device of the data: the simulator's four and the
-LM substrate's three."""
-from .flash_attention import flash_attention
+that picks one by the device of the data: the simulator's four, the
+LM substrate's three and the attention backward of training."""
+from .flash_attention import flash_attention, flash_attention_bwd
 from .rwkv6_scan import rwkv6_scan
 from .sched_select import masked_lex_argmin
 from .sim_tick import fleet_tick
@@ -17,11 +17,13 @@ SIM_KERNELS = {
     "masked_lex_argmin": masked_lex_argmin,
     "assign_gather": assign_gather,
 }
-# the LM substrate's kernels (serving prefill)
+# the LM substrate's kernels (serving prefill; the attention backward in
+# training)
 LM_KERNELS = {
     "rwkv6_scan": rwkv6_scan,
     "flash_attention": flash_attention,
     "ssm_scan": ssm_scan,
+    "flash_attention_bwd": flash_attention_bwd,
 }
 KERNELS = {**SIM_KERNELS, **LM_KERNELS}
 
@@ -42,6 +44,7 @@ __all__ = [
     "SIM_KERNELS",
     "assign_gather",
     "flash_attention",
+    "flash_attention_bwd",
     "fleet_tick",
     "launch_counts",
     "masked_lex_argmin",

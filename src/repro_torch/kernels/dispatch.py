@@ -24,4 +24,15 @@ def use_kernel(x: torch.Tensor) -> bool:
     )
 
 
-__all__ = ["use_kernel"]
+def refuse_grad(kernel: str, *inputs) -> None:
+    """Raise ``NotImplementedError`` when grad is enabled and an input
+    requires grad: ``kernel`` has no backward kernel on the card yet
+    (ROADMAP queue 1, item 15 (d)), and nothing falls back to the plain
+    version."""
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in inputs):
+        raise NotImplementedError(
+            f"{kernel}: no backward kernel on the card yet; training through it on CUDA "
+            "waits for ROADMAP queue 1, item 15 (d) (the CPU trains through the plain version)")
+
+
+__all__ = ["refuse_grad", "use_kernel"]

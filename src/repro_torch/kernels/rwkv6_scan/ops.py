@@ -1,7 +1,12 @@
 """``rwkv6_scan``: pad to a multiple of the chunk, then the kernels of
 ``csrc/rwkv6_scan.cu`` for CUDA tensors (the intra-chunk pass and the
 carry, one call counted once in ``rwkv6_scan.launches``) or
-``ref.rwkv6_chunked_ref`` for CPU tensors."""
+``ref.rwkv6_chunked_ref`` for CPU tensors.
+
+The kernels have no backward yet: on CUDA, with grad enabled and an
+input that requires grad, the wrapper raises (ROADMAP queue 1, item
+15 (d)); on the CPU autograd differentiates the plain version, as the
+JAX package differentiates its chunked jnp form."""
 from __future__ import annotations
 
 import ctypes
@@ -10,7 +15,7 @@ import torch
 import torch.nn.functional as F
 
 from .. import cuda_lib
-from ..dispatch import use_kernel
+from ..dispatch import refuse_grad, use_kernel
 from .ref import rwkv6_chunked_ref
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -35,6 +40,7 @@ def rwkv6_scan(r, k, v, w, u, state0=None, *, chunk: int = 16):
 
         r, k, v, w = zpad(r), zpad(k), zpad(v), zpad(w, 1.0)
     if use_kernel(r):
+        refuse_grad("rwkv6_scan", r, k, v, w, u, state0)
         out, state = _launch(r, k, v, w, u, state0, C)
     else:
         out, state = rwkv6_chunked_ref(r, k, v, w, u, state0, chunk=C)

@@ -1,7 +1,11 @@
 """``ssm_scan``: the kernel of ``csrc/ssm_scan.cu`` for CUDA tensors, at
 their own sequence length (each launch counted in
 ``ssm_scan.launches``), or ``ref.ssm_scan_ref`` for CPU tensors, whose
-chunked form needs the sequence padded to a multiple of the chunk."""
+chunked form needs the sequence padded to a multiple of the chunk.
+
+The kernel has no backward yet: on CUDA, with grad enabled and an input
+that requires grad, the wrapper raises (ROADMAP queue 1, item 15 (d));
+on the CPU autograd differentiates the plain version."""
 from __future__ import annotations
 
 import ctypes
@@ -10,7 +14,7 @@ import torch
 import torch.nn.functional as F
 
 from .. import cuda_lib
-from ..dispatch import use_kernel
+from ..dispatch import refuse_grad, use_kernel
 from .ref import ssm_scan_ref
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -27,6 +31,7 @@ def ssm_scan(x, dt, A, B, C, D, h0=None, *, chunk: int = 256):
     the plain version's; the kernel takes any S."""
     S = x.shape[1]
     if use_kernel(x):
+        refuse_grad("ssm_scan", x, dt, A, B, C, D, h0)
         return _launch(x, dt, A, B, C, D, h0)
     # pad ragged sequences to a chunk multiple; dt = 0, x = 0 is the
     # identity update (a = exp(0) = 1, b = 0), so the carried state is

@@ -8,8 +8,10 @@ both for ``moe_dense``), with the MoE's ``shared`` expert as a group
 nested in ``moe``. Mixer kinds: ``attn``, ``mamba`` and ``rwkv`` (which
 handles its own channel mix and norms); MLP kinds: ``dense``, ``moe``
 and ``moe_dense`` (arctic's parallel dense residual beside the MoE).
-The MoE's auxiliary load-balance loss belongs to training and is not
-returned.
+Every parameter is trainable (``requires_grad``); the serving entry
+points run under ``torch.no_grad()``. ``block_apply`` returns the MoE's
+auxiliary load-balance loss beside the output, 0.0 for a layer without
+an MoE; serving drops it.
 """
 from __future__ import annotations
 
@@ -42,15 +44,15 @@ def parts(spec: LayerSpec) -> tuple[str, ...]:
     return (spec.kind, *MLP_PARTS[spec.mlp])
 
 
-def _frozen(t: torch.Tensor) -> nn.Parameter:
-    return nn.Parameter(t, requires_grad=False)
+def _param(t: torch.Tensor) -> nn.Parameter:
+    return nn.Parameter(t, requires_grad=True)
 
 
 def _group(tensors: Mapping) -> nn.ParameterDict:
     """A parameter group; a nested mapping (the MoE's ``shared``) becomes
     a nested group."""
     return nn.ParameterDict({
-        name: _group(t) if isinstance(t, Mapping) else _frozen(t)
+        name: _group(t) if isinstance(t, Mapping) else _param(t)
         for name, t in tensors.items()
     })
 
@@ -64,8 +66,8 @@ class Block(nn.Module):
         super().__init__()
         check_spec(spec)
         self.spec = spec
-        self.n1 = _frozen(params["n1"])
-        self.n2 = _frozen(params["n2"])
+        self.n1 = _param(params["n1"])
+        self.n2 = _param(params["n2"])
         for part in parts(spec):
             setattr(self, part, _group(params[part]))
 
@@ -98,33 +100,42 @@ def block_apply(
     x: torch.Tensor,
     *,
     positions: torch.Tensor,
-    mode: str,                 # "prefill" | "decode"
-    cache,
+    mode: str,                 # "train" | "prefill" | "decode"
+    cache=None,
     cache_index: int = 0,
 ):
-    """Returns (x, new_cache)."""
+    """Returns (x, new_cache, aux): ``aux`` is the MoE's load-balance term
+    (an f32 scalar; 0.0 for a layer without an MoE). ``mode="train"``
+    runs the whole sequence from the zero state with no cache and
+    returns None for it."""
     spec = block.spec
     if spec.kind == "rwkv":
         if mode == "decode":
-            return rwkv_decode(cfg, block.rwkv, x, block.n1, block.n2, cache)
-        return rwkv_apply(cfg, block.rwkv, x, block.n1, block.n2, cache)
+            return (*rwkv_decode(cfg, block.rwkv, x, block.n1, block.n2, cache), 0.0)
+        if mode == "train":
+            cache = init_rwkv_state(cfg, x.shape[0], x.device)
+        y, new_cache = rwkv_apply(cfg, block.rwkv, x, block.n1, block.n2, cache)
+        return y, None if mode == "train" else new_cache, 0.0
 
     h = rms_norm(x, block.n1, cfg.norm_eps)
     if spec.kind == "attn":
         y, new_cache = attn_apply(cfg, block.attn, h, positions=positions, window=spec.window,
-                                  cache=cache, cache_index=cache_index)
+                                  cache=None if mode == "train" else cache,
+                                  cache_index=cache_index)
     elif mode == "decode":
         y, new_cache = mamba_decode(cfg, block.mamba, h, cache)
     else:  # every prefill starts from the zero state, as in the JAX package
         y, new_cache = mamba_apply(cfg, block.mamba, h, None)
+    if mode == "train":
+        new_cache = None
     x = x + y
     h2 = rms_norm(x, block.n2, cfg.norm_eps)
     if spec.mlp == "dense":
-        return x + mlp_apply(block.mlp, h2), new_cache
-    y2 = moe_apply(cfg, block.moe, h2)
+        return x + mlp_apply(block.mlp, h2), new_cache, 0.0
+    y2, aux = moe_apply(cfg, block.moe, h2)
     if spec.mlp == "moe":
-        return x + y2, new_cache
-    return x + y2 + mlp_apply(block.mlp, h2), new_cache  # moe_dense: parallel residual
+        return x + y2, new_cache, aux
+    return x + y2 + mlp_apply(block.mlp, h2), new_cache, aux  # moe_dense: parallel residual
 
 
 __all__ = ["Block", "block_apply", "block_init", "check_spec", "init_block_cache"]

@@ -3,10 +3,11 @@
 A copy of ``repro.models.common`` for PyTorch: the same ``LayerSpec``
 pattern (a short tuple of per-layer specs that repeats over the depth),
 the same ``ModelConfig`` fields, except ``attn_impl`` (the kernel is
-chosen by the device of the data alone, ``kernels/dispatch.py``), the
-sharding knob ``seq_shard_decode`` (the port has no sharding) and the
-training knob ``remat`` (training waits for a later slice); dtypes are
-``torch`` dtypes.
+chosen by the device of the data alone, ``kernels/dispatch.py``) and the
+sharding knob ``seq_shard_decode`` (the port has no sharding); dtypes
+are ``torch`` dtypes. ``remat`` other than ``"none"`` recomputes each
+layer in the backward (``"full"`` and ``"dots"`` alike: the port keeps
+no saved products).
 
 Initialisation draws from an explicit ``torch.Generator`` with the
 scales of the JAX init (``dense_init`` 1/sqrt(fan_in), embeddings 0.02);
@@ -19,6 +20,7 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 
 @dataclasses.dataclass(frozen=True)
@@ -81,6 +83,7 @@ class ModelConfig:
     # numerics / memory
     param_dtype: torch.dtype = torch.bfloat16
     compute_dtype: torch.dtype = torch.bfloat16
+    remat: str = "full"         # "none" | "full" | "dots"
 
     @property
     def hd(self) -> int:
@@ -109,6 +112,15 @@ class ModelConfig:
             if spec.mlp in ("moe", "moe_dense") and self.moe.n_experts <= 0:
                 raise ValueError(f"{self.name}: an MoE layer needs moe.n_experts > 0")
         return self
+
+
+def remat(cfg: ModelConfig, fn, *args):
+    """``fn(*args)``, recomputed in the backward (``torch.utils.checkpoint``:
+    only the inputs are kept) unless ``cfg.remat`` is "none" or grad is
+    off."""
+    if cfg.remat != "none" and torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
 
 
 def param_count(module: torch.nn.Module) -> int:
@@ -173,6 +185,7 @@ __all__ = [
     "dense_init",
     "normal",
     "param_count",
+    "remat",
     "rms_norm",
     "rotary",
     "swiglu",

@@ -14,8 +14,12 @@ one-token decode against the self-attention cache is the plain
 
 The JAX package stacks the layers on a leading axis and scans over them;
 the port keeps one module per layer (``EncDec.enc``, ``EncDec.dec``) and
-its caches as one entry per decoder layer. Training (``decode_train``,
-``encdec_loss``) waits for ROADMAP queue 1, item 15 (c), and raises.
+its caches as one entry per decoder layer. Training: ``encdec_loss`` is
+the decoder's next-token cross entropy over ``decode_train``'s causal,
+cache-free pass against the encoder output, every encoder and decoder
+layer recomputed in the backward unless ``cfg.remat == "none"``, as in
+the JAX package. ``encode`` is the serving entry (no grad); the loss
+runs ``_encode``.
 
 Shape mapping for the input shapes: seq_len = encoder frame count
 (long-form audio), decoder length = max(64, seq_len // 8).
@@ -30,8 +34,8 @@ from torch import nn
 
 from ..core.engine import resolve_device
 from .attention import attn_apply, attn_init, cross_attn_init, encode_kv, init_kv_cache
-from .blocks import _frozen, _group
-from .common import ModelConfig, normal, rms_norm
+from .blocks import _group, _param
+from .common import ModelConfig, normal, remat, rms_norm
 from .lm import VIT_DIM
 from .mlp import mlp_apply, mlp_init
 
@@ -62,7 +66,7 @@ class EncDecLayer(nn.Module):
     def __init__(self, params: Mapping):
         super().__init__()
         for name, t in params.items():
-            setattr(self, name, _group(t) if isinstance(t, Mapping) else _frozen(t))
+            setattr(self, name, _group(t) if isinstance(t, Mapping) else _param(t))
 
 
 class EncDec(nn.Module):
@@ -73,11 +77,11 @@ class EncDec(nn.Module):
     def __init__(self, frontend_proj, embed, enc_norm, final_norm, head,
                  enc: list[EncDecLayer], dec: list[EncDecLayer]):
         super().__init__()
-        self.frontend_proj = _frozen(frontend_proj)
-        self.embed = _frozen(embed)
-        self.enc_norm = _frozen(enc_norm)
-        self.final_norm = _frozen(final_norm)
-        self.head = _frozen(head)
+        self.frontend_proj = _param(frontend_proj)
+        self.embed = _param(embed)
+        self.enc_norm = _param(enc_norm)
+        self.final_norm = _param(final_norm)
+        self.head = _param(head)
         self.enc = nn.ModuleList(enc)
         self.dec = nn.ModuleList(dec)
 
@@ -120,20 +124,28 @@ def encdec_init(cfg: ModelConfig, seed: int = 0, *, device="cuda") -> EncDec:
 # ---------------------------------------------------------------------------
 # forward
 # ---------------------------------------------------------------------------
-@torch.no_grad()
-def encode(cfg: ModelConfig, params: EncDec, frames: torch.Tensor) -> torch.Tensor:
-    """frames [B, S_enc, VIT_DIM] -> encoder output [B, S_enc, d]."""
+def _enc_layer(cfg: ModelConfig, layer: EncDecLayer, x, positions):
+    h = rms_norm(x, layer.n1, cfg.norm_eps)
+    y, _ = attn_apply(cfg, layer.attn, h, positions=positions, causal=False, use_rope=False)
+    x = x + y
+    h2 = rms_norm(x, layer.n2, cfg.norm_eps)
+    return x + mlp_apply(layer.mlp, h2)
+
+
+def _encode(cfg: ModelConfig, params: EncDec, frames: torch.Tensor) -> torch.Tensor:
     B, S, _ = frames.shape
     x = torch.einsum("bsv,vd->bsd", frames.to(cfg.compute_dtype), params.frontend_proj)
     x = x + sinusoidal(S, cfg.d_model, device=x.device)[None].to(x.dtype)
     positions = torch.arange(S, device=x.device)
     for layer in params.enc:
-        h = rms_norm(x, layer.n1, cfg.norm_eps)
-        y, _ = attn_apply(cfg, layer.attn, h, positions=positions, causal=False, use_rope=False)
-        x = x + y
-        h2 = rms_norm(x, layer.n2, cfg.norm_eps)
-        x = x + mlp_apply(layer.mlp, h2)
+        x = remat(cfg, _enc_layer, cfg, layer, x, positions)
     return rms_norm(x, params.enc_norm, cfg.norm_eps)
+
+
+@torch.no_grad()
+def encode(cfg: ModelConfig, params: EncDec, frames: torch.Tensor) -> torch.Tensor:
+    """frames [B, S_enc, VIT_DIM] -> encoder output [B, S_enc, d]."""
+    return _encode(cfg, params, frames)
 
 
 def _dec_layer(cfg: ModelConfig, layer: EncDecLayer, x, positions, cross_kv, *, cache,
@@ -152,12 +164,40 @@ def _dec_layer(cfg: ModelConfig, layer: EncDecLayer, x, positions, cross_kv, *, 
     return x + mlp_apply(layer.mlp, h2), cache
 
 
+def _dec_train_layer(cfg: ModelConfig, layer: EncDecLayer, x, positions, enc_out):
+    """One decoder layer of training: causal self-attention over the whole
+    sequence (no cache) and cross-attention over ``enc_out``'s K/V."""
+    return _dec_layer(cfg, layer, x, positions, encode_kv(cfg, layer.cross, enc_out),
+                      cache=None, cache_index=0)[0]
+
+
 def decode_train(cfg: ModelConfig, params: EncDec, tokens, enc_out):
-    raise NotImplementedError("decode_train (training) waits for ROADMAP queue 1, item 15 (c)")
+    """The decoder over all of ``tokens`` [B, S] against ``enc_out``;
+    returns the final-normed hidden states [B, S, d]."""
+    B, S = tokens.shape
+    x = params.embed[tokens.long()].to(cfg.compute_dtype)
+    x = x + sinusoidal(S, cfg.d_model, device=x.device)[None].to(x.dtype)
+    positions = torch.arange(S, device=x.device)
+    for layer in params.dec:
+        x = remat(cfg, _dec_train_layer, cfg, layer, x, positions, enc_out)
+    return rms_norm(x, params.final_norm, cfg.norm_eps)
 
 
 def encdec_loss(cfg: ModelConfig, params: EncDec, batch, vocab_chunk: int = 0):
-    raise NotImplementedError("encdec_loss (training) waits for ROADMAP queue 1, item 15 (c)")
+    """Next-token cross entropy of the decoder (labels = tokens shifted
+    left, the last position masked) given ``batch["frontend_embeds"]``;
+    ``vocab_chunk`` is accepted and unused, as in the JAX package."""
+    tokens = batch["tokens"]
+    enc_out = _encode(cfg, params, batch["frontend_embeds"])
+    h = decode_train(cfg, params, tokens, enc_out)
+    logits = torch.einsum("bsd,dv->bsv", h, params.head).to(torch.float32)
+    labels = torch.cat([tokens[:, 1:], tokens[:, :1]], dim=1)
+    B, S = tokens.shape
+    mask = torch.cat([torch.ones((B, S - 1), dtype=torch.float32, device=h.device),
+                      torch.zeros((B, 1), dtype=torch.float32, device=h.device)], dim=1)
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    return torch.sum((lse - gold) * mask) / torch.clamp_min(torch.sum(mask), 1.0)
 
 
 class EncDecCaches(NamedTuple):

@@ -85,13 +85,18 @@ def moe_init(cfg: ModelConfig, gen: torch.Generator) -> dict:
 
 
 def route(cfg: ModelConfig, p, x: torch.Tensor):
-    """Router of ``x`` [..., d]: the top-k experts [..., K] (best first)
-    and their gates renormalised over the k, from f32 logits."""
+    """Router of ``x`` [..., d]: the top-k experts [..., K] (best first),
+    their gates renormalised over the k, from f32 logits, and the
+    load-balance term over every token of ``x`` (an f32 scalar)."""
+    E = cfg.moe.n_experts
     logits = torch.einsum("...d,de->...e", x.to(torch.float32), p["router"])
     gates = torch.softmax(logits, dim=-1)
     gate_k, expert_k = torch.topk(gates, cfg.moe.top_k, dim=-1)
     gate_k = gate_k / torch.clamp_min(torch.sum(gate_k, dim=-1, keepdim=True), 1e-9)
-    return gate_k, expert_k
+    tokens = tuple(range(gates.dim() - 1))
+    f = torch.mean(F.one_hot(expert_k[..., 0], E).to(torch.float32), dim=tokens)
+    aux = E * torch.sum(f * torch.mean(gates, dim=tokens))
+    return gate_k, expert_k, aux
 
 
 def _dispatch(flat_e, flat_t, flat_g, E: int, C: int, empty: int):
@@ -120,16 +125,16 @@ def _experts(p, xe: torch.Tensor, gate_table: torch.Tensor, dtype) -> torch.Tens
     return ye * gate_table[..., None].to(ye.dtype)
 
 
-def moe_apply(cfg: ModelConfig, p, x: torch.Tensor) -> torch.Tensor:
-    """x [B, S, d] -> [B, S, d]: per-row dispatch with capacity per
-    sequence (the global dispatch when ``S * K < E``)."""
+def moe_apply(cfg: ModelConfig, p, x: torch.Tensor):
+    """x [B, S, d] -> (out [B, S, d], aux): per-row dispatch with capacity
+    per sequence (the global dispatch when ``S * K < E``)."""
     B, S, d = x.shape
     m = cfg.moe
     E, K = m.n_experts, m.top_k
     SK = S * K
     if SK < E:
         return _moe_apply_global(cfg, p, x)
-    gate_k, expert_k = route(cfg, p, x)               # [B, S, K]
+    gate_k, expert_k, aux = route(cfg, p, x)          # [B, S, K]
     C = max(8, int(m.capacity_factor * SK / E))
     C = min(C, SK)
     tok_ix = torch.arange(S, device=x.device).repeat_interleave(K)      # [SK]
@@ -149,7 +154,7 @@ def moe_apply(cfg: ModelConfig, p, x: torch.Tensor) -> torch.Tensor:
     out = out.reshape(B, S + 1, d)[:, :S]
     if "shared" in p:
         out = out + mlp_apply(p["shared"], x)
-    return out
+    return out, aux
 
 
 def _moe_apply_global(cfg: ModelConfig, p, x: torch.Tensor) -> torch.Tensor:
@@ -160,7 +165,7 @@ def _moe_apply_global(cfg: ModelConfig, p, x: torch.Tensor) -> torch.Tensor:
     E, K = m.n_experts, m.top_k
     T = B * S
     xt = x.reshape(T, d)
-    gate_k, expert_k = route(cfg, p, xt)              # [T, K]
+    gate_k, expert_k, aux = route(cfg, p, xt)         # [T, K]
     C = max(1, min(int(m.capacity_factor * T * K / E) + 1, T))
     flat_t = torch.arange(T, device=x.device).repeat_interleave(K)
     tok_table, gate_table = _dispatch(expert_k.reshape(-1), flat_t, gate_k.reshape(-1), E, C, T)
@@ -173,7 +178,7 @@ def _moe_apply_global(cfg: ModelConfig, p, x: torch.Tensor) -> torch.Tensor:
     out = out[:T].reshape(B, S, d)
     if "shared" in p:
         out = out + mlp_apply(p["shared"], x)
-    return out
+    return out, aux
 
 
 __all__ = ["mlp_apply", "mlp_init", "moe_apply", "moe_init", "route"]

@@ -4,7 +4,10 @@ CPU: the registry, ``pad_vocab``, and the five text configs and
 
 * Every ``ArchSpec`` of the port equals the JAX package's, ``model`` and
   ``smoke``, field for field (dtypes by name; the port has no
-  ``attn_impl``, ``remat`` or ``seq_shard_decode``).
+  ``attn_impl`` or ``seq_shard_decode``), and its training fields
+  (``optimizer``, ``opt_state_dtype``, ``train_microbatches``,
+  ``shapes``, ``skip``) and ``runnable_shapes()`` equal the JAX
+  package's.
 * ``gemma3_27b`` (local ring caches, global layers and a two-layer
   tail), ``granite_34b`` (MQA, non-gated GELU), ``phi3_mini_3p8b``
   (MHA), ``arctic_480b`` (``moe_dense``: the dense MLP beside the MoE),
@@ -52,7 +55,7 @@ def test_arch_specs_copy_the_jax_package(name):
         t = getattr(get_arch(name), which)
         jfields = {f.name for f in dataclasses.fields(j)}
         tfields = {f.name for f in dataclasses.fields(t)}
-        assert jfields - tfields == {"attn_impl", "remat", "seq_shard_decode"}
+        assert jfields - tfields == {"attn_impl", "seq_shard_decode"}
         assert tfields <= jfields
         for field in dataclasses.fields(t):
             a, b = getattr(t, field.name), getattr(j, field.name)
@@ -64,6 +67,9 @@ def test_arch_specs_copy_the_jax_package(name):
                 assert [dataclasses.astuple(s) for s in a] == [dataclasses.astuple(s) for s in b]
             else:
                 assert a == b, (which, field.name)
+    for field in ("optimizer", "opt_state_dtype", "train_microbatches", "shapes", "skip"):
+        assert getattr(get_arch(name), field) == getattr(j_get_arch(name), field), field
+    assert get_arch(name).runnable_shapes() == j_get_arch(name).runnable_shapes()
 
 
 def test_pad_vocab_matches_jax():

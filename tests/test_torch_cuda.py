@@ -39,7 +39,13 @@ from repro_torch.kernels import (
     launch_counts,
     reset_launch_counts,
 )
-from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.flash_attention import (
+    flash_attention,
+    flash_attention_bwd,
+    flash_attention_bwd_ref,
+    flash_attention_fwd_lse_ref,
+)
+from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.rwkv6_scan import rwkv6_scan
 from repro_torch.kernels.sched_select import (
     masked_lex_argmin,
@@ -706,6 +712,141 @@ def test_flash_attention_kernel_matches_plain(cuda, B, Sq, Skv, H, KV, D, causal
     _close(got, flash_attention(*cpu, **kw), dtype)
 
 
+FLASH_BWD_CUDA_CASES = [
+    # B, Sq, Skv, H, KV, D, causal, window
+    (2, 96, 96, 4, 2, 32, True, 0),       # causal GQA, ragged tiles
+    (1, 130, 130, 4, 2, 24, True, 16),    # sliding window, head dim 24
+    (2, 100, 100, 4, 1, 64, False, 0),    # not causal, MQA
+    (2, 20, 150, 4, 4, 64, False, 0),     # Sq != Skv: cross-attention
+    (1, 70, 70, 4, 4, 96, True, 0),       # phi3's head dim 96
+    (1, 72, 72, 4, 2, 256, True, 8),      # gemma3's 256 with a window
+    (1, 33, 33, 2, 2, 16, True, 0),       # the smoke configs' head dim 16
+    (1, 2048, 2048, 16, 8, 64, True, 0),  # B Sq Skv H D = 2^32: no int product of the sizes
+]
+
+
+def _flash_bwd_inputs(case, dtype):
+    B, Sq, Skv, H, KV, D, causal, window = case
+    rng = np.random.default_rng(Sq * 7 + D)
+    q, k, v, dout = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dtype)
+                     for shape in ((B, Sq, H, D), (B, Skv, KV, D), (B, Skv, KV, D),
+                                   (B, Sq, H, D)))
+    out, lse = flash_attention_fwd_lse_ref(q, k, v, causal=causal, window=window)
+    return q, k, v, out, lse.reshape(B, Sq, H), dout, dict(causal=causal, window=window)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", FLASH_BWD_CUDA_CASES, ids=str)
+def test_flash_attention_bwd_kernels_match_plain(cuda, case, dtype):
+    """dq, dk and dv of the three backward kernels against
+    ``flash_attention_bwd_ref`` on the same (q, k, v, out, lse, dO)."""
+    *ins, kw = _flash_bwd_inputs(case, dtype)
+    reset_launch_counts()
+    got = flash_attention_bwd(*(x.to(cuda) for x in ins), **kw)
+    torch.cuda.synchronize()
+    assert launch_counts()["flash_attention_bwd"] == 1
+    for g, w in zip(got, flash_attention_bwd_ref(*ins, **kw)):
+        _close(g, w, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", FLASH_BWD_CUDA_CASES[:4], ids=str)
+def test_flash_attention_kernel_lse_and_autograd(cuda, case, dtype):
+    """The forward kernel's ``lse`` against the plain forward's (2e-4), and
+    a backward through ``flash_attention`` on the card: one forward and
+    one backward launch, gradients as the CPU's."""
+    q, k, v, out, lse, dout, kw = _flash_bwd_inputs(case, dtype)
+    got_out, got_lse = flash_ops._launch(q.to(cuda), k.to(cuda), v.to(cuda), kw["causal"],
+                                         kw["window"], 0, None, with_lse=True)
+    np.testing.assert_allclose(got_lse.cpu().numpy(), lse.numpy(), rtol=2e-4, atol=2e-4)
+    _close(got_out, out, dtype)
+    leaves = [x.to(cuda).requires_grad_() for x in (q, k, v)]
+    reset_launch_counts()
+    flash_attention(*leaves, **kw).backward(dout.to(cuda))
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    assert counts["flash_attention"] == 1 and counts["flash_attention_bwd"] == 1, counts
+    cpu = [x.clone().requires_grad_() for x in (q, k, v)]
+    flash_attention(*cpu, **kw).backward(dout)
+    for g, w in zip(leaves, cpu):
+        _close(g.grad, w.grad, dtype)
+
+
+@pytest.mark.cuda
+def test_flash_attention_without_grad_stores_no_lse(cuda, monkeypatch):
+    """Serving (no grad) launches the forward with a null ``lse``."""
+    seen = []
+    real = flash_ops._launch
+    monkeypatch.setattr(flash_ops, "_launch",
+                        lambda *a, **kw: seen.append(kw["with_lse"]) or real(*a, **kw))
+    q = torch.zeros((1, 8, 2, 16), device=cuda, requires_grad=True)
+    with torch.no_grad():
+        flash_attention(q, q, q)
+    flash_attention(q.detach(), q.detach(), q.detach())
+    assert seen == [False, False]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["rwkv6_scan", "ssm_scan"])
+def test_scans_refuse_grad_on_the_card(cuda, kernel):
+    """No backward kernel yet for the two scans (ROADMAP item 15 (d)): under
+    grad their CUDA wrappers raise instead of falling back."""
+    if kernel == "rwkv6_scan":
+        args = [torch.rand((1, 16, 2, 16), device=cuda) for _ in range(4)]
+        args += [torch.zeros((2, 16), device=cuda)]
+        args[0].requires_grad_()
+        fn = lambda: rwkv6_scan(*args, chunk=16)  # noqa: E731
+    else:
+        args = list(_ssm_arrays(np.random.default_rng(0), 1, 8, 32, 16, torch.float32))
+        args = [None if a is None else a.to(cuda) for a in args]
+        args[0].requires_grad_()
+        fn = lambda: ssm_scan(*args, chunk=8)  # noqa: E731
+    with pytest.raises(NotImplementedError, match=r"item 15 \(d\)"):
+        fn()
+    with torch.no_grad():
+        fn()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["phi3_mini_3p8b", "llama4_maverick_400b_a17b", "whisper_small"])
+def test_smoke_training_on_the_card_matches_the_cpu(cuda, name):
+    """Two ``make_train_step`` steps of 2 microbatches of a smoke config in
+    f32 on the card against the CPU port's, from the same parameters:
+    losses and gradient norms to 1e-4, the attention forward and backward
+    kernels launched (llama4: Adafactor with bf16 state and the MoE's
+    load-balance loss; whisper: the encoder-decoder)."""
+    from repro_torch.data import SyntheticLM, make_batch_iterator
+    from repro_torch.runtime import make_train_step, opt_config
+
+    cfg = dataclasses.replace(get_arch(name).smoke, param_dtype=torch.float32,
+                              compute_dtype=torch.float32)
+    ocfg = opt_config(get_arch(name))
+    ds = SyntheticLM(vocab=cfg.vocab, seq_len=32, global_batch=4, seed=0, family=cfg.family,
+                     n_img_tokens=cfg.n_img_tokens)
+    start, runs = None, {}
+    for where in ("cpu", cuda):
+        init_fn, step_fn = make_train_step(cfg, ocfg, microbatches=2, device=where)
+        state = init_fn(0)
+        with torch.no_grad():
+            if start is None:
+                start = [p.detach().clone() for p in state.params.parameters()]
+            else:
+                for a, b in zip(state.params.parameters(), start):
+                    a.copy_(b)
+        reset_launch_counts()
+        it = make_batch_iterator(ds, device=where)
+        metrics = []
+        for _ in range(2):
+            state, m = step_fn(state, next(it))
+            metrics.append((float(m["loss"]), float(m["grad_norm"])))
+        runs[str(where)] = metrics
+    counts = launch_counts()
+    assert counts["flash_attention"] > 0 and counts["flash_attention_bwd"] > 0, counts
+    np.testing.assert_allclose(runs[str(cuda)], runs["cpu"], rtol=1e-4, atol=0)
+
+
 SSM_CUDA_CASES = [
     # B, S, dim, N, chunk
     (1, 32, 8, 4, 8),
@@ -885,12 +1026,14 @@ def test_whisper_serve_steps_on_the_card(cuda):
 def test_sources_and_library_name():
     names = {p.name for p in cuda_lib.sources()}
     assert names == {"sim_tick.cu", "state_update.cu", "sched_select.cu",
-                     "rwkv6_scan.cu", "flash_attention.cu", "ssm_scan.cu"}
+                     "rwkv6_scan.cu", "flash_attention.cu", "flash_attention_bwd.cu",
+                     "ssm_scan.cu"}
     path = cuda_lib.library_path()
     assert path.parent == cuda_lib.BUILD_DIR and path == cuda_lib.library_path()
     assert "sm_90a" in " ".join(cuda_lib.NVCC_FLAGS)
     assert set(SIM_KERNELS) == {"fleet_tick", "retire_land", "masked_lex_argmin", "assign_gather"}
-    assert set(LM_KERNELS) == {"rwkv6_scan", "flash_attention", "ssm_scan"}
+    assert set(LM_KERNELS) == {"rwkv6_scan", "flash_attention", "ssm_scan",
+                               "flash_attention_bwd"}
     assert set(KERNELS) == set(SIM_KERNELS) | set(LM_KERNELS)
 
 

@@ -7,13 +7,14 @@ not ported yet.
 * The entry points run on CUDA unless the caller asks for the CPU, and
   without a card the default raises instead of running on the CPU.
 * Every optional layer of a later slice raises ``NotImplementedError``
-  naming its ROADMAP item, never a silent fallback; the layer kinds that
+  naming its ROADMAP item, never a silent fallback (training over a
+  device mesh, item 16; a gradient through the scans' kernels on the
+  card, item 15 (d); a gradient through attention's cache path); the layer kinds that
   a slice has ported run (the chaos layer's, the data plane's and the
   overload layer's knobs, every registered scheduler, every
   architecture of the registry and the stubbed frontends, among them).
 """
 import ast
-import dataclasses
 import pathlib
 
 import pytest
@@ -39,7 +40,8 @@ def _imported_roots(path: pathlib.Path):
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(REPO)))
 def test_no_jax_and_no_reference_package_imports(path):
     roots = set(_imported_roots(path))
-    assert not roots & {"jax", "jaxlib", "repro", "eudoxia", "flax", "optax"}, (path, roots)
+    assert not roots & {"jax", "jaxlib", "repro", "eudoxia", "flax", "optax", "msgpack",
+                        "zstandard", "ml_dtypes"}, (path, roots)
 
 
 def test_port_has_files_to_scan():
@@ -50,10 +52,12 @@ def test_port_has_files_to_scan():
     assert {"admission.py", "families.py"} <= names
     assert {"algorithm.py", "engine_python.py", "viz.py", "sim.py", "core.py"} <= names
     assert {"encdec.py", "steps.py"} <= names
+    assert {"optimizers.py", "pipeline.py", "ckpt.py", "train_loop.py", "failures.py",
+            "train.py"} <= names
     assert (REPO / "src" / "eudoxia_torch" / "__init__.py") in PORT_FILES
     assert {p.name for p in (REPO / "src" / "repro_torch" / "csrc").glob("*.cu")} == {
         "sim_tick.cu", "state_update.cu", "sched_select.cu", "rwkv6_scan.cu", "flash_attention.cu",
-        "ssm_scan.cu",
+        "flash_attention_bwd.cu", "ssm_scan.cu",
     }
 
 
@@ -261,34 +265,57 @@ def test_mamba_and_moe_layers_raise(spec):
         check_spec(LayerSpec(spec[0], "no_such_mlp"))
 
 
-def test_lm_loss_raises():
-    from repro_torch.models import lm
-
-    cfg = _tiny_lm_config()
-    params = lm.lm_init(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match=r"item 15 \(c\)"):
-        lm.lm_loss(cfg, params, {"tokens": torch.zeros((1, 4), dtype=torch.int32)})
-
-
-@pytest.mark.parametrize("entry", ["lm_loss", "encdec_loss", "loss_fn", "make_train_step"])
-def test_training_waits_for_item_15c(entry):
-    """Training (ROADMAP queue 1, item 15 (c)) raises, naming its item."""
+def test_training_over_a_mesh_waits_for_item_16():
+    """``run_training(mesh=...)`` (the elastic re-mesh) raises, naming
+    ROADMAP item 16, before anything is drawn."""
     from repro_torch.configs import get_arch
-    from repro_torch.models import encdec, lm
-    from repro_torch.runtime import steps
+    from repro_torch.runtime import run_training
 
-    cfg = dataclasses.replace(get_arch("whisper_small").smoke, param_dtype=torch.float32,
-                              compute_dtype=torch.float32)
-    batch = {"tokens": torch.zeros((1, 4), dtype=torch.int32),
-             "frontend_embeds": torch.zeros((1, 8, 1024))}
-    call = {
-        "lm_loss": lambda: lm.lm_loss(cfg, None, batch),
-        "encdec_loss": lambda: encdec.encdec_loss(cfg, steps.model_init(cfg, device="cpu"), batch),
-        "loss_fn": lambda: steps.loss_fn(cfg, None, batch),
-        "make_train_step": lambda: steps.make_train_step(cfg, None),
-    }[entry]
-    with pytest.raises(NotImplementedError, match=r"item 15 \(c\)"):
-        call()
+    with pytest.raises(NotImplementedError, match="item 16"):
+        run_training(get_arch("phi3_mini_3p8b"), steps=1, mesh=object(), device="cpu")
+
+
+@pytest.mark.parametrize("call", ["q_offset", "kv_len"])
+def test_attention_grad_through_the_cache_path_raises(call):
+    """A gradient through ``flash_attention``'s ``q_offset`` / ``kv_len``
+    path (a prefill against a cache) raises; no training path reaches it."""
+    from repro_torch.kernels.flash_attention import flash_attention
+
+    q = torch.zeros((1, 4, 2, 8), requires_grad=True)
+    kw = {"q_offset": dict(q_offset=2), "kv_len": dict(kv_len=3)}[call]
+    with pytest.raises(NotImplementedError, match="q_offset / kv_len"):
+        flash_attention(q, q, q, **kw)
+
+
+@pytest.mark.parametrize("kernel", ["rwkv6_scan", "ssm_scan"])
+def test_scan_kernels_refuse_grad_naming_item_15d(kernel):
+    """The guard in front of the two scans' CUDA launches: under grad, an
+    input that requires grad raises naming ROADMAP item 15 (d); without
+    grad, or with no input that requires grad, it lets the launch go."""
+    from repro_torch.kernels.dispatch import refuse_grad
+
+    x = torch.zeros(3, requires_grad=True)
+    with pytest.raises(NotImplementedError, match=rf"{kernel}: .*item 15 \(d\)"):
+        refuse_grad(kernel, None, x)
+    with torch.no_grad():
+        refuse_grad(kernel, None, x)
+    refuse_grad(kernel, x.detach(), None)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["rwkv6_7b", "jamba_1p5_large_398b"])
+def test_training_the_scans_on_the_card_waits_for_item_15d(name):
+    """rwkv6_7b's and jamba's smoke configs raise on CUDA under grad."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device with sm_90 (the kernels are built for Hopper)")
+    from repro_torch.configs import get_arch
+    from repro_torch.runtime import loss_fn, model_init
+
+    cfg = get_arch(name).smoke
+    params = model_init(cfg, 0, device="cuda")
+    batch = {"tokens": torch.zeros((1, 16), dtype=torch.int32, device="cuda")}
+    with pytest.raises(NotImplementedError, match=r"item 15 \(d\)"):
+        loss_fn(cfg, params, batch)
 
 
 @pytest.mark.parametrize("family", ["vlm", "audio"])

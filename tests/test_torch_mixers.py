@@ -163,19 +163,22 @@ def _jax_choice(jcfg, jp, jx):
 
 def _check_moe(jcfg, tcfg, jp, tp, jx, tx, tol):
     want_e, want_g = _jax_choice(jcfg, jp, jx)
-    got_g, got_e = mlp.route(tcfg, tp, tx)
+    got_g, got_e, _ = mlp.route(tcfg, tp, tx)
     assert np.array_equal(got_e.numpy(), want_e), "the two packages chose other experts"
     np.testing.assert_allclose(got_g.numpy(), want_g, **TOL32)
-    want, _ = j_mlp.moe_apply(jcfg, jp, jx)
-    got = mlp.moe_apply(tcfg, tp, tx)
+    want, want_aux = j_mlp.moe_apply(jcfg, jp, jx)
+    got, got_aux = mlp.moe_apply(tcfg, tp, tx)
     assert got.dtype == tx.dtype and got.shape == tx.shape
     np.testing.assert_allclose(_np(got), _np(want), **tol)
+    # the load-balance term is f32 from f32 router logits in either dtype
+    assert got_aux.dtype == torch.float32 and got_aux.shape == ()
+    np.testing.assert_allclose(float(got_aux), float(want_aux), **TOL32)
     return got_e
 
 
 def _dense(tcfg, tp, x):
     """Every routed pair through its expert, nothing dropped (f32)."""
-    gk, ek = mlp.route(tcfg, tp, x)
+    gk, ek, _ = mlp.route(tcfg, tp, x)
     out = torch.zeros_like(x)
     for idx in np.ndindex(*x.shape[:-1]):
         for j in range(tcfg.moe.top_k):
@@ -216,7 +219,7 @@ def test_moe_capacity_drops_the_same_pairs(B, S):
     jx, tx = _tokens(B, S, "f32", skew=True)
     experts = _check_moe(jcfg, tcfg, jp, tp, jx, tx, TOL32)
     assert set(np.unique(experts.numpy())) == {0, 1}
-    got, full = mlp.moe_apply(tcfg, tp, tx), _dense(tcfg, tp, tx)
+    got, full = mlp.moe_apply(tcfg, tp, tx)[0], _dense(tcfg, tp, tx)
     kept = torch.isclose(got, full, rtol=1e-4, atol=1e-4).all(dim=-1).reshape(-1)
     C = 12 if S > 1 else 3
     assert kept[:C].all() and not kept[C:].any(), kept     # first C tokens keep both pairs

@@ -59,11 +59,17 @@ def to_numpy(tree):
 
 @pytest.fixture(scope="module", autouse=True)
 def release_jax_executables():
-    """Free the module's compiled JAX programs when it ends. Each holds
-    memory maps of its own, and one pytest worker that runs many model
-    modules would otherwise reach the kernel's limit on them
-    (``vm.max_map_count``), where XLA's compiler aborts the process. A
-    module that imports this fixture gets it too."""
+    """Free the worker's compiled JAX programs when the module starts and
+    when it ends. Each holds memory maps of its own, and one pytest worker
+    would otherwise reach the kernel's limit on them
+    (``vm.max_map_count``, 65,530), where XLA's compiler aborts the
+    process: the JAX package's own modules keep theirs (a worker measured
+    32,361 maps after ``tests/test_fleet.py``), and a port module that
+    compiles many programs adds ~32,000 more before its end
+    (``test_torch_closed_loop.py``). A module that imports this fixture
+    gets it too."""
+    jax.clear_caches()
+    gc.collect()
     yield
     jax.clear_caches()
     gc.collect()
@@ -83,7 +89,7 @@ def pair(request):
 
 def _f32(x):
     if isinstance(x, torch.Tensor):
-        return x.float().numpy()
+        return x.detach().float().numpy()   # parameters require grad
     return np.asarray(x, np.float32)
 
 
