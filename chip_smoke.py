@@ -46,7 +46,15 @@ Phases, in order; any failure raises and the script exits non-zero:
    elementwise and in norm; the cross-attention in f32 to 2e-4) against
    ``flash_attention_bwd_ref`` on the forward kernel's own out and
    ``lse``, that ``lse`` first held to the plain forward's to 2e-4, the
-   library's time PyTorch's SDPA backward with the same mask;
+   library's time PyTorch's SDPA backward with the same mask; the scans'
+   backwards ``rwkv6_scan_bwd`` (rwkv6_7b's 4,096 tokens and a ragged
+   4,012, chunk 32, bf16, on the forward kernel's chunk states; an f32
+   case at chunk 16 whose decays below the clamp get dw = 0) and
+   ``ssm_scan_bwd`` (jamba's 2,048 and 1,838 tokens, dim 16,384, N 16,
+   bf16) against ``rwkv6_scan_bwd_ref`` / ``ssm_scan_bwd_ref`` with
+   nonzero input states and cotangents of both outputs, bf16 gradients to
+   2e-2 elementwise and in norm, f32 ones to 2e-4 in norm, and a second
+   call bit-equal to the first;
    the time of each call, its device time per call (summed over the
    kernel's launches, with the launches per call), of its plain version
    and, for attention, of PyTorch's ``scaled_dot_product_attention``;
@@ -176,7 +184,7 @@ Phases, in order; any failure raises and the script exits non-zero:
    finite, the encoder's and every cross-attention call's
    ``flash_attention`` launched without the causal mask;
 16. training: (a) phi3_mini_3p8b whole (32 layers, d 3,072, bf16
-   parameters, AdamW with f32 state) through ``make_train_step``, 5
+   parameters, AdamW with f32 state) through ``make_train_step``, 3
    steps at 4 x 4,096 tokens of ``SyntheticLM(seed=0)`` in 4
    microbatches; (b) whisper_small whole, 3 steps of ``encdec_loss`` on
    8 clips of 1,500 frames and 187 decoder tokens; each with step ms,
@@ -186,11 +194,16 @@ Phases, in order; any failure raises and the script exits non-zero:
    finite losses and norms, parameters that changed; (c) every smoke
    config in f32, 2 steps of 2 microbatches on the card against the CPU
    port (losses and gradient norms to 1e-4; Adafactor, bf16 optimizer
-   state and the MoE's load-balance loss on the card); rwkv6_7b and jamba
-   raise, naming ROADMAP item 15 (d); (d) phi3's smoke config through
+   state and the MoE's load-balance loss on the card; rwkv6_7b and jamba
+   through the scans' backward kernels); (d) phi3's smoke config through
    ``run_training`` with a checkpoint every 2 steps and an injected
    failure, under deterministic algorithms: the resumed run's losses
-   bit-equal to an uninterrupted run's.
+   bit-equal to an uninterrupted run's; (e) rwkv6_7b at published width
+   cut to 16 of its 32 layers (AdamW with f32 state, 5 steps at 4 x
+   4,096 tokens in 4 microbatches) and jamba cut to its first layer
+   (Adafactor with bf16 state, 3 steps at 8 x 4,096 tokens in 8
+   microbatches), as (a), with each scan's forward and backward share of
+   the profiled step's device time.
 
 Without a card, or from a directory that holds this script and nothing
 else of the repository, it prints why and exits 1 before any phase.
@@ -257,6 +270,9 @@ LM_TOL = {"bf16": 2e-2, "f32": 2e-4}
 # below the elementwise 2e-2 (1 + |plain|), while a kernel that leaves
 # out even one 128-key tile there moves the outputs by more than this
 ATTN_NORM_TOL = 2e-2
+# a plain version that takes 0.2-2 s a call at its case's shape: timed
+# by one call, warm from the check against it
+PLAIN_ONCE = dict(reps=1, inner=1, warm=0)
 # the card's name and power limit (nvidia-smi), set by phase 1, named
 # beside every measurement
 CARD = "card not read"
@@ -270,12 +286,13 @@ def gpu_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def timed_ms(fn, reps: int = 21, inner: int = 20) -> float:
+def timed_ms(fn, reps: int = 21, inner: int = 20, warm: int = 3) -> float:
     """Median over ``reps`` of the mean time per call of ``inner``
-    back-to-back calls, from CUDA events on the current stream."""
+    back-to-back calls, after ``warm`` calls, from CUDA events on the
+    current stream."""
     import torch
 
-    for _ in range(3):
+    for _ in range(warm):
         fn()
     torch.cuda.synchronize()
     samples = []
@@ -353,6 +370,33 @@ def close_err(got, want, tols) -> tuple[float, float]:
         if bool((scaled > tol).any()):
             raise AssertionError(f"output {i} beyond tolerance {tol} (max |diff| {diff.max().item()})")
     return err, rel
+
+
+def grad_err(got, want, rules, ctx: str) -> tuple[float, str]:
+    """Hold each gradient to its rule (elementwise tolerance or None,
+    norm tolerance): |got - want| <= tol (1 + |want|) elementwise where
+    there is one, and |got - want| <= tol |want| in norm; raises where a
+    gradient is not finite or leaves its rule. Returns the largest
+    |got - want| and each gradient's |diff| / |plain| in norm."""
+    err, norms = 0.0, []
+    for i, (a, b, (elem, norm)) in enumerate(zip(got, want, rules)):
+        if a.dtype != b.dtype or a.shape != b.shape:
+            raise AssertionError(f"{ctx}: gradient {i}: {a.dtype}{tuple(a.shape)} vs "
+                                 f"{b.dtype}{tuple(b.shape)}")
+        a, b = a.double(), b.double()
+        if not bool(a.isfinite().all()):
+            raise AssertionError(f"{ctx}: gradient {i} is not finite")
+        diff = (a - b).abs()
+        err = max(err, diff.max().item())
+        rel = (diff.norm() / b.norm()).item()
+        norms.append(rel)
+        if rel > norm:
+            raise AssertionError(f"{ctx}: gradient {i}: |diff| / |plain| = {rel} in norm, "
+                                 f"beyond {norm}")
+        if elem is not None and bool((diff / (1 + b.abs()) > elem).any()):
+            raise AssertionError(f"{ctx}: gradient {i} beyond {elem} (1 + |plain|) "
+                                 f"(max |diff| {diff.max().item()})")
+    return err, "|diff| / |plain| in norm " + ", ".join(f"{x:.3g}" for x in norms)
 
 
 def norm_err(got, want) -> float:
@@ -614,6 +658,56 @@ def rwkv_ops(S: int, chunk: int, H: int = 64, N: int = 64) -> float:
     return 2.0 * n_chunks * H * (C * (C - 1) * N + 2 * C * N * N)
 
 
+def rwkv_grad_inputs(gen, dev, S: int, H: int = 64, N: int = 64):
+    """``rwkv_inputs``'s distributions drawn on the card from the torch
+    generator ``gen`` (the host's numpy takes seconds for these sizes),
+    with the cotangents: r, k, v, w, u, state0, dout in bf16, dstate."""
+    import torch
+
+    def normal(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=dev) * scale
+
+    w_base = torch.linspace(-6.0, -0.3, H * N, device=dev).reshape(1, 1, H, N)
+    bf = torch.bfloat16
+    return (normal(1, S, H, N).to(bf), normal(1, S, H, N, scale=0.5).to(bf),
+            normal(1, S, H, N).to(bf),
+            torch.exp(-torch.exp(w_base + normal(1, S, H, N, scale=0.05))),
+            normal(H, N, scale=0.3), normal(1, H, N, N, scale=0.1),
+            normal(1, S, H, N).to(bf), normal(1, H, N, N))
+
+
+def ssm_grad_inputs(gen, dev, S: int, dim: int = 16384, N: int = 16):
+    """``ssm_inputs``'s distributions drawn on the card from the torch
+    generator ``gen``, with the cotangents: x, dt, A, B, C, D, h0, dy in
+    bf16, dh."""
+    import torch
+
+    def normal(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=dev) * scale
+
+    def uniform(lo, hi, *shape):
+        return lo + (hi - lo) * torch.rand(shape, generator=gen, device=dev)
+
+    dt_bias = torch.log(torch.expm1(uniform(1e-3, 0.1, dim)))
+    bf = torch.bfloat16
+    return (normal(1, S, dim).to(bf),
+            torch.nn.functional.softplus(normal(1, S, dim, scale=0.5) + dt_bias),
+            -torch.exp(uniform(0.0, math.log(16.0), dim, N)), normal(1, S, N).to(bf),
+            normal(1, S, N).to(bf), torch.ones(dim, device=dev), normal(1, dim, N, scale=0.1),
+            normal(1, S, dim).to(bf), normal(1, dim, N))
+
+
+def rwkv_bwd_ops(S: int, chunk: int, H: int = 64, N: int = 64) -> float:
+    """f32 operations of the chunked scan's backward for one sequence:
+    per chunk and head the N x N products d(rE)'s dO S_in^T, V dS_out^T
+    and dV's (k/E'.E_C) dS_out, and the carry's (r E)^T dO, then A, dA
+    and the products with them on the strict lower triangle (five of
+    C (C - 1) / 2 N), two operations per multiply-add."""
+    C = min(chunk, S)
+    n_chunks = math.ceil(S / C)
+    return 2.0 * n_chunks * H * (4 * C * N * N + 2.5 * C * (C - 1) * N)
+
+
 def ssm_inputs(rng, dev, S: int, dim: int = 16384, N: int = 16):
     """jamba's Mamba prefill operands as ``mamba_apply`` hands them to the
     scan: x, B, C in bf16; dt = softplus(dt_proj + dt_bias) in f32, with
@@ -698,12 +792,15 @@ def check_kernels(dev) -> dict:
         flash_attention_ref,
     )
     from repro_torch.kernels.flash_attention import ops as flash_ops
-    from repro_torch.kernels.rwkv6_scan import rwkv6_chunked_ref, rwkv6_scan
+    from repro_torch.kernels.rwkv6_scan import (
+        rwkv6_chunked_ref, rwkv6_scan, rwkv6_scan_bwd, rwkv6_scan_bwd_ref,
+    )
+    from repro_torch.kernels.rwkv6_scan import ops as rwkv6_ops
     from repro_torch.kernels.sched_select import (
         masked_lex_argmin, masked_lex_argmin_ref, select_sjf, select_sjf_ref,
     )
     from repro_torch.kernels.sim_tick import fleet_tick, fleet_tick_ref
-    from repro_torch.kernels.ssm_scan import ssm_scan, ssm_scan_ref
+    from repro_torch.kernels.ssm_scan import ssm_scan, ssm_scan_bwd, ssm_scan_bwd_ref, ssm_scan_ref
     from repro_torch.kernels.state_update import (
         assign_gather, assign_gather_ref, retire_land, retire_land_ref,
     )
@@ -940,7 +1037,70 @@ def check_kernels(dev) -> dict:
                       lambda a=a: ssm_scan(*a, chunk=256), plain, a,
                       {"exp": (per_state, SFU_EXP_PER_S),
                        "operations": (6.0 * per_state, CORE_OPS_PER_S)}, None,
-                      (LM_TOL["bf16"], LM_TOL["f32"]), {"plain_reps": dict(reps=3, inner=1)}))
+                      (LM_TOL["bf16"], LM_TOL["f32"]), {"plain_reps": PLAIN_ONCE}))
+
+    # the scans' backward kernels (phase 16's path) against their plain
+    # VJPs, on their own draws (so the other cases draw what they drew):
+    # rwkv6_7b's training shape (4,096 tokens, and a ragged 4,012 that the
+    # wrapper pads to 4,032), and jamba's (2,048, and the served prompt's
+    # 1,838, ragged against the kernel's 16-token segments), nonzero input
+    # states and cotangents of both outputs; bf16 gradients to 2e-2
+    # (1 + |plain|) elementwise and 2e-2 in norm, f32 ones to 2e-4 in norm,
+    # rwkv6's du (a sum of products that cancel) in norm only; a second
+    # call bit-equal to the first
+    bwd_rng = np.random.default_rng(25)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(25)
+    bf16_grad, f32_grad = (LM_TOL["bf16"], LM_TOL["bf16"]), (None, LM_TOL["f32"])
+    rwkv_rules = (bf16_grad,) * 3 + (f32_grad,) * 3
+    for S in (4096, 4012):
+        r, k, v, w, u, s0, dout, dst = rwkv_grad_inputs(gen, dev, S)
+        pad = (32 - S % 32) % 32
+        p = lambda t, val=0.0, n=pad: Fn.pad(t, (0, 0, 0, 0, 0, n), value=val)  # noqa: E731
+        padded = (p(r), p(k), p(v), p(w, 1.0), u, s0)
+        _, _, states = rwkv6_ops._launch(*padded, 32, with_states=True)
+        args = (*padded, p(dout), dst)
+
+        def cut(grads, S=S):   # the wrapper's [:, :S] slice
+            return tuple(g[:, :S] if i < 4 else g for i, g in enumerate(grads))
+
+        cases.append(("rwkv6_scan_bwd", f"B=1 S={S} H=64 N=64 chunk=32 bf16",
+                      lambda a=args, st=states, c=cut: c(rwkv6_scan_bwd(*a, chunk=32, states=st)),
+                      lambda a=args, c=cut: c(rwkv6_scan_bwd_ref(*a, chunk=32)),
+                      (r, k, v, w, u, s0, dout, dst),
+                      {"operations": (rwkv_bwd_ops(S, 32), CORE_OPS_PER_S)}, None, None,
+                      {"grads": rwkv_rules, "plain_reps": PLAIN_ONCE}))
+    # f32 at chunk 16 with decays below the clamp: dw exactly 0 there
+    f32 = lambda a: torch.tensor(a, dtype=torch.float32, device=dev)  # noqa: E731
+    w = np.exp(-np.exp(bwd_rng.uniform(-6.0, 0.5, (1, 256, 4, 32))))
+    w[:, 3:9, :, :5] = 1e-4
+    args = (f32(bwd_rng.standard_normal((1, 256, 4, 32))),
+            f32(0.5 * bwd_rng.standard_normal((1, 256, 4, 32))),
+            f32(bwd_rng.standard_normal((1, 256, 4, 32))), f32(w),
+            f32(0.3 * bwd_rng.standard_normal((4, 32))),
+            f32(0.1 * bwd_rng.standard_normal((1, 4, 32, 32))))
+    _, _, states = rwkv6_ops._launch(*args, 16, with_states=True)
+    args += (f32(bwd_rng.standard_normal((1, 256, 4, 32))),
+             f32(bwd_rng.standard_normal((1, 4, 32, 32))))
+    cases.append(("rwkv6_scan_bwd", "B=1 S=256 H=4 N=32 chunk=16 f32, decays below the clamp",
+                  lambda a=args, st=states: rwkv6_scan_bwd(*a, chunk=16, states=st),
+                  lambda a=args: rwkv6_scan_bwd_ref(*a, chunk=16), args,
+                  {"operations": (rwkv_bwd_ops(256, 16, 4, 32), CORE_OPS_PER_S)}, None, None,
+                  {"grads": (f32_grad,) * 6, "represent": False,
+                   "zero": lambda g: g[3][:, 3:9, :, :5]}))
+    ssm_rules = (bf16_grad, f32_grad, f32_grad, bf16_grad, bf16_grad, f32_grad, f32_grad)
+    for S in (2048, 1838):
+        *a, dy, dh = ssm_grad_inputs(gen, dev, S)
+        cot = (dy, dh)
+        per_state = S * 16384 * 16
+        # one exp per (token, channel, state) and ~10 f32 operations (the
+        # forward's recomputation, g, dA, ddt, dx, dB, dC and the carry)
+        cases.append(("ssm_scan_bwd", f"B=1 S={S} dim=16384 N=16 bf16",
+                      lambda a=a, c=cot: ssm_scan_bwd(*a, *c),
+                      lambda a=a, c=cot: ssm_scan_bwd_ref(*a, *c), (*a, *cot),
+                      {"exp": (per_state, SFU_EXP_PER_S),
+                       "operations": (10.0 * per_state, CORE_OPS_PER_S)}, None, None,
+                      {"grads": ssm_rules, "plain_reps": PLAIN_ONCE}))
 
     results, attached = {}, {}
     for name, label, kernel, plain, ins, ops, library, tols, *options in cases:
@@ -953,7 +1113,20 @@ def check_kernels(dev) -> dict:
         # a case with "rows" holds only its first query rows to the plain
         # version (which ran on those alone)
         held = tuple(g[:, :options["rows"]] for g in got) if "rows" in options else got
-        if tols is None:
+        if "grads" in options:
+            err, kind = grad_err(held, want, options["grads"], f"{name} [{label}]")
+            if "zero" in options:
+                zeros = [float(options["zero"](x).abs().max()) for x in (got, want)]
+                if zeros != [0.0, 0.0]:
+                    raise AssertionError(f"{name} [{label}]: gradient below the clamp {zeros}")
+                kind += "; 0 below the clamp in both"
+            again = kernel()
+            if not all(torch.equal(x, y) for x, y in zip(got, again)):
+                raise AssertionError(f"{name} [{label}]: a second call differs from the first")
+            kind += "; a second call bit-equal"
+            del again
+            reps = dict(reps=11, inner=5)
+        elif tols is None:
             err, kind, reps = max_abs_err(held, want), "exact", {}
         else:
             err, rel = close_err(held, want, tols)
@@ -2655,11 +2828,17 @@ def whisper_phase(dev) -> list[dict]:
 
 
 # phase 16 (a), (b): the whole models' training steps
-TRAIN_PHI3 = dict(seq_len=4096, global_batch=4, steps=5)
+TRAIN_PHI3 = dict(seq_len=4096, global_batch=4, steps=3)
 TRAIN_WHISPER = dict(clips=8, frames=1500, steps=3)
 # phase 16 (c): the smoke configs, f32, on the card against the CPU port
 TRAIN_SMOKE = dict(seq_len=32, global_batch=4, microbatches=2, steps=2)
-SCANS_WAIT = ("rwkv6_7b", "jamba_1p5_large_398b")   # item 15 (d)
+# phase 16 (e): the two scan models at published width, cut in depth to
+# fit one card (parameters, f32 accumulators, bf16 gradients and the
+# optimizer's state take ~16 bytes a parameter under AdamW): rwkv6_7b to
+# 16 of its 32 layers (~4.0 B parameters), jamba to its first layer (the
+# Mamba mixer and a dense MLP, ~2.1 B); arch, layers, sequences of 4,096
+# tokens a step, steps
+TRAIN_SCANS = (("rwkv6_7b", 16, 4, 5), ("jamba_1p5_large_398b", 1, 8, 3))
 
 
 def _kernel_ms(by_name: dict, kernel: str) -> float:
@@ -2688,10 +2867,16 @@ def timed_train(step_fn, state, batches, label: str):
 
 
 def whole_model_training(dev, label, cfg, arch, batches, tokens: int, model_flops: float,
-                         attention_flops: float, profile_batch) -> dict:
-    """Phase 16 (a) / (b): ``make_train_step`` of ``arch``'s optimizer and
-    microbatches on ``cfg``, the batches in turn, then one more step under
-    the profiler. Returns the launches of the timed steps."""
+                         attention_flops: float, profile_batch,
+                         kernels=("flash_attention", "flash_attention_bwd"),
+                         extra="attention") -> dict:
+    """Phase 16 (a), (b), (e): ``make_train_step`` of ``arch``'s optimizer
+    and microbatches on ``cfg``, the batches in turn, then one more step
+    under the profiler; ``kernels`` must launch, and each one's share of
+    the profiled step's device time is printed. ``attention_flops``: the
+    FLOPs of a step beside 6 N T (``extra`` names them); ``model_flops``
+    None: 6 N T with N the parameters drawn. Returns the launches of the
+    timed steps."""
     import torch
 
     from repro_torch.kernels import launch_counts, reset_launch_counts
@@ -2703,8 +2888,12 @@ def whole_model_training(dev, label, cfg, arch, batches, tokens: int, model_flop
     torch.cuda.reset_peak_memory_stats()
     state = init_fn(0)
     n_params = sum(p.numel() for p in state.params.parameters())
-    watched = [p for p in state.params.parameters() if p.dim() >= 2][:3] + [
-        state.params.final_norm]
+    if model_flops is None:
+        model_flops = 6.0 * n_params * tokens
+    # not the embedding: its first rows are tokens the batches never hold
+    # (SyntheticLM draws from 2 up), all of the first 4,096 values at d 4,096
+    watched = [p for n, p in state.params.named_parameters()
+               if p.dim() >= 2 and "embed" not in n][:3] + [state.params.final_norm]
     before = [p.detach().flatten()[:4096].clone() for p in watched]
     reset_launch_counts()
     state, walls, losses, norms = timed_train(step_fn, state, batches, label)
@@ -2713,7 +2902,7 @@ def whole_model_training(dev, label, cfg, arch, batches, tokens: int, model_flop
     moved = [not torch.equal(b, p.detach().flatten()[:4096]) for b, p in zip(before, watched)]
     if not all(moved):
         raise AssertionError(f"{label}: parameters that did not change: {moved}")
-    for name in ("flash_attention", "flash_attention_bwd"):
+    for name in kernels:
         if counts[name] <= 0:
             raise AssertionError(f"{label}: {name} was not launched")
     if peak >= 79:
@@ -2725,7 +2914,7 @@ def whole_model_training(dev, label, cfg, arch, batches, tokens: int, model_flop
         shares = ", ".join(
             f"{k} {_kernel_ms(busy['by_name'], f'{k}_kernel'):.1f} ms "
             f"({100 * _kernel_ms(busy['by_name'], f'{k}_kernel') / busy['busy_ms']:.1f}% of the "
-            f"step's device time)" for k in ("flash_attention", "flash_attention_bwd"))
+            f"step's device time)" for k in kernels)
         shares = f"; device busy {100 * busy['busy_share']:.1f}% of the profiled step's wall; " \
                  + shares
     mfu = (model_flops + attention_flops) / (step_s * BF16_TENSOR_OPS_PER_S)
@@ -2735,7 +2924,7 @@ def whole_model_training(dev, label, cfg, arch, batches, tokens: int, model_flop
           f"2-{len(walls)}), {tokens / step_s:.0f} tokens/s, peak {peak:.2f} GiB; losses "
           f"{[round(x, 4) for x in losses]}, grad norms {[round(x, 4) for x in norms]}; "
           f"model-FLOP share of the bf16 peak {100 * mfu:.1f}% ((6 N T = "
-          f"{model_flops:.4g} + attention {attention_flops:.4g}) FLOP a step){shares}")
+          f"{model_flops:.4g} + {extra} {attention_flops:.4g}) FLOP a step){shares}")
     print(f"{label} launches:", json.dumps(counts))
     del state, init_fn, step_fn
     torch.cuda.empty_cache()
@@ -2744,7 +2933,7 @@ def whole_model_training(dev, label, cfg, arch, batches, tokens: int, model_flop
 
 def train_phase(dev) -> list[dict]:
     """Phase 16: training on the card. (a) phi3_mini_3p8b whole (32
-    layers, d 3,072, bf16, AdamW with f32 state, 4 microbatches): 5 steps
+    layers, d 3,072, bf16, AdamW with f32 state, 4 microbatches): 3 steps
     of ``make_train_step`` at 4 x 4,096 tokens of ``SyntheticLM(seed=0)``;
     (b) whisper_small whole: 3 steps of ``encdec_loss`` on 8 clips of
     1,500 frames and 187 decoder tokens; each with step ms, tokens/s, peak
@@ -2753,10 +2942,12 @@ def train_phase(dev) -> list[dict]:
     device time and the model-FLOP share of the bf16 peak; finite losses,
     parameters that changed. (c) every smoke config in f32, 2 steps with 2
     microbatches on the card against the CPU port's (losses and norms to
-    1e-4); rwkv6_7b and jamba raise, naming item 15 (d). (d) phi3's smoke
-    config through ``run_training`` with checkpoints every 2 steps and an
-    injected failure, under deterministic algorithms: the resumed run's
-    losses bit-equal to an uninterrupted run's. Returns the launches."""
+    1e-4). (d) phi3's smoke config through ``run_training`` with
+    checkpoints every 2 steps and an injected failure, under deterministic
+    algorithms: the resumed run's losses bit-equal to an uninterrupted
+    run's. (e) ``TRAIN_SCANS``: rwkv6_7b and jamba at published width, cut
+    in depth, as (a), their scans' kernels launched. Returns the
+    launches."""
     import tempfile
     import warnings
 
@@ -2819,18 +3010,6 @@ def train_phase(dev) -> list[dict]:
         ds = SyntheticLM(vocab=cfg.vocab, seq_len=TRAIN_SMOKE["seq_len"],
                          global_batch=TRAIN_SMOKE["global_batch"], seed=0, family=cfg.family,
                          n_img_tokens=cfg.n_img_tokens)
-        if name in SCANS_WAIT:
-            init_fn, step_fn = make_train_step(cfg, ocfg, microbatches=TRAIN_SMOKE["microbatches"],
-                                               device=dev)
-            try:
-                step_fn(init_fn(0), next(make_batch_iterator(ds, device=dev)))
-            except NotImplementedError as e:
-                if "item 15 (d)" not in str(e):
-                    raise
-                print(f"phase 16 (c): {name} on {dev}: raises NotImplementedError ({e})")
-                continue
-            raise AssertionError(f"phase 16 (c): {name} trained on {dev} through a scan that "
-                                 "has no backward kernel")
         runs, start = {}, None
         for where in ("cpu", dev):
             init_fn, step_fn = make_train_step(cfg, ocfg, microbatches=TRAIN_SMOKE["microbatches"],
@@ -2859,9 +3038,10 @@ def train_phase(dev) -> list[dict]:
               f"grad norms {gn} on {dev}, within 1e-4 of the CPU port's {cl}, {cn}")
     counts = launch_counts()
     print(f"{CARD}: phase 16 (c): {len(held)} smoke configs trained on {dev} as on the CPU port "
-          f"({', '.join(held)}); {', '.join(SCANS_WAIT)} wait for item 15 (d)")
+          f"({', '.join(held)})")
     print("phase 16 (c) launches:", json.dumps(counts))
-    for k in ("flash_attention", "flash_attention_bwd"):
+    for k in ("flash_attention", "flash_attention_bwd", "rwkv6_scan", "rwkv6_scan_bwd",
+              "ssm_scan", "ssm_scan_bwd"):
         if counts[k] <= 0:
             raise AssertionError(f"phase 16 (c): {k} was not launched")
     all_counts.append(counts)
@@ -2902,6 +3082,31 @@ def train_phase(dev) -> list[dict]:
           f"{nondeterministic or 'none'}")
     print("phase 16 (d) launches:", json.dumps(counts))
     all_counts.append(counts)
+
+    # ---- (e) rwkv6_7b and jamba at published width, cut in depth -------------
+    for name, n_layers, Bg, n in TRAIN_SCANS:
+        arch = get_arch(name)
+        cfg = dataclasses.replace(arch.model, n_layers=n_layers)
+        S = 4096
+        it = make_batch_iterator(SyntheticLM(vocab=cfg.vocab, seq_len=S, global_batch=Bg,
+                                             seed=0), device=dev)
+        batches = [next(it) for _ in range(n + 1)]
+        if name == "rwkv6_7b":
+            kernels = ("rwkv6_scan", "rwkv6_scan_bwd")
+            H = cfg.d_model // cfg.rwkv.head_dim
+            # the chunked scan's products, forward and backward, each row
+            scan = Bg * n_layers * (rwkv_ops(S, cfg.rwkv.chunk, H, cfg.rwkv.head_dim)
+                                    + rwkv_bwd_ops(S, cfg.rwkv.chunk, H, cfg.rwkv.head_dim))
+        else:
+            kernels = ("ssm_scan", "ssm_scan_bwd")
+            d_inner = cfg.mamba.expand * cfg.d_model
+            # ~6 f32 operations forward and ~10 backward a (token, channel, state)
+            scan = Bg * n_layers * 16.0 * S * d_inner * cfg.mamba.d_state
+        # 6 N T with N every parameter, counted once they are drawn (None)
+        all_counts.append(whole_model_training(
+            dev, f"phase 16 (e) {name} training ({n_layers} of {arch.model.n_layers} layers, "
+            f"published width)", cfg, arch, batches[:n], Bg * S, None, scan, batches[n],
+            kernels=kernels, extra="scan"))
     return all_counts
 
 
@@ -2964,8 +3169,9 @@ def build_phase() -> None:
         if "Function :" in line:
             fn = line.split("Function :")[1].strip()
             if not any(k in fn for k in ("flash_attention_kernel", "flash_attention_bwd_kernel",
-                                         "rwkv6_scan_kernel",
-                                         "ssm_scan_kernel", "retire_land_kernel", *NO_SPILL)):
+                                         "rwkv6_scan_kernel", "rwkv6_scan_bwd_kernel",
+                                         "ssm_scan_kernel", "ssm_scan_bwd_kernel",
+                                         "retire_land_kernel", *NO_SPILL)):
                 fn = None
         elif fn:
             parts = line.split("*/")
@@ -3075,6 +3281,12 @@ def main() -> int:
                                 "src/repro/kernels/flash_attention/ref.py:201"),
         "ssm_scan": ("src/repro_torch/csrc/ssm_scan.cu",
                      "src/repro/kernels/ssm_scan/kernel.py:60"),
+        # the scans' backwards: autodiff of the jnp chunked forms in the JAX
+        # package, not Pallas calls
+        "rwkv6_scan_bwd": ("src/repro_torch/csrc/rwkv6_scan_bwd.cu",
+                           "src/repro/kernels/rwkv6_scan/ops.py:70"),
+        "ssm_scan_bwd": ("src/repro_torch/csrc/ssm_scan_bwd.cu",
+                         "src/repro/kernels/ssm_scan/ops.py:49"),
     }
     main_runs = (run_counts, fleet_counts, *replay_counts, *cache_counts, grid_counts,
                  *telemetry_counts, *chaos_counts, *overload_counts, rwkv_counts, gemma_counts,

@@ -46,81 +46,28 @@
 // the cumsum, r E and k / E' . E_C for its chunk (the two blocks of a
 // head read the same chunk, mostly from L2) instead of reading them, or
 // the per-chunk state increments (64 MiB), from scratch.
+// Training: the carry can also write each chunk's input state (the
+// optional [B, H, n_chunks, N, N] f32 `states`: one 16 KB slice of stores
+// a chunk and block) for the backward kernels of csrc/rwkv6_scan_bwd.cu.
+// That store is a second instantiation of the carry (kStates), so the
+// serving one, with `states` null, is the code it was without it: a
+// run-time branch instead cost the serving carry 6.7 % (PERF.md).
 // The decays run in log2 units (lg2 and ex2, one instruction each); the
 // cumsum runs four threads to a column, a quarter of the rows each, the
 // four partial sums combined by shuffles, each thread's rows loaded into
 // registers first.
 #include "common.cuh"
+#include "rwkv6_common.cuh"
 
 #include <cuda_bf16.h>
 
 namespace {
 
+using namespace rwkv6;
+
 constexpr int kThreads = 256;                 // intra blocks
 constexpr int kCarryThreads = 512;            // carry blocks
 constexpr int kSlice = 32;                    // value columns per carry block
-constexpr float kLog2e = 1.4426950408889634f;
-constexpr float kLog2WMin = -5.0f * kLog2e;   // LOG_W_MIN in log2 units
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
-// log2 w clamped at LOG_W_MIN: the decays run in log2 units, so the
-// cumsum's exps are single exp2 instructions
-__device__ __forceinline__ float clamp_log2(float w) {
-  return fmaxf(__log2f(fmaxf(w, 1e-30f)), kLog2WMin);
-}
-
-// The decay of one chunk for the column n = threadIdx.x / 4 (< N): four
-// threads to a column, each over its rows i0 .. i0 + cnt - 1 (a quarter
-// of the C rows, cnt <= MR). lw[i * ld + n] holds log2 w clamped, or
-// (RAW) the decay w itself. Returns E_C = exp2(Li[C - 1]) and, for the
-// thread's rows, lx (the exclusive cumsum Lx of the clamped log2 w down
-// the column) and lwv (the clamped log2 w), so Li = lx + lwv. Every
-// thread of the block calls it (the shuffles); all loads come first.
-template <int MR, bool RAW>
-__device__ __forceinline__ float column_decay(const float* lw, int ld, int N, int C,
-                                              float (&lx)[MR], float (&lwv)[MR], int& i0,
-                                              int& cnt) {
-  const int n = threadIdx.x / 4, part = threadIdx.x % 4;
-  const int len = (C + 3) / 4;
-  i0 = min(C, part * len);
-  cnt = min(C, i0 + len) - i0;
-  const bool mine = n < N;
-#pragma unroll
-  for (int t = 0; t < MR; ++t) {
-    float x = 0.0f;
-    if (mine && t < cnt) {
-      x = lw[(i0 + t) * ld + n];
-      if (RAW) x = clamp_log2(x);
-    }
-    lwv[t] = x;
-  }
-  float seg = 0.0f;
-#pragma unroll
-  for (int t = 0; t < MR; ++t) seg += lwv[t];
-  float incl = seg;
-  float up = __shfl_up_sync(0xffffffffu, incl, 1, 4);
-  if (part >= 1) incl += up;
-  up = __shfl_up_sync(0xffffffffu, incl, 2, 4);
-  if (part >= 2) incl += up;
-  float run = incl - seg;
-#pragma unroll
-  for (int t = 0; t < MR; ++t) {
-    lx[t] = run;
-    run += lwv[t];
-  }
-  return exp2f(__shfl_sync(0xffffffffu, incl, 3, 4));
-}
 
 __device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
   acc = fmaf(a.x, b.x, acc);
@@ -363,11 +310,12 @@ inline size_t carry_smem_bytes(int N, int C) {
              (2 * ((size_t)C * (N + 4) + (size_t)N * c_stride(C) + N) + (size_t)N * kSlice);
 }
 
-template <typename T, int MR>
+template <typename T, int MR, bool kStates>
 __global__ void __launch_bounds__(kCarryThreads, 1) rwkv6_scan_kernel_carry(
     const T* __restrict__ r, const T* __restrict__ k, const T* __restrict__ v,
     const float* __restrict__ w, const float* __restrict__ y, const float* __restrict__ s0,
-    T* __restrict__ out, float* __restrict__ sout, int S, int H, int N, int C) {
+    T* __restrict__ out, float* __restrict__ sout, float* __restrict__ states, int S, int H,
+    int N, int C) {
   extern __shared__ __align__(16) uint8_t smem[];
   const Stage sg(N, C, sizeof(T));
   const int LDR = N + 4, LDC = c_stride(C);
@@ -413,6 +361,13 @@ __global__ void __launch_bounds__(kCarryThreads, 1) rwkv6_scan_kernel_carry(
     asm volatile("cp.async.commit_group;\n" ::: "memory");
     asm volatile("cp.async.wait_group 1;\n" ::: "memory");
     __syncthreads();   // stage c, chunk c's decay and the last chunk's state are in
+    if constexpr (kStates) {   // chunk c's input state, for the backward
+      float* dst = states + ((size_t)bh * n_chunks + c) * NN + m0;
+      for (int e = tid; e < N * kSlice; e += kCarryThreads) {
+        const int n = e / kSlice, mm = e % kSlice;
+        if (mm < W) dst[(size_t)n * N + mm] = st[e];
+      }
+    }
     const float* rE = rE_of(c);
     const float* kT = kT_of(c);
     const float* etot = etot_of(c);
@@ -503,15 +458,15 @@ __global__ void __launch_bounds__(kCarryThreads, 1) rwkv6_scan_kernel_carry(
   }
 }
 
-template <typename T, int MR>
+template <typename T, int MR, bool kStates>
 int launch(const void* r, const void* k, const void* v, const void* w, const void* u,
-           const void* s0, void* out, void* sout, void* y, int B, int S, int H, int N, int C,
-           cudaStream_t stream) {
+           const void* s0, void* out, void* sout, void* y, void* states, int B, int S, int H,
+           int N, int C, cudaStream_t stream) {
   const size_t smem1 = intra_smem_bytes(N, C), smem2 = carry_smem_bytes<T>(N, C);
   cudaError_t err = cudaFuncSetAttribute(
       rwkv6_scan_kernel_intra<T, MR>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem1);
   if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(rwkv6_scan_kernel_carry<T, MR>,
+    err = cudaFuncSetAttribute(rwkv6_scan_kernel_carry<T, MR, kStates>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem2);
   if (err != cudaSuccess) return (int)err;
   rwkv6_scan_kernel_intra<T, MR><<<B * H * (S / C), kThreads, smem1, stream>>>(
@@ -519,41 +474,55 @@ int launch(const void* r, const void* k, const void* v, const void* w, const voi
       H, N, C);
   const int status = repro::launch_status();
   if (status != 0) return status;
-  rwkv6_scan_kernel_carry<T, MR>
+  rwkv6_scan_kernel_carry<T, MR, kStates>
       <<<B * H * ((N + kSlice - 1) / kSlice), kCarryThreads, smem2, stream>>>(
           (const T*)r, (const T*)k, (const T*)v, (const float*)w, (const float*)y,
-          (const float*)s0, (T*)out, (float*)sout, S, H, N, C);
+          (const float*)s0, (T*)out, (float*)sout, (float*)states, S, H, N, C);
   return repro::launch_status();
 }
 
 // MR: rows of a chunk per thread of the decay, C / 4 rounded up
+template <typename T, bool kStates>
+int dispatch_mr(const void* r, const void* k, const void* v, const void* w, const void* u,
+                const void* s0, void* out, void* sout, void* y, void* states, int B, int S,
+                int H, int N, int C, cudaStream_t stream) {
+  if (C <= 16)
+    return launch<T, 4, kStates>(r, k, v, w, u, s0, out, sout, y, states, B, S, H, N, C,
+                                 stream);
+  if (C <= 32)
+    return launch<T, 8, kStates>(r, k, v, w, u, s0, out, sout, y, states, B, S, H, N, C,
+                                 stream);
+  return launch<T, 16, kStates>(r, k, v, w, u, s0, out, sout, y, states, B, S, H, N, C,
+                                stream);
+}
+
 template <typename T>
 int dispatch(const void* r, const void* k, const void* v, const void* w, const void* u,
-             const void* s0, void* out, void* sout, void* y, int B, int S, int H, int N, int C,
-             cudaStream_t stream) {
-  if (C <= 16)
-    return launch<T, 4>(r, k, v, w, u, s0, out, sout, y, B, S, H, N, C, stream);
-  if (C <= 32)
-    return launch<T, 8>(r, k, v, w, u, s0, out, sout, y, B, S, H, N, C, stream);
-  return launch<T, 16>(r, k, v, w, u, s0, out, sout, y, B, S, H, N, C, stream);
+             const void* s0, void* out, void* sout, void* y, void* states, int B, int S, int H,
+             int N, int C, cudaStream_t stream) {
+  if (states != nullptr)
+    return dispatch_mr<T, true>(r, k, v, w, u, s0, out, sout, y, states, B, S, H, N, C,
+                                stream);
+  return dispatch_mr<T, false>(r, k, v, w, u, s0, out, sout, y, states, B, S, H, N, C, stream);
 }
 
 }  // namespace
 
 // r, k, v, out: [B, S, H, N] bf16 (is_bf16 = 1) or f32; w: [B, S, H, N]
 // f32; u: [H, N] f32; s0, sout: [B, H, N, N] f32; y: scratch [B, S, H, N]
-// f32. S is a multiple of C, N % 8 == 0, N <= 64, C <= 64.
+// f32; states: null, or [B, H, S / C, N, N] f32 for each chunk's input
+// state. S is a multiple of C, N % 8 == 0, N <= 64, C <= 64.
 REPRO_EXPORT int repro_rwkv6_scan(const void* r, const void* k, const void* v,
                                   const void* w, const void* u, const void* s0,
-                                  void* out, void* sout, void* y, int B, int S,
-                                  int H, int N, int C, int is_bf16, void* stream,
+                                  void* out, void* sout, void* y, void* states, int B,
+                                  int S, int H, int N, int C, int is_bf16, void* stream,
                                   int device) {
   cudaSetDevice(device);
   if (B * H * S == 0) return repro::launch_status();
   if (N % 8 || N > 64 || C > 64 || S % C) return (int)cudaErrorInvalidValue;
   if (is_bf16)
-    return dispatch<__nv_bfloat16>(r, k, v, w, u, s0, out, sout, y, B, S, H, N, C,
+    return dispatch<__nv_bfloat16>(r, k, v, w, u, s0, out, sout, y, states, B, S, H, N, C,
                                    (cudaStream_t)stream);
-  return dispatch<float>(r, k, v, w, u, s0, out, sout, y, B, S, H, N, C,
+  return dispatch<float>(r, k, v, w, u, s0, out, sout, y, states, B, S, H, N, C,
                          (cudaStream_t)stream);
 }

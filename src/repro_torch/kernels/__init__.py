@@ -1,12 +1,13 @@
 """Hand-written CUDA kernels of the port, each beside its plain PyTorch
 version (``<subsystem>/ref.py``) and a wrapper (``<subsystem>/ops.py``)
 that picks one by the device of the data: the simulator's four, the
-LM substrate's three and the attention backward of training."""
+LM substrate's three and the backwards of training (attention and the
+two scans)."""
 from .flash_attention import flash_attention, flash_attention_bwd
-from .rwkv6_scan import rwkv6_scan
+from .rwkv6_scan import rwkv6_scan, rwkv6_scan_bwd
 from .sched_select import masked_lex_argmin
 from .sim_tick import fleet_tick
-from .ssm_scan import ssm_scan
+from .ssm_scan import ssm_scan, ssm_scan_bwd
 from .state_update import assign_gather, retire_land
 
 # the simulator's kernels (run / fleet_run), by the name each launch
@@ -17,13 +18,14 @@ SIM_KERNELS = {
     "masked_lex_argmin": masked_lex_argmin,
     "assign_gather": assign_gather,
 }
-# the LM substrate's kernels (serving prefill; the attention backward in
-# training)
+# the LM substrate's kernels (serving prefill; the backwards in training)
 LM_KERNELS = {
     "rwkv6_scan": rwkv6_scan,
     "flash_attention": flash_attention,
     "ssm_scan": ssm_scan,
     "flash_attention_bwd": flash_attention_bwd,
+    "rwkv6_scan_bwd": rwkv6_scan_bwd,
+    "ssm_scan_bwd": ssm_scan_bwd,
 }
 KERNELS = {**SIM_KERNELS, **LM_KERNELS}
 
@@ -51,5 +53,7 @@ __all__ = [
     "reset_launch_counts",
     "retire_land",
     "rwkv6_scan",
+    "rwkv6_scan_bwd",
     "ssm_scan",
+    "ssm_scan_bwd",
 ]

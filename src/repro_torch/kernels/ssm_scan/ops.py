@@ -3,9 +3,12 @@ their own sequence length (each launch counted in
 ``ssm_scan.launches``), or ``ref.ssm_scan_ref`` for CPU tensors, whose
 chunked form needs the sequence padded to a multiple of the chunk.
 
-The kernel has no backward yet: on CUDA, with grad enabled and an input
-that requires grad, the wrapper raises (ROADMAP queue 1, item 15 (d));
-on the CPU autograd differentiates the plain version."""
+With grad enabled and an input that requires grad, the call is
+differentiable (``_SSMScan``, one Function on both devices), and the
+backward is ``ssm_scan_bwd``: the kernels of ``csrc/ssm_scan_bwd.cu``
+for CUDA tensors (each call counted once in ``ssm_scan_bwd.launches``),
+``ref.ssm_scan_bwd_ref`` for CPU tensors. The CPU's padding and the
+``[:, :S]`` slice stay outside the Function."""
 from __future__ import annotations
 
 import ctypes
@@ -14,14 +17,17 @@ import torch
 import torch.nn.functional as F
 
 from .. import cuda_lib
-from ..dispatch import refuse_grad, use_kernel
-from .ref import ssm_scan_ref
+from ..dispatch import use_kernel
+from .ref import ssm_scan_bwd_ref, ssm_scan_ref
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = [_P] * 9 + [_I] * 5 + [_P, _I]
+_BWD_ARGTYPES = [_P] * 19 + [_I] * 5 + [_P, _I]
 # state sizes the kernel is built for: 4 states per thread, N / 4
 # threads per channel
 STATE_SIZES = (4, 8, 16, 32)
+CHANNELS = 32                        # channels of a backward block
+SEGMENT = {4: 16, 8: 16, 16: 16, 32: 8}   # tokens between the backward's checkpoints
 
 
 def ssm_scan(x, dt, A, B, C, D, h0=None, *, chunk: int = 256):
@@ -29,9 +35,12 @@ def ssm_scan(x, dt, A, B, C, D, h0=None, *, chunk: int = 256):
     [B,S,N] in x's dtype, D [dim] f32, h0 [B,dim,N] f32 or None (zeros).
     Returns (y [B,S,dim] in x's dtype, h [B,dim,N] f32). ``chunk`` is
     the plain version's; the kernel takes any S."""
+    grad = torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in (x, dt, A, B, C, D, h0))
     S = x.shape[1]
     if use_kernel(x):
-        refuse_grad("ssm_scan", x, dt, A, B, C, D, h0)
+        if grad:
+            return _SSMScan.apply(x, dt, A, B, C, D, h0, chunk)
         return _launch(x, dt, A, B, C, D, h0)
     # pad ragged sequences to a chunk multiple; dt = 0, x = 0 is the
     # identity update (a = exp(0) = 1, b = 0), so the carried state is
@@ -43,18 +52,20 @@ def ssm_scan(x, dt, A, B, C, D, h0=None, *, chunk: int = 256):
             return F.pad(t, (0, 0, 0, pad))
 
         x, dt, B, C = zpad(x), zpad(dt), zpad(B), zpad(C)
-    y, h = ssm_scan_ref(x, dt, A, B, C, D, h0, chunk=Cn)
+    if grad:
+        y, h = _SSMScan.apply(x, dt, A, B, C, D, h0, Cn)
+    else:
+        y, h = ssm_scan_ref(x, dt, A, B, C, D, h0, chunk=Cn)
     return (y[:, :S], h) if pad else (y, h)
 
 
-def _launch(x, dt, A, B, C, D, h0):
+def _check(kernel: str, x, dt, A, B, C, D, h0) -> None:
     Bsz, S, dim = x.shape
     N = A.shape[1]
-    dev = x.device
     if x.dtype not in (torch.bfloat16, torch.float32):
-        raise TypeError(f"ssm_scan: x has dtype {x.dtype}; the kernel takes bf16 or f32")
+        raise TypeError(f"{kernel}: x has dtype {x.dtype}; the kernel takes bf16 or f32")
     if N not in STATE_SIZES:
-        raise ValueError(f"ssm_scan: the kernel takes d_state in {STATE_SIZES}, got {N}")
+        raise ValueError(f"{kernel}: the kernel takes d_state in {STATE_SIZES}, got {N}")
     for name, t, dtype, shape in (
         ("x", x, x.dtype, (Bsz, S, dim)),
         ("dt", dt, torch.float32, (Bsz, S, dim)),
@@ -65,7 +76,14 @@ def _launch(x, dt, A, B, C, D, h0):
         ("h0", h0, torch.float32, (Bsz, dim, N)),
     ):
         if t is not None or name != "h0":    # no h0: the kernel starts from zeros
-            cuda_lib.require("ssm_scan", name, t, dtype, shape, dev)
+            cuda_lib.require(kernel, name, t, dtype, shape, x.device)
+
+
+def _launch(x, dt, A, B, C, D, h0):
+    Bsz, S, dim = x.shape
+    N = A.shape[1]
+    dev = x.device
+    _check("ssm_scan", x, dt, A, B, C, D, h0)
     y = torch.empty_like(x)
     h = torch.empty((Bsz, dim, N), dtype=torch.float32, device=dev)
     fn = cuda_lib.function("repro_ssm_scan", _ARGTYPES)
@@ -79,6 +97,69 @@ def _launch(x, dt, A, B, C, D, h0):
     return y, h
 
 
-ssm_scan.launches = 0
+class _SSMScan(torch.autograd.Function):
+    """The scan, differentiable: saves the inputs and runs
+    ``ssm_scan_bwd``, which recomputes the states. Under activation
+    checkpointing its forward runs twice, each time on its own saved
+    tensors."""
 
-__all__ = ["STATE_SIZES", "ssm_scan"]
+    @staticmethod
+    def forward(ctx, x, dt, A, B, C, D, h0, chunk: int):
+        if use_kernel(x):
+            y, h = _launch(x, dt, A, B, C, D, h0)
+        else:
+            y, h = ssm_scan_ref(x, dt, A, B, C, D, h0, chunk=chunk)
+        ctx.save_for_backward(x, dt, A, B, C, D, h0)
+        return y, h
+
+    @staticmethod
+    def backward(ctx, dy, dh):
+        grads = ssm_scan_bwd(*ctx.saved_tensors, dy, dh)
+        return (*(g if need else None for g, need in zip(grads, ctx.needs_input_grad)), None)
+
+
+def ssm_scan_bwd(x, dt, A, B, C, D, h0, dy, dh):
+    """The gradients (dx, ddt, dA, dB, dC, dD, dh0) of the scan over any S,
+    each in its input's dtype (dh0 f32), from the cotangents ``dy`` and
+    ``dh`` (either None: zeros; h0 None: zeros)."""
+    if not use_kernel(x):
+        return ssm_scan_bwd_ref(x, dt, A, B, C, D, h0, dy, dh)
+    Bsz, S, dim = x.shape
+    N = A.shape[1]
+    dev = x.device
+    _check("ssm_scan_bwd", x, dt, A, B, C, D, h0)
+    dy = torch.zeros_like(x) if dy is None else dy.contiguous()
+    cuda_lib.require("ssm_scan_bwd", "dy", dy, x.dtype, (Bsz, S, dim), dev)
+    if dh is not None:
+        dh = dh.contiguous()
+        cuda_lib.require("ssm_scan_bwd", "dh", dh, torch.float32, (Bsz, dim, N), dev)
+    f32 = dict(dtype=torch.float32, device=dev)
+    dx, ddt = torch.empty_like(x), torch.empty_like(dt)
+    dB, dC = torch.empty_like(B), torch.empty_like(C)
+    dh0 = torch.empty((Bsz, dim, N), **f32)
+    # per-row partials of dA and dD, folded over rows below; scratch: the
+    # per-block partials of dB and dC, the state every SEGMENT tokens
+    dA_part = torch.empty((Bsz, dim, N), **f32)
+    dD_part = torch.empty((Bsz, dim), **f32)
+    n_blk = -(-dim // CHANNELS)
+    dB_part = torch.empty((Bsz, n_blk, S, N), **f32)
+    dC_part = torch.empty((Bsz, n_blk, S, N), **f32)
+    ckpt = torch.empty((Bsz, -(-S // SEGMENT[N]), dim, N), **f32)
+    fn = cuda_lib.function("repro_ssm_scan_bwd", _BWD_ARGTYPES)
+    code = fn(
+        x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(), C.data_ptr(), D.data_ptr(),
+        None if h0 is None else h0.data_ptr(), dy.data_ptr(),
+        None if dh is None else dh.data_ptr(), dx.data_ptr(), ddt.data_ptr(),
+        dA_part.data_ptr(), dB.data_ptr(), dC.data_ptr(), dD_part.data_ptr(), dh0.data_ptr(),
+        dB_part.data_ptr(), dC_part.data_ptr(), ckpt.data_ptr(),
+        Bsz, S, dim, N, int(x.dtype == torch.bfloat16), *cuda_lib.stream_args(dev),
+    )
+    cuda_lib.check_launch("ssm_scan_bwd", code)
+    ssm_scan_bwd.launches += 1
+    return dx, ddt, dA_part.sum(0), dB, dC, dD_part.sum(0), dh0
+
+
+ssm_scan.launches = 0
+ssm_scan_bwd.launches = 0
+
+__all__ = ["STATE_SIZES", "ssm_scan", "ssm_scan_bwd"]

@@ -14,6 +14,9 @@ Two functions, as in ``repro.kernels.ssm_scan``:
   (``ops._ssm_chunked``); it is the plain version that the wrapper runs
   for CPU tensors and that the CUDA kernel (``csrc/ssm_scan.cu``) is
   held to.
+* ``ssm_scan_bwd_ref``: the VJP of the scan, as the reverse pass that
+  the backward kernels (``csrc/ssm_scan_bwd.cu``) compute, token by
+  token; the backward the wrapper runs for CPU tensors.
 * ``ssm_decode_step``: one token for serving (plain torch on every
   device: the JAX package has no kernel for it either).
 
@@ -55,6 +58,55 @@ def ssm_scan_ref(x, dt, A, B, C, D, h0=None, *, chunk: int = 256):
     return y.to(x.dtype), h
 
 
+def ssm_scan_bwd_ref(x, dt, A, B, C, D, h0, dy, dh):
+    """The gradients of ``ssm_scan_ref``'s (y, h) with respect to (x, dt,
+    A, B, C, D, h0), given their cotangents ``dy`` [B,S,dim] and ``dh``
+    [B,dim,N] (either may be None: zeros; h0 None: zeros). Any S.
+    Returns (dx, ddt, dA, dB, dC, dD, dh0), each in its input's dtype
+    (dh0 f32).
+
+    The states h_0 .. h_{S-1} first (the forward), then the tokens in
+    reverse with g_t, the cotangent of h_t:
+
+        g_t    = dy_t C_t + a_{t+1} g_{t+1}      (g_{S-1} = dy C + dh)
+        dx_t   = sum_n g_t dt_t B_t + D dy_t,    dB_t = sum_d g_t dt_t x_t
+        ddt_t  = sum_n g_t (h_{t-1} a_t A + x_t B_t)
+        dC_t   = sum_d dy_t h_t,                 dA  += g_t h_{t-1} a_t dt_t
+        dD    += dy_t x_t,                       dh0  = a_0 g_0
+
+    with a_t = exp(A dt_t): every h_{t-1} is kept from the forward, never
+    recovered by dividing by a_t (which underflows)."""
+    Bsz, S, dim = x.shape
+    N = A.shape[1]
+    f32 = torch.float32
+    xf, dtf, Bf, Cf = (t.to(f32) for t in (x, dt, B, C))
+    Af, Df = A.to(f32), D.to(f32)
+    dyf = torch.zeros_like(xf) if dy is None else dy.to(f32)
+    h = (torch.zeros((Bsz, dim, N), dtype=f32, device=x.device)
+         if h0 is None else h0.to(f32))
+    hs = [h]                                                 # h_{-1}, h_0, .., h_{S-1}
+    for t in range(S):
+        hs.append(_step(hs[-1], xf[:, t], dtf[:, t], Af, Bf[:, t], Cf[:, t], Df)[0])
+    g_next = (torch.zeros((Bsz, dim, N), dtype=f32, device=x.device) if dh is None
+              else dh.to(f32))                               # a_{t+1} g_{t+1}, then dh
+    dx, ddt, dB, dC = (torch.zeros_like(t) for t in (xf, dtf, Bf, Cf))
+    dA = torch.zeros_like(Af)
+    dD = torch.zeros_like(Df)
+    for t in reversed(range(S)):
+        a = torch.exp(Af[None] * dtf[:, t, :, None])         # [B,dim,N]
+        g = dyf[:, t, :, None] * Cf[:, t, None, :] + g_next
+        dC[:, t] = torch.einsum("bd,bdn->bn", dyf[:, t], hs[t + 1])
+        dB[:, t] = torch.einsum("bdn,bd->bn", g, dtf[:, t] * xf[:, t])
+        da = g * hs[t] * a                                   # d(A dt_t)
+        ddt[:, t] = (da * Af[None]).sum(-1) + xf[:, t] * (g * Bf[:, t, None, :]).sum(-1)
+        dx[:, t] = dtf[:, t] * (g * Bf[:, t, None, :]).sum(-1) + Df[None] * dyf[:, t]
+        dA = dA + (da * dtf[:, t, :, None]).sum(0)
+        dD = dD + (dyf[:, t] * xf[:, t]).sum(0)
+        g_next = a * g
+    return (dx.to(x.dtype), ddt.to(dt.dtype), dA.to(A.dtype), dB.to(B.dtype), dC.to(C.dtype),
+            dD.to(D.dtype), g_next)
+
+
 def ssm_decode_step(x, dt, A, B, C, D, h):
     """One-token update. x/dt [B,dim]; B/C [B,N]; h [B,dim,N] f32.
     Returns (y [B,dim] in x's dtype, new h)."""
@@ -64,4 +116,4 @@ def ssm_decode_step(x, dt, A, B, C, D, h):
     return y.to(x.dtype), h
 
 
-__all__ = ["ssm_scan_ref", "ssm_decode_step"]
+__all__ = ["ssm_decode_step", "ssm_scan_bwd_ref", "ssm_scan_ref"]

@@ -46,7 +46,8 @@ from repro_torch.kernels.flash_attention import (
     flash_attention_fwd_lse_ref,
 )
 from repro_torch.kernels.flash_attention import ops as flash_ops
-from repro_torch.kernels.rwkv6_scan import rwkv6_scan
+from repro_torch.kernels.rwkv6_scan import ops as rwkv6_ops
+from repro_torch.kernels.rwkv6_scan import rwkv6_scan, rwkv6_scan_bwd
 from repro_torch.kernels.sched_select import (
     masked_lex_argmin,
     masked_lex_argmin_ref,
@@ -54,7 +55,7 @@ from repro_torch.kernels.sched_select import (
     select_sjf_ref,
 )
 from repro_torch.kernels.sim_tick import fleet_tick, fleet_tick_ref
-from repro_torch.kernels.ssm_scan import ssm_scan
+from repro_torch.kernels.ssm_scan import ssm_scan, ssm_scan_bwd
 from repro_torch.kernels.ssm_scan import ops as ssm_ops
 from repro_torch.kernels.state_update import (
     assign_gather,
@@ -788,35 +789,24 @@ def test_flash_attention_without_grad_stores_no_lse(cuda, monkeypatch):
     assert seen == [False, False]
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("kernel", ["rwkv6_scan", "ssm_scan"])
-def test_scans_refuse_grad_on_the_card(cuda, kernel):
-    """No backward kernel yet for the two scans (ROADMAP item 15 (d)): under
-    grad their CUDA wrappers raise instead of falling back."""
-    if kernel == "rwkv6_scan":
-        args = [torch.rand((1, 16, 2, 16), device=cuda) for _ in range(4)]
-        args += [torch.zeros((2, 16), device=cuda)]
-        args[0].requires_grad_()
-        fn = lambda: rwkv6_scan(*args, chunk=16)  # noqa: E731
-    else:
-        args = list(_ssm_arrays(np.random.default_rng(0), 1, 8, 32, 16, torch.float32))
-        args = [None if a is None else a.to(cuda) for a in args]
-        args[0].requires_grad_()
-        fn = lambda: ssm_scan(*args, chunk=8)  # noqa: E731
-    with pytest.raises(NotImplementedError, match=r"item 15 \(d\)"):
-        fn()
-    with torch.no_grad():
-        fn()
+# the kernels a training step of each model launches on the card, forward
+# and backward
+TRAIN_KERNELS = {
+    "rwkv6_7b": ("rwkv6_scan", "rwkv6_scan_bwd"),
+    "jamba_1p5_large_398b": ("ssm_scan", "ssm_scan_bwd", "flash_attention", "flash_attention_bwd"),
+}
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("name", ["phi3_mini_3p8b", "llama4_maverick_400b_a17b", "whisper_small"])
+@pytest.mark.parametrize("name", ["phi3_mini_3p8b", "llama4_maverick_400b_a17b", "whisper_small",
+                                  "rwkv6_7b", "jamba_1p5_large_398b"])
 def test_smoke_training_on_the_card_matches_the_cpu(cuda, name):
     """Two ``make_train_step`` steps of 2 microbatches of a smoke config in
     f32 on the card against the CPU port's, from the same parameters:
-    losses and gradient norms to 1e-4, the attention forward and backward
+    losses and gradient norms to 1e-4, the model's forward and backward
     kernels launched (llama4: Adafactor with bf16 state and the MoE's
-    load-balance loss; whisper: the encoder-decoder)."""
+    load-balance loss; whisper: the encoder-decoder; rwkv6_7b and jamba:
+    the scans' backward kernels)."""
     from repro_torch.data import SyntheticLM, make_batch_iterator
     from repro_torch.runtime import make_train_step, opt_config
 
@@ -843,7 +833,8 @@ def test_smoke_training_on_the_card_matches_the_cpu(cuda, name):
             metrics.append((float(m["loss"]), float(m["grad_norm"])))
         runs[str(where)] = metrics
     counts = launch_counts()
-    assert counts["flash_attention"] > 0 and counts["flash_attention_bwd"] > 0, counts
+    kernels = TRAIN_KERNELS.get(name, ("flash_attention", "flash_attention_bwd"))
+    assert all(counts[k] > 0 for k in kernels), counts
     np.testing.assert_allclose(runs[str(cuda)], runs["cpu"], rtol=1e-4, atol=0)
 
 
@@ -924,6 +915,219 @@ def test_ssm_scan_kernel_without_state_and_empty_batch(cuda):
     empty = [x[:0] if x.dim() == 3 and x.shape[0] == 2 else x for x in dev]
     y, h = ssm_scan(*empty, chunk=8)
     assert y.shape == (0, 24, 32) and h.shape == (0, 32, 16)
+
+
+# ---------------------------------------------------------------------------
+# The scans' backward kernels against their plain VJPs (run on the CPU),
+# as chip_smoke.py holds them: bf16 gradients to 2e-2 (1 + |plain|)
+# elementwise and 2e-2 |plain| in norm, f32 gradients to 2e-4 |plain| in
+# norm; rwkv6's du, a sum of products that cancel, in norm only.
+# ---------------------------------------------------------------------------
+def _hold_grad(got, want, elementwise=True):
+    assert got.dtype == want.dtype and got.shape == want.shape
+    a, b = got.cpu().double(), want.double()
+    assert bool(a.isfinite().all())
+    tol = 2e-2 if want.dtype == torch.bfloat16 else 2e-4
+    assert (a - b).norm().item() <= tol * b.norm().item() + 1e-12
+    if elementwise and want.dtype == torch.bfloat16:
+        assert bool(((a - b).abs() <= tol * (1 + b.abs())).all())
+
+
+def _rwkv_grad_arrays(rng, B, S, H, N, chunk, dtype):
+    """r, k, v in ``dtype``; w = exp(-exp(x)), x uniform in [-6, 0.5]
+    (-0.5 at chunk 64: the chunked form computes k exp(-Li), finite only
+    while a chunk's decays stay above exp(-88)), a few decays below the
+    clamp; u, a state; the cotangents dout (``dtype``) and dstate."""
+    f32 = lambda a: torch.from_numpy(np.asarray(a, np.float32))  # noqa: E731
+    w = np.exp(-np.exp(rng.uniform(-6.0, 0.5 if chunk <= 32 else -0.5, (B, S, H, N))))
+    w[:, 1:3, 0, :4] = 1e-4
+    ins = (f32(rng.standard_normal((B, S, H, N))).to(dtype),
+           f32(rng.standard_normal((B, S, H, N)) * 0.5).to(dtype),
+           f32(rng.standard_normal((B, S, H, N))).to(dtype), f32(w),
+           f32(rng.standard_normal((H, N)) * 0.3), f32(rng.standard_normal((B, H, N, N)) * 0.1))
+    return ins, (f32(rng.standard_normal((B, S, H, N))).to(dtype),
+                 f32(rng.standard_normal((B, H, N, N))))
+
+
+RWKV_BWD_CUDA_CASES = [
+    # B, S, H, N, chunk
+    (2, 64, 2, 16, 8),
+    (1, 96, 3, 32, 16),
+    (1, 128, 2, 64, 32),     # rwkv6_7b's head dim and chunk, two value slices
+    (1, 128, 2, 64, 64),
+    (2, 48, 2, 16, 16),
+    (1, 24, 2, 32, 32),      # chunk > S: one chunk of 24
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", RWKV_BWD_CUDA_CASES, ids=str)
+@pytest.mark.parametrize("dstate", [True, False], ids=["dstate", "no-dstate"])
+def test_rwkv6_scan_bwd_kernels_match_plain(cuda, case, dtype, dstate):
+    """The backward kernels on the forward kernel's chunk states against
+    ``rwkv6_scan_bwd_ref``; dw exactly 0 below the clamp; a second call
+    bit-equal to the first."""
+    B, S, H, N, chunk = case
+    ins, (dout, dst) = _rwkv_grad_arrays(np.random.default_rng(S + N + chunk), B, S, H, N,
+                                         chunk, dtype)
+    dst = dst if dstate else None
+    dev = [x.to(cuda) for x in ins]
+    C = min(chunk, S)
+    _, _, states = rwkv6_ops._launch(*dev, C, with_states=True)
+    reset_launch_counts()
+    got = rwkv6_scan_bwd(*dev, dout.to(cuda), None if dst is None else dst.to(cuda),
+                         chunk=chunk, states=states)
+    torch.cuda.synchronize()
+    assert launch_counts()["rwkv6_scan_bwd"] == 1
+    want = rwkv6_scan_bwd(*ins, dout, dst, chunk=chunk)
+    for i, (g, w) in enumerate(zip(got, want)):
+        _hold_grad(g, w, elementwise=i != 4)
+    assert float(got[3][:, 1:3, 0, :4].abs().max()) == 0.0 == float(want[3][:, 1:3, 0, :4].abs().max())
+    again = rwkv6_scan_bwd(*dev, dout.to(cuda), None if dst is None else dst.to(cuda),
+                           chunk=chunk, states=states)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+# inputs that require grad, by position in (r, k, v, w, u, state0)
+GRAD_SUBSETS = {"all": (0, 1, 2, 3, 4, 5), "r-w": (0, 3), "u-state0": (4, 5), "v": (2,)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("subset", list(GRAD_SUBSETS))
+@pytest.mark.parametrize("S,N,chunk", [(45, 32, 16), (77, 64, 32), (30, 16, 8)])
+def test_rwkv6_scan_grads_on_the_card_match_the_cpu(cuda, S, N, chunk, subset, dtype):
+    """Gradients through ``rwkv6_scan`` on the card (a ragged S: the padding
+    and the slice around the Function) against the CPU's, for a subset of
+    inputs that require grad: one forward and one backward launch."""
+    ins, (dout, dst) = _rwkv_grad_arrays(np.random.default_rng(S * N), 2, S, 2, N, chunk, dtype)
+    grads = {}
+    for dev in (cuda, torch.device("cpu")):
+        leaves = [x.to(dev).requires_grad_(i in GRAD_SUBSETS[subset]) for i, x in enumerate(ins)]
+        reset_launch_counts()
+        out, state = rwkv6_scan(*leaves, chunk=chunk)
+        wanted = [x for x in leaves if x.requires_grad]
+        grads[dev.type] = torch.autograd.grad((out, state), wanted, (dout.to(dev), dst.to(dev)))
+        counts = launch_counts()
+        assert counts["rwkv6_scan"] == counts["rwkv6_scan_bwd"] == (dev.type == "cuda"), counts
+    for i, g, w in zip(GRAD_SUBSETS[subset], grads["cuda"], grads["cpu"]):
+        _hold_grad(g, w, elementwise=i != 4)
+
+
+SSM_BWD_CUDA_CASES = [
+    # B, S, dim, N
+    (1, 40, 64, 4),
+    (2, 33, 40, 8),          # dim not a multiple of 32, ragged segments
+    (1, 70, 96, 16),
+    (2, 17, 64, 32),
+    (1, 300, 104, 16),       # many segments
+    (2, 1, 32, 16),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", SSM_BWD_CUDA_CASES, ids=str)
+@pytest.mark.parametrize("state", [True, False], ids=["state", "no-state"])
+def test_ssm_scan_bwd_kernels_match_plain(cuda, case, dtype, state):
+    """The backward kernels against ``ssm_scan_bwd_ref`` with and without
+    h0 and dh; a second call bit-equal to the first."""
+    B, S, dim, N = case
+    rng = np.random.default_rng(S + dim + N)
+    cpu = list(_ssm_arrays(rng, B, S, dim, N, dtype))
+    dy = torch.from_numpy(rng.standard_normal((B, S, dim)).astype(np.float32)).to(dtype)
+    dh = torch.from_numpy(rng.standard_normal((B, dim, N)).astype(np.float32))
+    if not state:
+        cpu[6], dh = None, None
+    dev = [None if x is None else x.to(cuda) for x in cpu]
+    reset_launch_counts()
+    got = ssm_scan_bwd(*dev, dy.to(cuda), None if dh is None else dh.to(cuda))
+    torch.cuda.synchronize()
+    assert launch_counts()["ssm_scan_bwd"] == 1
+    for g, w in zip(got, ssm_scan_bwd(*cpu, dy, dh)):
+        _hold_grad(g, w)
+    again = ssm_scan_bwd(*dev, dy.to(cuda), None if dh is None else dh.to(cuda))
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("subset", [(0, 1, 2, 3, 4, 5, 6), (0, 3), (2, 5), (1,)], ids=str)
+def test_ssm_scan_grads_on_the_card_match_the_cpu(cuda, subset, dtype):
+    """Gradients through ``ssm_scan`` on the card (any S, no padding)
+    against the CPU's (padded to the chunk), for a subset of inputs that
+    require grad: one forward and one backward launch."""
+    cpu = _ssm_arrays(np.random.default_rng(7), 2, 45, 40, 16, dtype)
+    rng = np.random.default_rng(8)
+    dy = torch.from_numpy(rng.standard_normal((2, 45, 40)).astype(np.float32)).to(dtype)
+    dh = torch.from_numpy(rng.standard_normal((2, 40, 16)).astype(np.float32))
+    grads = {}
+    for dev in (cuda, torch.device("cpu")):
+        leaves = [x.to(dev).requires_grad_(i in subset) for i, x in enumerate(cpu)]
+        reset_launch_counts()
+        y, h = ssm_scan(*leaves, chunk=16)
+        wanted = [x for x in leaves if x.requires_grad]
+        grads[dev.type] = torch.autograd.grad((y, h), wanted, (dy.to(dev), dh.to(dev)))
+        counts = launch_counts()
+        assert counts["ssm_scan"] == counts["ssm_scan_bwd"] == (dev.type == "cuda"), counts
+    for g, w in zip(grads["cuda"], grads["cpu"]):
+        _hold_grad(g, w)
+
+
+@pytest.mark.cuda
+def test_no_plain_scan_runs_under_grad_on_the_card(cuda, monkeypatch):
+    """With every plain version of the two scans patched to raise, a
+    forward and a backward through each on the card still run: no CUDA
+    path differentiates a plain version."""
+    def refuse(*args, **kwargs):
+        raise AssertionError("a plain version ran on the card")
+
+    for mod, names in ((rwkv6_ops, ("rwkv6_chunked_ref", "rwkv6_scan_bwd_ref")),
+                       (ssm_ops, ("ssm_scan_ref", "ssm_scan_bwd_ref"))):
+        for name in names:
+            monkeypatch.setattr(mod, name, refuse)
+    ins, _ = _rwkv_grad_arrays(np.random.default_rng(0), 1, 40, 2, 16, 16, torch.bfloat16)
+    leaves = [x.to(cuda).requires_grad_() for x in ins]
+    out, state = rwkv6_scan(*leaves, chunk=16)
+    (out.float().sum() + state.sum()).backward()
+    ssm = [x.to(cuda).requires_grad_() for x in _ssm_arrays(np.random.default_rng(0), 1, 40, 64,
+                                                               16, torch.bfloat16)]
+    y, h = ssm_scan(*ssm, chunk=16)
+    (y.float().sum() + h.sum()).backward()
+    assert all(x.grad is not None for x in leaves + ssm)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["rwkv6_7b", "jamba_1p5_large_398b"])
+def test_scan_models_loss_grads_on_the_card_match_the_cpu(cuda, name):
+    """``loss_fn`` of rwkv6_7b's and jamba's smoke configs in f32 and its
+    gradients, on the card against the CPU port, from the same parameters
+    and a batch of 37 tokens (ragged against the chunk): the loss to
+    1e-5, every gradient leaf to 1e-4 |g| in norm (rwkv6's u to 4e-4, as
+    tests/test_torch_train.py holds it to the JAX package)."""
+    from repro_torch.runtime import loss_fn, model_init
+
+    cfg = dataclasses.replace(get_arch(name).smoke, param_dtype=torch.float32,
+                              compute_dtype=torch.float32)
+    base = model_init(cfg, 0, device="cpu")
+    rng = np.random.default_rng(3)
+    batch = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab, (2, 37)).astype(np.int32)),
+             "loss_mask": torch.from_numpy((rng.random((2, 37)) < 0.8).astype(np.float32))}
+    got = {}
+    for dev in (cuda, torch.device("cpu")):
+        params = copy.deepcopy(base).to(dev)
+        named = dict(params.named_parameters())
+        reset_launch_counts()
+        loss = loss_fn(cfg, params, {k: v.to(dev) for k, v in batch.items()})
+        grads = torch.autograd.grad(loss, list(named.values()))
+        got[dev.type] = float(loss), {n: g.cpu() for n, g in zip(named, grads)}, launch_counts()
+    (loss, grads, counts), (want_loss, want, _) = got["cuda"], got["cpu"]
+    assert all(counts[k] > 0 for k in TRAIN_KERNELS[name]), counts
+    np.testing.assert_allclose(loss, want_loss, rtol=1e-5)
+    for n, g in grads.items():
+        tol = 4e-4 if n.endswith("rwkv.u") else 1e-4
+        assert (g - want[n]).norm() <= tol * want[n].norm() + 1e-7, n
 
 
 # every decoder-only architecture of the registry (all but the audio family)
@@ -1027,13 +1231,13 @@ def test_sources_and_library_name():
     names = {p.name for p in cuda_lib.sources()}
     assert names == {"sim_tick.cu", "state_update.cu", "sched_select.cu",
                      "rwkv6_scan.cu", "flash_attention.cu", "flash_attention_bwd.cu",
-                     "ssm_scan.cu"}
+                     "ssm_scan.cu", "rwkv6_scan_bwd.cu", "ssm_scan_bwd.cu"}
     path = cuda_lib.library_path()
     assert path.parent == cuda_lib.BUILD_DIR and path == cuda_lib.library_path()
     assert "sm_90a" in " ".join(cuda_lib.NVCC_FLAGS)
     assert set(SIM_KERNELS) == {"fleet_tick", "retire_land", "masked_lex_argmin", "assign_gather"}
     assert set(LM_KERNELS) == {"rwkv6_scan", "flash_attention", "ssm_scan",
-                               "flash_attention_bwd"}
+                               "flash_attention_bwd", "rwkv6_scan_bwd", "ssm_scan_bwd"}
     assert set(KERNELS) == set(SIM_KERNELS) | set(LM_KERNELS)
 
 

@@ -8,8 +8,7 @@ not ported yet.
   without a card the default raises instead of running on the CPU.
 * Every optional layer of a later slice raises ``NotImplementedError``
   naming its ROADMAP item, never a silent fallback (training over a
-  device mesh, item 16; a gradient through the scans' kernels on the
-  card, item 15 (d); a gradient through attention's cache path); the layer kinds that
+  device mesh, item 16; a gradient through attention's cache path); the layer kinds that
   a slice has ported run (the chaos layer's, the data plane's and the
   overload layer's knobs, every registered scheduler, every
   architecture of the registry and the stubbed frontends, among them).
@@ -57,7 +56,7 @@ def test_port_has_files_to_scan():
     assert (REPO / "src" / "eudoxia_torch" / "__init__.py") in PORT_FILES
     assert {p.name for p in (REPO / "src" / "repro_torch" / "csrc").glob("*.cu")} == {
         "sim_tick.cu", "state_update.cu", "sched_select.cu", "rwkv6_scan.cu", "flash_attention.cu",
-        "flash_attention_bwd.cu", "ssm_scan.cu",
+        "flash_attention_bwd.cu", "ssm_scan.cu", "rwkv6_scan_bwd.cu", "ssm_scan_bwd.cu",
     }
 
 
@@ -285,37 +284,6 @@ def test_attention_grad_through_the_cache_path_raises(call):
     kw = {"q_offset": dict(q_offset=2), "kv_len": dict(kv_len=3)}[call]
     with pytest.raises(NotImplementedError, match="q_offset / kv_len"):
         flash_attention(q, q, q, **kw)
-
-
-@pytest.mark.parametrize("kernel", ["rwkv6_scan", "ssm_scan"])
-def test_scan_kernels_refuse_grad_naming_item_15d(kernel):
-    """The guard in front of the two scans' CUDA launches: under grad, an
-    input that requires grad raises naming ROADMAP item 15 (d); without
-    grad, or with no input that requires grad, it lets the launch go."""
-    from repro_torch.kernels.dispatch import refuse_grad
-
-    x = torch.zeros(3, requires_grad=True)
-    with pytest.raises(NotImplementedError, match=rf"{kernel}: .*item 15 \(d\)"):
-        refuse_grad(kernel, None, x)
-    with torch.no_grad():
-        refuse_grad(kernel, None, x)
-    refuse_grad(kernel, x.detach(), None)
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("name", ["rwkv6_7b", "jamba_1p5_large_398b"])
-def test_training_the_scans_on_the_card_waits_for_item_15d(name):
-    """rwkv6_7b's and jamba's smoke configs raise on CUDA under grad."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device with sm_90 (the kernels are built for Hopper)")
-    from repro_torch.configs import get_arch
-    from repro_torch.runtime import loss_fn, model_init
-
-    cfg = get_arch(name).smoke
-    params = model_init(cfg, 0, device="cuda")
-    batch = {"tokens": torch.zeros((1, 16), dtype=torch.int32, device="cuda")}
-    with pytest.raises(NotImplementedError, match=r"item 15 \(d\)"):
-        loss_fn(cfg, params, batch)
 
 
 @pytest.mark.parametrize("family", ["vlm", "audio"])
