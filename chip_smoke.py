@@ -42,11 +42,14 @@ Phases, in order; any failure raises and the script exits non-zero:
    1,500 frames); the training backward ``flash_attention_bwd``
    (``TRAIN_ATTENTION``: gemma3_12b's 2,048 causal with a window of 1,024
    and without, phi3's 4,096 causal, whisper's encoder and its
-   cross-attention of 187 queries against 1,500 frames, bf16 to 2e-2
-   elementwise and in norm; the cross-attention in f32 to 2e-4) against
-   ``flash_attention_bwd_ref`` on the forward kernel's own out and
-   ``lse``, that ``lse`` first held to the plain forward's to 2e-4, the
-   library's time PyTorch's SDPA backward with the same mask; the scans'
+   cross-attention of 187 queries against 1,500 frames, gemma3_12b's
+   1,024 queries at position 2,048 against a cache's first 3,072 keys;
+   bf16 on the tensor cores to 2e-2 elementwise and in norm, each pass's
+   device time (dK / dV, dQ, D); the cross-attention in f32 to 2e-4)
+   against ``flash_attention_bwd_ref`` on the forward kernel's own out
+   and ``lse``, that ``lse`` first held to the plain forward's to 2e-4, a
+   second call bit-equal, the library's time PyTorch's SDPA backward with
+   the same mask; the scans'
    backwards ``rwkv6_scan_bwd`` (rwkv6_7b's 4,096 tokens and a ragged
    4,012, chunk 32, bf16, on the forward kernel's chunk states; an f32
    case at chunk 16 whose decays below the clamp get dw = 0) and
@@ -768,14 +771,18 @@ ZOO_ATTENTION = (
 
 
 # the attention backward at the shapes training gives it: label, B, Sq,
-# Skv, causal, window, H, KV, D, dtype (phase 3; phase 16 trains phi3 at
-# 4,096 and whisper at 8 x 1,500 frames with 187 decoder tokens)
+# Skv, causal, window, H, KV, D, dtype[, q_offset, kv_len] (phase 3;
+# phase 16 trains phi3 at 4,096 and whisper at 8 x 1,500 frames with 187
+# decoder tokens); the last bf16 case is the gradient of a prefill
+# against a cache (the query offset and the key count)
 TRAIN_ATTENTION = (
     ("gemma3_12b local causal window=1024", 1, 2048, 2048, True, 1024, 16, 8, 256, "bf16"),
     ("gemma3_12b global causal", 1, 2048, 2048, True, 0, 16, 8, 256, "bf16"),
     ("phi3 causal", 1, 4096, 4096, True, 0, 32, 32, 96, "bf16"),
     ("whisper encoder not causal", 8, 1500, 1500, False, 0, 12, 12, 64, "bf16"),
     ("whisper cross-attention not causal", 8, 187, 1500, False, 0, 12, 12, 64, "bf16"),
+    ("gemma3_12b global causal, 1,024 queries at position 2,048 of a 4,096-slot cache "
+     "(kv_len 3,072)", 1, 1024, 4096, True, 0, 16, 8, 256, "bf16", 2048, 3072),
     ("whisper cross-attention not causal", 8, 187, 1500, False, 0, 12, 12, 64, "f32"),
 )
 
@@ -977,15 +984,19 @@ def check_kernels(dev) -> dict:
     # the attention backward of training (phase 16's path): each case's
     # forward kernel with its lse (held to the plain forward's out and lse),
     # then flash_attention_bwd against flash_attention_bwd_ref on that out,
-    # lse and a random dO; bound: 5 products of 2 H D (visible pairs)
+    # lse and a random dO, a second call bit-equal; bound: 5 products of
+    # 2 H D (visible pairs)
     bwd_rng = np.random.default_rng(24)
-    for label, B, Sq, Skv, causal, window, H, KV, D, dtype in TRAIN_ATTENTION:
+    for label, B, Sq, Skv, causal, window, H, KV, D, dtype, *cache in TRAIN_ATTENTION:
+        q_offset, kv_len = cache or (0, None)
+        n_keys = Skv if kv_len is None else kv_len
         q, k, v = attn_inputs(bwd_rng, dev, Sq, Skv, H, KV, D, B=B)
         dout = attn_inputs(bwd_rng, dev, Sq, 1, H, 1, D, B=B)[0]
         if dtype == "f32":
             q, k, v, dout = (x.float() for x in (q, k, v, dout))
-        out, lse = flash_ops._launch(q, k, v, causal, window, 0, None, with_lse=True)
-        plain_out, plain_lse = flash_attention_fwd_lse_ref(q, k, v, causal=causal, window=window)
+        kw = dict(causal=causal, window=window, q_offset=q_offset, kv_len=kv_len)
+        out, lse = flash_ops._launch(q, k, v, causal, window, q_offset, kv_len, with_lse=True)
+        plain_out, plain_lse = flash_attention_fwd_lse_ref(q, k, v, **kw)
         lse_err, lse_rel = close_err((lse,), (plain_lse.reshape(B, Sq, H),), (LM_TOL["f32"],))
         out_err, _ = close_err((out,), (plain_out,), (LM_TOL[dtype],))
         print(f"{CARD}: kernel flash_attention [{label} {dtype}, forward with lse]: lse within "
@@ -993,15 +1004,17 @@ def check_kernels(dev) -> dict:
               f"out max |diff| {out_err:.3g}")
         del plain_out, plain_lse
         ins = (q, k, v, out, lse, dout)
-        kw = dict(causal=causal, window=window)
-        mask = None if not causal and window == 0 else attn_mask(Sq, Skv, window, 0, Skv, dev,
-                                                                 causal)
+        mask = None if not causal and window == 0 and n_keys == Skv else attn_mask(
+            Sq, Skv, window, q_offset, n_keys, dev, causal)
         visible = B * (Sq * Skv if mask is None else int(mask.sum().item()))
         qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
-        # the library's backward alone: SDPA's forward once, its backward timed
+        # the library's backward alone: SDPA's forward once, its backward
+        # timed; its own causal mask where it is the same (from position 0
+        # over all keys)
+        plain_causal = causal and window == 0 and q_offset == 0 and n_keys == Skv == Sq
         lib_out = Fn.scaled_dot_product_attention(
-            qt, kt, vt, attn_mask=None if causal and window == 0 else mask,
-            is_causal=causal and window == 0, enable_gqa=True)
+            qt, kt, vt, attn_mask=None if plain_causal else mask, is_causal=plain_causal,
+            enable_gqa=True)
         dout_t = dout.transpose(1, 2)
 
         def library(o=lib_out, leaves=(qt, kt, vt), g=dout_t):
@@ -1015,7 +1028,7 @@ def check_kernels(dev) -> dict:
                       ins, {"operations": (5 * 2.0 * H * D * visible, rate)}, library,
                       (LM_TOL[dtype],) * 3,
                       {"represent": dtype == "bf16", "norm_tol": ATTN_NORM_TOL,
-                       "plain_reps": dict(reps=3, inner=1)}))
+                       "plain_reps": dict(reps=3, inner=1), "bit_equal": True}))
 
     # jamba's Mamba prefill: B = 1, dim 16384, N 16; 2048 tokens, a ragged
     # 2000 and the served prompt's 1838, each handed to the kernel unpadded.
@@ -1138,6 +1151,12 @@ def check_kernels(dev) -> dict:
                                          f"beyond {options['norm_tol']}")
                 kind += (f" and in norm (|diff| / |plain| = {norm:.4g} <= {options['norm_tol']}, "
                          f"max |plain| = {max(w.abs().max().item() for w in want):.4g})")
+            if options.get("bit_equal"):
+                again = kernel()
+                if not all(torch.equal(x, y) for x, y in zip(got, again)):
+                    raise AssertionError(f"{name} [{label}]: a second call differs from the first")
+                kind += "; a second call bit-equal"
+                del again
             reps = dict(reps=11, inner=5)   # milliseconds per call: fewer repeats
         ms = timed_ms(kernel, **reps)
         plain_ms = timed_ms(plain, **options.get("plain_reps", reps))
@@ -3130,7 +3149,12 @@ def card_phase():
 
 
 SASS_OPS = ("HGMMA", "HMMA", "FFMA", "FMUL", "FADD", "MUFU.EX2", "MUFU.LG2", "SHFL", "LDS",
-            "LDGSTS", "BAR.SYNC", "STL", "LDL", "REDUX", "VOTE", "LDG", "ATOMS", "STG")
+            "LDGSTS", "BAR.SYNC", "BAR.ARV", "STL", "LDL", "REDUX", "VOTE", "LDG", "ATOMS", "ATOM",
+            "ATOMG", "RED", "REDG", "STG")
+# the attention kernels whose products must run on the tensor cores
+TENSOR_CORE_KERNELS = ("flash_attention_kernel_bf16", "flash_attention_bwd_kernel_dkdv_bf16",
+                       "flash_attention_bwd_kernel_dkdv_pair_bf16",
+                       "flash_attention_bwd_kernel_dq_bf16")
 # kernels whose registers must not spill (phase 2 fails otherwise)
 NO_SPILL = ("masked_lex_argmin_kernel", "fleet_tick_kernel", "assign_gather_kernel")
 
@@ -3139,8 +3163,8 @@ def build_phase() -> None:
     """Phase 2: build the kernels; print what ptxas says of each, and the
     instruction mix of the LM kernels', the two simulator kernels' that
     must not spill and both ``retire_land`` instantiations' SASS
-    (cuobjdump, where the toolkit has it). Fails if a bf16 attention kernel holds no tensor-core
-    instruction."""
+    (cuobjdump, where the toolkit has it). Fails if a bf16 attention kernel (forward,
+    dK / dV, dQ) holds no tensor-core instruction, or a backward kernel an atomic."""
     import shutil
 
     from repro_torch.kernels import cuda_lib
@@ -3195,8 +3219,12 @@ def build_phase() -> None:
                 f"{k}={counts[k] / steps:.2f}" for k in ("MUFU.EX2", "FFMA", "FMUL", "FADD",
                                                          "SHFL", "LDS")))
     for fn, counts in mix.items():
-        if "flash_attention_kernel_bf16" in fn and counts["HGMMA"] + counts["HMMA"] == 0:
+        if any(k in fn for k in TENSOR_CORE_KERNELS) and counts["HGMMA"] + counts["HMMA"] == 0:
             raise AssertionError(f"{fn}: no tensor-core instruction in its SASS")
+        # the backward writes each gradient once: no atomics, so repeats are bit-equal
+        if "flash_attention_bwd_kernel" in fn and sum(counts[k] for k in (
+                "ATOMS", "ATOM", "ATOMG", "RED", "REDG")):
+            raise AssertionError(f"{fn}: atomics in its SASS")
 
 
 def sim_launch_phase(run_counts, fleet_counts) -> None:

@@ -54,121 +54,21 @@
 // f32 stays off them. Its query is cast to f32 and then scaled by
 // 1/sqrt(D), as the TPU kernel does (kernel.py:68).
 #include "common.cuh"
+#include "wgmma_common.cuh"
 
 #include <cuda_bf16.h>
 
 namespace {
 
-constexpr float kNegInf = -1e30f;
+using namespace hopper;
 
 // ---------------------------------------------------------------------------
-// bf16: warpgroup products on the tensor cores
+// bf16: warpgroup products on the tensor cores (helpers: wgmma_common.cuh)
 // ---------------------------------------------------------------------------
 constexpr int kBK = 64;          // keys per tile
 constexpr int kWG = 2;           // consumer warpgroups per block
 constexpr int kBQ = 64 * kWG;    // queries per block
 constexpr int kThreadsBf16 = 128 * kWG;
-constexpr float kLog2e = 1.4426950408889634f;
-constexpr float kLn2 = 0.6931471805599453f;
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// byte offset of 16-byte chunk j of row r in a [cols/64][rows][64] bf16
-// region in the 128-byte swizzle
-__device__ __forceinline__ uint32_t swz(int r, int j, int rows) {
-  return (uint32_t)((j >> 3) * rows * 128 + r * 128 + (((j & 7) ^ (r & 7)) << 4));
-}
-
-// wgmma descriptor of an operand in the 128-byte swizzle, 8-row groups
-// 1024 bytes apart (the stride byte offset). K-major (Q, K): the leading
-// byte offset is not read. MN-major (V): the operand is one 64-column
-// atom wide, so the leading byte offset is set to the same 1024.
-__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lead) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lead >> 4) << 16) |
-         ((uint64_t)(1024 >> 4) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
-               "r"(bytes));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-// the generic proxy's writes (cp.async, st.shared) before the async
-// proxy's reads (wgmma)
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-// keeps the compiler from moving reads or writes of accumulator
-// registers across the asynchronous products
-__device__ __forceinline__ void fence_regs(float (&d)[32]) {
-#pragma unroll
-  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-#define REPRO_WGMMA_D                                                          \
-  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "   \
-  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "    \
-  "%30, %31}"
-#define REPRO_WGMMA_ACC(d)                                                     \
-  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),     \
-      "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),            \
-      "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),        \
-      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),        \
-      "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),        \
-      "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),        \
-      "+f"(d[31])
-
-// d (+)= A B, A [64 x 16] and B [16 x 64] K-major in shared memory
-__device__ __forceinline__ void mma_ss(float (&d)[32], uint64_t da, uint64_t db,
-                                       int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " REPRO_WGMMA_D
-      ", %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : REPRO_WGMMA_ACC(d)
-      : "l"(da), "l"(db), "r"(accumulate));
-}
-
-// d += A B, A [64 x 16] bf16 from registers, B [16 x 64] MN-major in
-// shared memory
-__device__ __forceinline__ void mma_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " REPRO_WGMMA_D
-      ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : REPRO_WGMMA_ACC(d)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 x = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&x);
-}
-
-__device__ __forceinline__ bool tile_live(int k_start, int lo, int hi, int causal, int window,
-                                          int kv_len) {
-  bool live = k_start < kv_len;
-  if (causal) live = live && k_start <= hi;
-  if (window > 0) live = live && k_start + kBK - 1 > lo - window;
-  return live;
-}
 
 inline size_t bf16_smem_bytes(int DP) {
   return (size_t)(kBQ + 4 * kBK) * DP * 2 + 1024;   // + alignment to 1024
@@ -228,7 +128,7 @@ __global__ void __launch_bounds__(kThreadsBf16, 1) flash_attention_kernel_bf16(
   const int n_kt = (Skv + kBK - 1) / kBK;
   int kt_first = n_kt, kt_last = -1;
   for (int kt = 0; kt < n_kt; ++kt)
-    if (tile_live(kt * kBK, tile_lo, last_row, causal, window, kv_len)) {
+    if (tile_live<kBK>(kt * kBK, tile_lo, last_row, causal, window, kv_len)) {
       kt_first = min(kt_first, kt);
       kt_last = kt;
     }
@@ -254,7 +154,7 @@ __global__ void __launch_bounds__(kThreadsBf16, 1) flash_attention_kernel_bf16(
     cp_async_wait<1>();   // Q and this tile have landed
     fence_proxy_async();
     __syncthreads();
-    if (lo <= hi && tile_live(k_start, lo, hi, causal, window, kv_len)) {
+    if (lo <= hi && tile_live<kBK>(k_start, lo, hi, causal, window, kv_len)) {
       const uint32_t ks = kvs(st), vs = ks + kTileBytes;
       float s[32];
 #pragma unroll

@@ -6,14 +6,15 @@ prefill against a cache alike. bf16 goes to the tensor-core kernel
 CPU tensors.
 
 With grad enabled and an input that requires grad, the call is
-differentiable (``_FlashAttention``), under the conditions of the JAX
-package's custom VJP (``q_offset == 0``, ``kv_len`` None): the forward
-keeps the log-sum-exp of each row (the kernel's ``lse`` output on CUDA,
-``flash_attention_fwd_lse_ref`` on the CPU) and the backward is
+differentiable (``_FlashAttention``), with any ``q_offset >= 0`` and
+``kv_len``, as the JAX package differentiates its plain path: the
+forward keeps the log-sum-exp of each row (the kernel's ``lse`` output
+on CUDA, ``flash_attention_fwd_lse_ref`` on the CPU) and the backward is
 ``flash_attention_bwd``: the kernels of ``csrc/flash_attention_bwd.cu``
-for CUDA tensors (each call counted once in
-``flash_attention_bwd.launches``), ``flash_attention_bwd_ref`` for CPU
-tensors. Without grad nothing of this runs and no ``lse`` is stored."""
+for CUDA tensors (bf16 on the tensor cores, f32 on the CUDA cores; each
+call counted once in ``flash_attention_bwd.launches``),
+``flash_attention_bwd_ref`` for CPU tensors. Without grad nothing of
+this runs and no ``lse`` is stored."""
 from __future__ import annotations
 
 import ctypes
@@ -22,11 +23,17 @@ import torch
 
 from .. import cuda_lib
 from ..dispatch import use_kernel
-from .ref import flash_attention_bwd_ref, flash_attention_fwd_lse_ref, flash_attention_ref
+from .ref import (
+    first_dead_row,
+    flash_attention_bwd_ref,
+    flash_attention_fwd_lse_ref,
+    flash_attention_ref,
+    padded_key_count,
+)
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = [_P] * 5 + [_I] * 10 + [ctypes.c_float, _I, _P, _I]
-_BWD_ARGTYPES = [_P] * 10 + [_I] * 8 + [ctypes.c_float, _I, _P, _I]
+_BWD_ARGTYPES = [_P] * 10 + [_I] * 11 + [ctypes.c_float] * 2 + [_I, _P, _I]
 MAX_HEAD_DIM = 256
 
 
@@ -35,11 +42,8 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     """q [B,Sq,H,D], k/v [B,Skv,KV,D] -> [B,Sq,H,D] (see ``ref.py`` for
     the masks)."""
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
-        if q_offset != 0 or kv_len is not None:
-            raise NotImplementedError(
-                "flash_attention: no gradient through the q_offset / kv_len path (a prefill "
-                "against a cache); training attends from position 0 over its own keys")
-        return _FlashAttention.apply(q, k, v, bool(causal), int(window))
+        return _FlashAttention.apply(q, k, v, bool(causal), int(window), int(q_offset),
+                                     None if kv_len is None else int(kv_len))
     if not use_kernel(q):
         return flash_attention_ref(q, k, v, causal=causal, window=window,
                                    q_offset=q_offset, kv_len=kv_len)
@@ -82,42 +86,53 @@ def _launch(q, k, v, causal, window, q_offset, kv_len, *, with_lse: bool):
 
 
 class _FlashAttention(torch.autograd.Function):
-    """Attention from position 0 over all keys, differentiable: saves
-    (q, k, v, out, lse) and recomputes the score tiles in the backward."""
+    """Attention, differentiable: saves (q, k, v, out, lse) and recomputes
+    the score tiles in the backward."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal: bool, window: int):
+    def forward(ctx, q, k, v, causal: bool, window: int, q_offset: int, kv_len: int | None):
         if use_kernel(q):
-            out, lse = _launch(q, k, v, causal, window, 0, None, with_lse=True)
+            out, lse = _launch(q, k, v, causal, window, q_offset, kv_len, with_lse=True)
         else:
-            out, lse = flash_attention_fwd_lse_ref(q, k, v, causal=causal, window=window)
+            out, lse = flash_attention_fwd_lse_ref(q, k, v, causal=causal, window=window,
+                                                   q_offset=q_offset, kv_len=kv_len)
             lse = lse.reshape(q.shape[:3])
         ctx.save_for_backward(q, k, v, out, lse)
-        ctx.causal, ctx.window = causal, window
+        ctx.masks = dict(causal=causal, window=window, q_offset=q_offset, kv_len=kv_len)
         return out
 
     @staticmethod
     def backward(ctx, dout):
         q, k, v, out, lse = ctx.saved_tensors
-        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, dout, causal=ctx.causal,
-                                         window=ctx.window)
-        return dq, dk, dv, None, None
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, dout, **ctx.masks)
+        return dq, dk, dv, None, None, None, None
 
 
-def flash_attention_bwd(q, k, v, out, lse, dout, *, causal: bool = True, window: int = 0):
-    """The gradients (dq, dk, dv) of attention from position 0 over all
-    keys, in the dtypes of q, k and v, from the forward's ``out`` and
-    ``lse`` [B,Sq,H] f32 and the output's gradient ``dout``."""
+def flash_attention_bwd(q, k, v, out, lse, dout, *, causal: bool = True, window: int = 0,
+                        q_offset: int = 0, kv_len: int | None = None):
+    """The gradients (dq, dk, dv) of attention (query i at position
+    ``q_offset + i`` against the first ``kv_len`` keys, all when None), in
+    the dtypes of q, k and v, from the forward's ``out`` and ``lse``
+    [B,Sq,H] f32 and the output's gradient ``dout``."""
+    if q_offset < 0:
+        raise ValueError(f"flash_attention_bwd: q_offset {q_offset} < 0 (positions start at 0)")
     if not use_kernel(q):
-        return flash_attention_bwd_ref(q, k, v, out, lse, dout, causal=causal, window=window)
+        return flash_attention_bwd_ref(q, k, v, out, lse, dout, causal=causal, window=window,
+                                       q_offset=q_offset, kv_len=kv_len)
     B, Sq, H, D = q.shape
     Skv, KV = k.shape[1], k.shape[2]
     dev = q.device
+    kv_len = Skv if kv_len is None else int(kv_len)
     if q.dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"flash_attention_bwd: q has dtype {q.dtype}; the kernels take bf16 or f32")
-    if D > MAX_HEAD_DIM or H % KV:
-        raise ValueError(f"flash_attention_bwd: the kernels take head_dim <= {MAX_HEAD_DIM} and "
-                         f"H % KV == 0, got D={D}, H={H}, KV={KV}")
+    # bf16 tiles are copied in 16-byte rows of 8 values, as the forward's
+    multiple = 8 if q.dtype == torch.bfloat16 else 1
+    if D % multiple or D > MAX_HEAD_DIM or H % KV:
+        raise ValueError(f"flash_attention_bwd: the kernels take head_dim % {multiple} == 0 "
+                         f"({q.dtype}), head_dim <= {MAX_HEAD_DIM} and H % KV == 0, got D={D}, "
+                         f"H={H}, KV={KV}")
+    if not 0 <= kv_len <= Skv:
+        raise ValueError(f"flash_attention_bwd: kv_len {kv_len} outside [0, {Skv}]")
     q, k, v, out, dout = (x.contiguous() for x in (q, k, v, out, dout))
     for name, x, shape in (("q", q, (B, Sq, H, D)), ("k", k, (B, Skv, KV, D)),
                            ("v", v, (B, Skv, KV, D)), ("out", out, (B, Sq, H, D)),
@@ -133,8 +148,9 @@ def flash_attention_bwd(q, k, v, out, lse, dout, *, causal: bool = True, window:
     code = fn(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        B, Sq, Skv, H, KV, D, int(causal), int(window), 1.0 / (D ** 0.5),
-        int(q.dtype == torch.bfloat16), *cuda_lib.stream_args(dev),
+        B, Sq, Skv, H, KV, D, int(causal), int(window), int(q_offset), kv_len,
+        first_dead_row(Sq, int(window), int(q_offset), kv_len), 1.0 / (D ** 0.5),
+        1.0 / padded_key_count(Skv), int(q.dtype == torch.bfloat16), *cuda_lib.stream_args(dev),
     )
     cuda_lib.check_launch("flash_attention_bwd", code)
     flash_attention_bwd.launches += 1

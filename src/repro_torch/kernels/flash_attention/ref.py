@@ -21,12 +21,18 @@ layers).
   JAX package's ``_forward_with_lse`` (``ref.py:157``): the same scan
   over key blocks of ``min(1024, Skv)``, K/V padded with zeros to a
   whole block and the pad masked, returning the output and the
-  log-sum-exp of each row, ``lse [B, Sq, KV, G]`` f32.
+  log-sum-exp of each row, ``lse [B, Sq, KV, G]`` f32. With a
+  ``q_offset`` or a ``kv_len`` it is the JAX package's
+  ``_flash_attention_scan`` (the same blocks and masks).
 * ``flash_attention_bwd_ref``: the backward, a copy of
   ``_flash_backward`` (``ref.py:201``): ``D = rowsum(dO * O)``, then one
   pass over the same key blocks that recomputes the scores from
   ``(q, k, lse)``, accumulates ``dQ`` and returns each block's ``dK`` and
   ``dV``. It is the plain version of ``csrc/flash_attention_bwd.cu``.
+  A row that sees no key (``first_dead_row``) is the forward's uniform
+  average over its ``padded_key_count`` slots (every score ``NEG_INF``):
+  it adds ``dO / L`` to every key's ``dV`` and nothing to ``dQ`` or
+  ``dK``, as ``jax.vjp`` of the scan gives.
 * ``mha_reference``: naive softmax attention, for small-shape tests.
 """
 from __future__ import annotations
@@ -95,19 +101,41 @@ def _padded_blocks(k, v, block_k: int):
     return k, v, block_k
 
 
+def padded_key_count(Skv: int, block_k: int = 1024) -> int:
+    """L: the key slots the plain forward walks, ``Skv`` padded to whole
+    blocks of ``min(block_k, Skv)`` (``Skv >= 1``)."""
+    block_k = min(block_k, Skv)
+    return -(-Skv // block_k) * block_k
+
+
+def first_dead_row(Sq: int, window: int, q_offset: int, kv_len: int) -> int:
+    """The first query row that sees no key (``Sq``: every row sees one),
+    for ``q_offset >= 0``: the rows that see none are all of them when
+    ``kv_len == 0``, else those whose position reaches ``kv_len + window
+    - 1`` under a window (the causal mask never empties a row)."""
+    if kv_len == 0:
+        return 0
+    if window > 0:
+        return min(Sq, max(0, kv_len + window - 1 - q_offset))
+    return Sq
+
+
 def flash_attention_fwd_lse_ref(q, k, v, *, causal: bool = True, window: int = 0,
+                                q_offset: int = 0, kv_len: int | None = None,
                                 block_k: int = 1024):
     """The training forward: (out [B,Sq,H,D] in q's dtype, lse [B,Sq,KV,G]
-    f32), queries from position 0 against all ``Skv`` keys."""
+    f32), query i at position ``q_offset + i`` against the first
+    ``kv_len`` (all ``Skv`` when None) keys."""
     B, Sq, H, D = q.shape
     Skv, KV = k.shape[1], k.shape[2]
     G = H // KV
+    kv_len = Skv if kv_len is None else int(kv_len)
     kp, vp, block_k = _padded_blocks(k, v, block_k)
     f32 = torch.float32
     dev = q.device
     scale = 1.0 / (D ** 0.5)
     qf = (q.to(f32) * scale).reshape(B, Sq, KV, G, D)
-    q_pos = torch.arange(Sq, device=dev)
+    q_pos = int(q_offset) + torch.arange(Sq, device=dev)
     m = torch.full((B, Sq, KV, G), NEG_INF, dtype=f32, device=dev)
     l = torch.zeros((B, Sq, KV, G), dtype=f32, device=dev)
     acc = torch.zeros((B, Sq, KV, G, D), dtype=f32, device=dev)
@@ -116,7 +144,7 @@ def flash_attention_fwd_lse_ref(q, k, v, *, causal: bool = True, window: int = 0
         vblk = vp[:, start:start + block_k].to(f32)
         k_pos = start + torch.arange(block_k, device=dev)
         s = torch.einsum("bqkgd,bckd->bqkgc", qf, kblk)
-        ok = _visible(q_pos, k_pos, causal, window, Skv)
+        ok = _visible(q_pos, k_pos, causal, window, kv_len)
         s = torch.where(ok[None, :, None, None, :], s, NEG_INF)
         m_new = torch.maximum(m, s.amax(dim=-1))
         p = torch.exp(s - m_new[..., None])
@@ -130,13 +158,14 @@ def flash_attention_fwd_lse_ref(q, k, v, *, causal: bool = True, window: int = 0
 
 
 def flash_attention_bwd_ref(q, k, v, out, lse, dout, *, causal: bool = True, window: int = 0,
-                            block_k: int = 1024):
+                            q_offset: int = 0, kv_len: int | None = None, block_k: int = 1024):
     """The backward of ``flash_attention_fwd_lse_ref``: (dq, dk, dv) in the
     dtypes of q, k and v, from the forward's ``out`` and ``lse``
     ([B,Sq,KV,G] or [B,Sq,H] f32) and the output's gradient ``dout``."""
     B, Sq, H, D = q.shape
     Skv, KV = k.shape[1], k.shape[2]
     G = H // KV
+    kv_len = Skv if kv_len is None else int(kv_len)
     kp, vp, block_k = _padded_blocks(k, v, block_k)
     f32 = torch.float32
     dev = q.device
@@ -146,7 +175,10 @@ def flash_attention_bwd_ref(q, k, v, out, lse, dout, *, causal: bool = True, win
     do = dout.to(f32).reshape(B, Sq, KV, G, D)
     of = out.to(f32).reshape(B, Sq, KV, G, D)
     D_term = torch.sum(do * of, dim=-1)                          # [B,Sq,KV,G]
-    q_pos = torch.arange(Sq, device=dev)
+    q_pos = int(q_offset) + torch.arange(Sq, device=dev)
+    # rows that see no key: weight 1 / L on every slot in the forward
+    dead = ~_visible(q_pos, torch.arange(Skv, device=dev), causal, window, kv_len).any(dim=1)
+    uniform = dead.to(f32)[None, :, None, None, None] / kp.shape[1] if bool(dead.any()) else None
     dq = torch.zeros((B, Sq, KV, G, D), dtype=f32, device=dev)
     dks, dvs = [], []
     for start in range(0, kp.shape[1], block_k):
@@ -154,10 +186,10 @@ def flash_attention_bwd_ref(q, k, v, out, lse, dout, *, causal: bool = True, win
         vblk = vp[:, start:start + block_k].to(f32)
         k_pos = start + torch.arange(block_k, device=dev)
         s = torch.einsum("bqkgd,bckd->bqkgc", qf * scale, kblk)
-        ok = _visible(q_pos, k_pos, causal, window, Skv)
-        s = torch.where(ok[None, :, None, None, :], s, NEG_INF)
-        p = torch.exp(s - lse[..., None])                         # [B,Sq,KV,G,C]
-        dvs.append(torch.einsum("bqkgc,bqkgd->bckd", p, do))
+        ok = _visible(q_pos, k_pos, causal, window, kv_len)[None, :, None, None, :]
+        p = torch.where(ok, torch.exp(s - lse[..., None]), 0.0)   # [B,Sq,KV,G,C]
+        p_v = p if uniform is None else p + uniform
+        dvs.append(torch.einsum("bqkgc,bqkgd->bckd", p_v, do))
         dp = torch.einsum("bqkgd,bckd->bqkgc", do, vblk)
         ds = p * (dp - D_term[..., None]) * scale
         dq = dq + torch.einsum("bqkgc,bckd->bqkgd", ds, kblk)
@@ -183,5 +215,5 @@ def mha_reference(q, k, v, *, causal=True, window=0, q_offset=0, kv_len=None):
     return torch.einsum("bhqk,bkhd->bqhd", p, vx).to(q.dtype)
 
 
-__all__ = ["NEG_INF", "flash_attention_bwd_ref", "flash_attention_fwd_lse_ref",
-           "flash_attention_ref", "mha_reference"]
+__all__ = ["NEG_INF", "first_dead_row", "flash_attention_bwd_ref", "flash_attention_fwd_lse_ref",
+           "flash_attention_ref", "mha_reference", "padded_key_count"]

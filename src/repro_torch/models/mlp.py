@@ -20,8 +20,8 @@ The expert products are batched matrix products (``torch.einsum``),
 the sort ``torch.sort(stable=True)`` and the combine ``index_add_``
 (at most ``K`` contributions reach a token, so the sum is exact in any
 order). The JAX package's sharded dispatch (``shard_map`` over the batch
-and expert axes) waits for ROADMAP queue 1, item 16, and the auxiliary
-load-balance loss for training (item 15 (c)).
+and expert axes) waits for ROADMAP queue 1, item 16. ``route`` also
+returns the auxiliary load-balance loss, which ``lm_loss`` adds in training.
 """
 from __future__ import annotations
 

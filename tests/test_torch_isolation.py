@@ -276,14 +276,23 @@ def test_training_over_a_mesh_waits_for_item_16():
 
 @pytest.mark.parametrize("call", ["q_offset", "kv_len"])
 def test_attention_grad_through_the_cache_path_raises(call):
-    """A gradient through ``flash_attention``'s ``q_offset`` / ``kv_len``
-    path (a prefill against a cache) raises; no training path reaches it."""
-    from repro_torch.kernels.flash_attention import flash_attention
+    """The name is historical: a gradient through ``flash_attention``'s
+    ``q_offset`` / ``kv_len`` path (a prefill against a cache) was once
+    refused and runs now (item 18). Its gradients equal torch's autograd
+    through the naive ``mha_reference`` on the same masks."""
+    from repro_torch.kernels.flash_attention import flash_attention, mha_reference
 
-    q = torch.zeros((1, 4, 2, 8), requires_grad=True)
+    gen = torch.Generator().manual_seed(3)
     kw = {"q_offset": dict(q_offset=2), "kv_len": dict(kv_len=3)}[call]
-    with pytest.raises(NotImplementedError, match="q_offset / kv_len"):
-        flash_attention(q, q, q, **kw)
+    ins = [torch.randn((1, 4, 2, 8), generator=gen) for _ in range(3)]
+    dout = torch.randn((1, 4, 2, 8), generator=gen)
+    grads = []
+    for fn in (flash_attention, mha_reference):
+        leaves = [x.clone().requires_grad_() for x in ins]
+        fn(*leaves, **kw).backward(dout)
+        grads.append([x.grad for x in leaves])
+    for got, want in zip(*grads):
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
 
 
 @pytest.mark.parametrize("family", ["vlm", "audio"])

@@ -6,7 +6,9 @@
   ``flash_attention_ref`` (its custom VJP), and the forward's ``lse``
   against ``_forward_with_lse``, in f32 to ``rtol=1e-5, atol=1e-6``:
   causal GQA, a window, not causal, Sq 5 against 17 keys, and a ragged
-  key count past one block of 1,024.
+  key count past one block of 1,024. Through the cache path
+  (``q_offset``, ``kv_len``) against ``jax.vjp`` of the JAX package's
+  scan, rows that see no key included.
 * ``loss_fn`` and its gradients for every smoke config, on the same
   parameters (drawn by the port's init and carried to the JAX tree) and
   the same numpy-seeded batch (a ``loss_mask`` for the decoder-only
@@ -60,6 +62,7 @@ from repro.runtime.train_loop import TrainResult as JTrainResult
 from repro_torch.bridge import named_from_tree, opt_state_from_arrays, params_into_arrays
 from repro_torch.configs import get_arch
 from repro_torch.kernels.flash_attention import flash_attention, flash_attention_fwd_lse_ref
+from repro_torch.kernels.flash_attention.ref import _visible, first_dead_row
 from repro_torch.launch import train as train_cli
 from repro_torch.optim import global_norm
 from repro_torch.runtime import (
@@ -118,10 +121,55 @@ def test_flash_backward_matches_jax_vjp(case):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-5, atol=1e-6, err_msg=name)
 
 
-def test_flash_backward_through_the_cache_path_raises():
+# the cache path (item 18): B, Sq, Skv, H, KV, D, causal, window, q_offset, kv_len
+FLASH_CACHE_CASES = [
+    (1, 8, 24, 4, 2, 8, True, 0, 16, None),      # causal with an offset
+    (2, 6, 20, 2, 1, 8, True, 0, 10, 16),        # kv_len < Skv
+    (2, 5, 12, 2, 2, 8, False, 0, 0, 9),         # kv_len < Skv, not causal
+    (1, 10, 32, 4, 2, 8, True, 6, 20, 30),       # a window with an offset
+    (1, 6, 16, 2, 1, 8, True, 4, 10, 12),        # its last row sees no key (position 15)
+    (1, 3, 8, 2, 2, 8, False, 0, 0, 0),          # kv_len 0: no row sees a key
+    (1, 3, 1100, 2, 1, 8, True, 2, 1098, 1099),  # a row that sees none, L = 2,048 padded slots
+]
+
+
+@pytest.mark.parametrize("case", FLASH_CACHE_CASES, ids=str)
+def test_flash_backward_through_the_cache_path_matches_jax_vjp(case):
+    """out, dq, dk and dv through ``flash_attention(q_offset=, kv_len=)``
+    against ``jax.vjp`` of the JAX package's scan: rows that see no key are
+    its uniform average over the padded key slots, and get its gradients."""
+    B, Sq, Skv, H, KV, D, causal, window, q_offset, kv_len = case
+    rng = np.random.default_rng(Sq * 31 + Skv)
+    q, k, v, dout = (rng.standard_normal(s).astype(np.float32)
+                     for s in ((B, Sq, H, D), (B, Skv, KV, D), (B, Skv, KV, D), (B, Sq, H, D)))
+    kw = dict(causal=causal, window=window, q_offset=q_offset, kv_len=kv_len)
+    out, vjp = jax.vjp(lambda *a: j_flash.flash_attention_ref(*a, **kw), q, k, v)
+    want = (out, *vjp(dout))
+    leaves = [torch.from_numpy(x).requires_grad_() for x in (q, k, v)]
+    got = flash_attention(*leaves, **kw)
+    got.backward(torch.from_numpy(dout))
+    for name, a, b in zip(("out", "dq", "dk", "dv"), (got.detach(), *(x.grad for x in leaves)),
+                          want):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-5, atol=1e-6, err_msg=name)
+
+
+@pytest.mark.parametrize("window", [0, 1, 5])
+@pytest.mark.parametrize("causal", [True, False])
+def test_first_dead_row_is_the_first_row_without_a_visible_key(causal, window):
+    """The kernels' host-side count of rows that see no key against the
+    plain version's mask, over offsets and key counts."""
+    Sq, Skv = 12, 20
+    for q_offset in range(0, 24, 3):
+        for kv_len in range(0, Skv + 1):
+            q_pos = q_offset + torch.arange(Sq)
+            seen = _visible(q_pos, torch.arange(Skv), causal, window, kv_len).any(dim=1)
+            dead = [i for i in range(Sq) if not seen[i]]
+            first = first_dead_row(Sq, window, q_offset, kv_len)
+            assert dead == list(range(first, Sq)), (q_offset, kv_len, dead, first)
+
+
+def test_flash_cache_path_without_grad_serves():
     q = torch.zeros((1, 4, 2, 8), requires_grad=True)
-    with pytest.raises(NotImplementedError, match="q_offset"):
-        flash_attention(q, q, q, q_offset=2)
     with torch.no_grad():   # serving takes that path without grad
         assert flash_attention(q, q, q, q_offset=2, kv_len=4).shape == q.shape
 
