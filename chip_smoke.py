@@ -49,7 +49,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    against ``flash_attention_bwd_ref`` on the forward kernel's own out
    and ``lse``, that ``lse`` first held to the plain forward's to 2e-4, a
    second call bit-equal, the library's time PyTorch's SDPA backward with
-   the same mask; the scans'
+   the same mask; the forward kernel on rows that see no key (B 1, Sq 80,
+   Skv 200, q_offset 100, kv_len 150, window 16: rows 65-79; bf16 and f32),
+   its out and lse on every row against the plain forward's; the scans'
    backwards ``rwkv6_scan_bwd`` (rwkv6_7b's 4,096 tokens and a ragged
    4,012, chunk 32, bf16, on the forward kernel's chunk states; an f32
    case at chunk 16 whose decays below the clamp get dw = 0) and
@@ -241,6 +243,7 @@ sys.path.insert(0, str(ROOT / "src"))
 HBM_BYTES_PER_S = 3.35e12
 CORE_OPS_PER_S = 67e12
 BF16_TENSOR_OPS_PER_S = 989e12
+TF32_TENSOR_OPS_PER_S = 495e12
 SFU_EXP_PER_S = 16 * 132 * 1.98e9
 F, MC, MP, K = 64, 64, 256, 16
 
@@ -711,6 +714,26 @@ def rwkv_bwd_ops(S: int, chunk: int, H: int = 64, N: int = 64) -> float:
     return 2.0 * n_chunks * H * (4 * C * N * N + 2.5 * C * (C - 1) * N)
 
 
+def rwkv_bwd_bound(S: int, chunk: int, H: int = 64, N: int = 64, bf16: bool = True):
+    """The operations bound of ``rwkv6_scan_bwd`` as its kernels run them:
+    the carry's (r E)^T dO on the CUDA cores in f32, and with bf16 inputs
+    the intra kernel's products on the tensor cores in TF32 (f32 inputs:
+    all on the CUDA cores); (operations, rate) pairs whose times add."""
+    C = min(chunk, S)
+    carry = 2.0 * math.ceil(S / C) * H * C * N * N
+    rest = rwkv_bwd_ops(S, chunk, H, N) - carry
+    return [(carry, CORE_OPS_PER_S), (rest, TF32_TENSOR_OPS_PER_S if bf16 else CORE_OPS_PER_S)]
+
+
+def bound_ms_of(spec) -> float:
+    """ms of a bound: (count, rate), or a list of such pairs whose times add."""
+    return sum(count / rate for count, rate in (spec if isinstance(spec, list) else [spec])) * 1e3
+
+
+def count_of(spec) -> float:
+    return sum(count for count, _ in (spec if isinstance(spec, list) else [spec]))
+
+
 def ssm_inputs(rng, dev, S: int, dim: int = 16384, N: int = 16):
     """jamba's Mamba prefill operands as ``mamba_apply`` hands them to the
     scan: x, B, C in bf16; dt = softplus(dt_proj + dt_bias) in f32, with
@@ -1030,6 +1053,27 @@ def check_kernels(dev) -> dict:
                       {"represent": dtype == "bf16", "norm_tol": ATTN_NORM_TOL,
                        "plain_reps": dict(reps=3, inner=1), "bit_equal": True}))
 
+    # rows that see no key (a window that ends before kv_len): the forward
+    # kernel's out and lse on every row against the plain forward's, which
+    # gives such a row the mean of V over the padded key slots and an lse
+    # of NEG_INF (rows 65-79 here); bf16 and f32
+    dead_rng = np.random.default_rng(27)
+    for dtype in ("bf16", "f32"):
+        q, k, v = attn_inputs(dead_rng, dev, 80, 200, 4, 2, 64)
+        if dtype == "f32":
+            q, k, v = (x.float() for x in (q, k, v))
+        kw = dict(causal=True, window=16, q_offset=100, kv_len=150)
+        visible = int(attn_mask(80, 200, 16, 100, 150, dev).sum().item())
+        cases.append(("flash_attention", f"B=1 Sq=80 Skv=200 H=4 KV=2 D=64 q_offset=100 kv_len=150 "
+                      f"window=16, rows 65-79 see no key, {dtype}, out and lse",
+                      lambda q=q, k=k, v=v, kw=kw: flash_ops._launch(q, k, v, kw["causal"], kw["window"],
+                                                                       kw["q_offset"], kw["kv_len"],
+                                                                       with_lse=True),
+                      lambda q=q, k=k, v=v, kw=kw: (lambda o, l: (o, l.reshape(o.shape[:3])))(
+                          *flash_attention_fwd_lse_ref(q, k, v, **kw)),
+                      (q, k, v), {"operations": (4.0 * 4 * visible * 64, BF16_TENSOR_OPS_PER_S)}, None,
+                      (LM_TOL[dtype], LM_TOL["f32"]), {"represent": False}))
+
     # jamba's Mamba prefill: B = 1, dim 16384, N 16; 2048 tokens, a ragged
     # 2000 and the served prompt's 1838, each handed to the kernel unpadded.
     # Bounds: one exp per (token, channel, state) on the special-function
@@ -1081,8 +1125,9 @@ def check_kernels(dev) -> dict:
                       lambda a=args, st=states, c=cut: c(rwkv6_scan_bwd(*a, chunk=32, states=st)),
                       lambda a=args, c=cut: c(rwkv6_scan_bwd_ref(*a, chunk=32)),
                       (r, k, v, w, u, s0, dout, dst),
-                      {"operations": (rwkv_bwd_ops(S, 32), CORE_OPS_PER_S)}, None, None,
-                      {"grads": rwkv_rules, "plain_reps": PLAIN_ONCE}))
+                      {"operations": rwkv_bwd_bound(S, 32)}, None, None,
+                      {"grads": rwkv_rules, "plain_reps": PLAIN_ONCE,
+                       "f32_bound_ms": rwkv_bwd_ops(S, 32) / CORE_OPS_PER_S * 1e3}))
     # f32 at chunk 16 with decays below the clamp: dw exactly 0 there
     f32 = lambda a: torch.tensor(a, dtype=torch.float32, device=dev)  # noqa: E731
     w = np.exp(-np.exp(bwd_rng.uniform(-6.0, 0.5, (1, 256, 4, 32))))
@@ -1098,7 +1143,7 @@ def check_kernels(dev) -> dict:
     cases.append(("rwkv6_scan_bwd", "B=1 S=256 H=4 N=32 chunk=16 f32, decays below the clamp",
                   lambda a=args, st=states: rwkv6_scan_bwd(*a, chunk=16, states=st),
                   lambda a=args: rwkv6_scan_bwd_ref(*a, chunk=16), args,
-                  {"operations": (rwkv_bwd_ops(256, 16, 4, 32), CORE_OPS_PER_S)}, None, None,
+                  {"operations": rwkv_bwd_bound(256, 16, 4, 32, bf16=False)}, None, None,
                   {"grads": (f32_grad,) * 6, "represent": False,
                    "zero": lambda g: g[3][:, 3:9, :, :5]}))
     ssm_rules = (bf16_grad, f32_grad, f32_grad, bf16_grad, bf16_grad, f32_grad, f32_grad)
@@ -1167,7 +1212,7 @@ def check_kernels(dev) -> dict:
             # a few compares / selects per input element; no tensor-core work
             ops = {"operations": (4 * sum(x.numel() for x in ins if x is not None), CORE_OPS_PER_S)}
         bounds = {"bytes": moved / HBM_BYTES_PER_S * 1e3,
-                  **{what: count / rate * 1e3 for what, (count, rate) in ops.items()}}
+                  **{what: bound_ms_of(spec) for what, spec in ops.items()}}
         bound_by = max(bounds, key=bounds.get)
         bound_ms = bounds[bound_by]
         dev_text = ("not measured" if dev_ms is None else
@@ -1183,8 +1228,12 @@ def check_kernels(dev) -> dict:
         if name in LM_KERNELS and dev_ms is not None:
             # achieved rate of the kernel's operations over its device time,
             # and its share of the bound
-            rate_text = (f" achieved={ops['operations'][0] / dev_ms / 1e9:.2f} TFLOP/s, "
+            rate_text = (f" achieved={count_of(ops['operations']) / dev_ms / 1e9:.2f} TFLOP/s, "
                          f"{100 * bound_ms / dev_ms:.1f}% of the bound")
+            if "f32_bound_ms" in options:
+                # the same work at the CUDA cores' f32 rate, beside it
+                rate_text += (f", {100 * options['f32_bound_ms'] / dev_ms:.1f}% of the f32 bound "
+                              f"({options['f32_bound_ms']:.6f} ms)")
             if library_ms is not None:
                 rate_text += f", {dev_ms / library_ms:.3f}x the library's time"
         print(f"{CARD}: kernel {name} [{label}] {kind} max_abs_err={err} ms={ms:.5f} "
@@ -3154,7 +3203,10 @@ SASS_OPS = ("HGMMA", "HMMA", "FFMA", "FMUL", "FADD", "MUFU.EX2", "MUFU.LG2", "SH
 # the attention kernels whose products must run on the tensor cores
 TENSOR_CORE_KERNELS = ("flash_attention_kernel_bf16", "flash_attention_bwd_kernel_dkdv_bf16",
                        "flash_attention_bwd_kernel_dkdv_pair_bf16",
-                       "flash_attention_bwd_kernel_dq_bf16")
+                       "flash_attention_bwd_kernel_dq_bf16",
+                       "rwkv6_scan_bwd_kernel_intraI13__nv_bfloat16")
+# backward kernels: each gradient written once, so no atomics
+NO_ATOMICS = ("flash_attention_bwd_kernel", "rwkv6_scan_bwd_kernel", "ssm_scan_bwd_kernel")
 # kernels whose registers must not spill (phase 2 fails otherwise)
 NO_SPILL = ("masked_lex_argmin_kernel", "fleet_tick_kernel", "assign_gather_kernel")
 
@@ -3164,7 +3216,8 @@ def build_phase() -> None:
     instruction mix of the LM kernels', the two simulator kernels' that
     must not spill and both ``retire_land`` instantiations' SASS
     (cuobjdump, where the toolkit has it). Fails if a bf16 attention kernel (forward,
-    dK / dV, dQ) holds no tensor-core instruction, or a backward kernel an atomic."""
+    dK / dV, dQ) or the bf16 rwkv6 backward's intra kernel holds no tensor-core
+    instruction, or a backward kernel an atomic."""
     import shutil
 
     from repro_torch.kernels import cuda_lib
@@ -3221,8 +3274,8 @@ def build_phase() -> None:
     for fn, counts in mix.items():
         if any(k in fn for k in TENSOR_CORE_KERNELS) and counts["HGMMA"] + counts["HMMA"] == 0:
             raise AssertionError(f"{fn}: no tensor-core instruction in its SASS")
-        # the backward writes each gradient once: no atomics, so repeats are bit-equal
-        if "flash_attention_bwd_kernel" in fn and sum(counts[k] for k in (
+        # the backwards write each gradient once: no atomics, so repeats are bit-equal
+        if any(k in fn for k in NO_ATOMICS) and sum(counts[k] for k in (
                 "ATOMS", "ATOM", "ATOMG", "RED", "REDG")):
             raise AssertionError(f"{fn}: atomics in its SASS")
 

@@ -47,6 +47,16 @@
 // (natural log, f32, [B, Sq, H]) when the pointer is non-null, for the
 // backward (flash_attention_bwd.cu); serving passes null and stores none.
 //
+// Rows that see no key (dead_row .. Sq - 1: a window that ends before
+// kv_len, or kv_len 0; the host computes dead_row from the masks): the
+// reference gives every one of its L padded key slots the score NEG_INF,
+// so such a row is the mean sum_{j < Skv} V_j / L with lse = NEG_INF (in
+// f32 -1e30 + log L rounds to -1e30). A block reads no key tile for it,
+// so a pre-pass, flash_attention_kernel_vmean, sums V's columns per (b,
+// kv head) into `vmean` [B, KV, D] f32, and both kernels write that row
+// from it. The pre-pass runs only when some row is dead (no serving or
+// training path makes one), so every other call launches what it did.
+//
 // f32 inputs: flash_attention_kernel_f32, the CUDA-core kernel (32 x 32
 // tiles of f32 in shared memory, f32 products). The f32 path holds the
 // CPU port to 2e-4 and gives the same greedy tokens (the smoke configs
@@ -79,9 +89,9 @@ template <int DP>
 __global__ void __launch_bounds__(kThreadsBf16, 1) flash_attention_kernel_bf16(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
     const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out,
-    float* __restrict__ lse, int B, int Sq,
+    float* __restrict__ lse, const float* __restrict__ vmean, int B, int Sq,
     int Skv, int H, int KV, int D, int causal, int window, int q_offset, int kv_len,
-    float scale_log2) {
+    int dead_row, float scale_log2) {
   constexpr int NCB = DP / 64;                     // 64-column blocks
   constexpr uint32_t kQBytes = kBQ * DP * 2, kTileBytes = kBK * DP * 2;
   extern __shared__ uint8_t smem_raw[];
@@ -244,9 +254,12 @@ __global__ void __launch_bounds__(kThreadsBf16, 1) flash_attention_kernel_bf16(
   const int row0 = pos0 - q_offset, row1 = pos1 - q_offset;   // query indices
   if (lse != nullptr && lane % 4 == 0) {
     // m and the scores are in log2 units: ln(sum e^s) = (m + log2 l) ln 2
-    if (row0 < Sq) lse[((size_t)b * Sq + row0) * H + h] = (m0 + log2f(d0)) * kLn2;
-    if (row1 < Sq) lse[((size_t)b * Sq + row1) * H + h] = (m1 + log2f(d1)) * kLn2;
+    if (row0 < Sq)
+      lse[((size_t)b * Sq + row0) * H + h] = row0 >= dead_row ? kNegInf : (m0 + log2f(d0)) * kLn2;
+    if (row1 < Sq)
+      lse[((size_t)b * Sq + row1) * H + h] = row1 >= dead_row ? kNegInf : (m1 + log2f(d1)) * kLn2;
   }
+  const float* mean = vmean + ((size_t)b * KV + kvh) * D;   // read on dead rows only
 #pragma unroll
   for (int cb = 0; cb < NCB; ++cb)
 #pragma unroll
@@ -254,17 +267,39 @@ __global__ void __launch_bounds__(kThreadsBf16, 1) flash_attention_kernel_bf16(
       const int col = cb * 64 + 8 * (i / 4) + c2;
       const int row = (i / 2) % 2 ? row1 : row0;
       const float den = (i / 2) % 2 ? d1 : d0;
-      if (col < D && row < Sq)
+      if (col < D && row < Sq) {
+        const bool dead = row >= dead_row;
         *reinterpret_cast<__nv_bfloat162*>(out + (((size_t)b * Sq + row) * H + h) * D + col) =
-            __floats2bfloat162_rn(o[cb][i] / den, o[cb][i + 1] / den);
+            __floats2bfloat162_rn(dead ? mean[col] : o[cb][i] / den,
+                                  dead ? mean[col + 1] : o[cb][i + 1] / den);
+      }
     }
 }
 
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+
+// vmean[b, kvh, d] = sum_{j < Skv} v[b, j, kvh, d] / key_slots, the
+// output of a row that sees no key: one thread per (b, kvh, d), the keys
+// in order
+template <typename T>
+__global__ void __launch_bounds__(128) flash_attention_kernel_vmean(
+    const T* __restrict__ v, float* __restrict__ vmean, int B, int Skv, int KV, int D,
+    int key_slots) {
+  const int e = blockIdx.x * 128 + threadIdx.x;
+  if (e >= B * KV * D) return;
+  const int b = e / (KV * D), rest = e % (KV * D);
+  const T* src = v + (size_t)b * Skv * KV * D + rest;
+  float s = 0.0f;
+  for (int j = 0; j < Skv; ++j) s += to_f32(src[(size_t)j * KV * D]);
+  vmean[e] = s / (float)key_slots;
+}
+
 template <int DP>
-int launch_bf16(const void* q, const void* k, const void* v, void* out, void* lse, int B,
-                int Sq, int Skv,
+int launch_bf16(const void* q, const void* k, const void* v, void* out, void* lse,
+                const float* vmean, int B, int Sq, int Skv,
                 int H, int KV, int D, int causal, int window, int q_offset, int kv_len,
-                float scale, cudaStream_t stream) {
+                int dead_row, float scale, cudaStream_t stream) {
   const size_t smem = bf16_smem_bytes(DP);
   cudaError_t err = cudaFuncSetAttribute(flash_attention_kernel_bf16<DP>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -272,8 +307,8 @@ int launch_bf16(const void* q, const void* k, const void* v, void* out, void* ls
   const int grid = ((Sq + kBQ - 1) / kBQ) * B * H;
   flash_attention_kernel_bf16<DP><<<grid, kThreadsBf16, smem, stream>>>(
       (const __nv_bfloat16*)q, (const __nv_bfloat16*)k, (const __nv_bfloat16*)v,
-      (__nv_bfloat16*)out, (float*)lse, B, Sq, Skv, H, KV, D, causal, window, q_offset, kv_len,
-      scale * kLog2e);
+      (__nv_bfloat16*)out, (float*)lse, vmean, B, Sq, Skv, H, KV, D, causal, window, q_offset,
+      kv_len, dead_row, scale * kLog2e);
   return repro::launch_status();
 }
 
@@ -300,9 +335,9 @@ inline size_t f32_smem_bytes(int D) {
 template <int NG>
 __global__ void __launch_bounds__(kThreads32) flash_attention_kernel_f32(
     const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
-    float* __restrict__ out, float* __restrict__ lse, int Sq, int Skv, int H, int KV, int D,
-    int causal,
-    int window, int q_offset, int kv_len, float scale) {
+    float* __restrict__ out, float* __restrict__ lse, const float* __restrict__ vmean, int Sq,
+    int Skv, int H, int KV, int D, int causal, int window, int q_offset, int kv_len,
+    int dead_row, float scale) {
   extern __shared__ __align__(16) float sm[];
   const int LD = D + 4;
   float* qs = sm;               // [kBQ32][LD] q * scale
@@ -417,31 +452,33 @@ __global__ void __launch_bounds__(kThreads32) flash_attention_kernel_f32(
 
   if (q_start + row >= Sq) return;
   const float denom = fmaxf(l_i, 1e-30f);
-  if (lse != nullptr && part == 0) lse[((size_t)b * Sq + q_start + row) * H + h] = m_i + logf(denom);
+  const bool dead = q_start + row >= dead_row;
+  if (lse != nullptr && part == 0)
+    lse[((size_t)b * Sq + q_start + row) * H + h] = dead ? kNegInf : m_i + logf(denom);
   float* dst = out + (((size_t)b * Sq + q_start + row) * H + h) * D;
+  const float* mean = vmean + ((size_t)b * KV + kvh) * D;   // read on dead rows only
 #pragma unroll
   for (int g = 0; g < NG; ++g) {
     const int c4 = part + 4 * g;
     if (c4 < D4)
 #pragma unroll
-      for (int c = 0; c < 4; ++c) dst[4 * c4 + c] = acc[g][c] / denom;
+      for (int c = 0; c < 4; ++c) dst[4 * c4 + c] = dead ? mean[4 * c4 + c] : acc[g][c] / denom;
   }
 }
 
 template <int NG>
-int launch_f32(const void* q, const void* k, const void* v, void* out, void* lse, int B, int Sq,
-               int Skv,
+int launch_f32(const void* q, const void* k, const void* v, void* out, void* lse,
+               const float* vmean, int B, int Sq, int Skv,
                int H, int KV, int D, int causal, int window, int q_offset, int kv_len,
-               float scale, cudaStream_t stream) {
+               int dead_row, float scale, cudaStream_t stream) {
   const size_t smem = f32_smem_bytes(D);
   cudaError_t err = cudaFuncSetAttribute(flash_attention_kernel_f32<NG>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((Sq + kBQ32 - 1) / kBQ32, H, B);
   flash_attention_kernel_f32<NG><<<grid, kThreads32, smem, stream>>>(
-      (const float*)q, (const float*)k, (const float*)v, (float*)out, (float*)lse, Sq, Skv, H,
-      KV, D,
-      causal, window, q_offset, kv_len, scale);
+      (const float*)q, (const float*)k, (const float*)v, (float*)out, (float*)lse, vmean, Sq,
+      Skv, H, KV, D, causal, window, q_offset, kv_len, dead_row, scale);
   return repro::launch_status();
 }
 
@@ -450,31 +487,46 @@ int launch_f32(const void* q, const void* k, const void* v, void* out, void* lse
 // q, out: [B, Sq, H, D]; k, v: [B, Skv, KV, D]; all bf16 (is_bf16 = 1,
 // D % 8 == 0) or all f32 (D % 4 == 0). D <= 256, H % KV == 0,
 // kv_len <= Skv. lse: [B, Sq, H] f32, or null (no log-sum-exp stored).
+// Rows dead_row .. Sq - 1 see no key; when there are any, vmean is a
+// [B, KV, D] f32 scratch and key_slots the reference's padded key count L.
 REPRO_EXPORT int repro_flash_attention(const void* q, const void* k,
-                                       const void* v, void* out, void* lse, int B, int Sq,
-                                       int Skv, int H, int KV, int D,
+                                       const void* v, void* out, void* lse, void* vmean, int B,
+                                       int Sq, int Skv, int H, int KV, int D,
                                        int causal, int window, int q_offset,
-                                       int kv_len, float scale, int is_bf16,
-                                       void* stream, int device) {
+                                       int kv_len, int dead_row, int key_slots, float scale,
+                                       int is_bf16, void* stream, int device) {
   cudaSetDevice(device);
   if (B * Sq * H == 0) return repro::launch_status();
   const cudaStream_t st = (cudaStream_t)stream;
+  if (is_bf16 && D % 8) return (int)cudaErrorInvalidValue;
+  if (dead_row < Sq) {
+    if (vmean == nullptr || key_slots < 1) return (int)cudaErrorInvalidValue;
+    const int n = B * KV * D;
+    if (is_bf16)
+      flash_attention_kernel_vmean<<<(n + 127) / 128, 128, 0, st>>>(
+          (const __nv_bfloat16*)v, (float*)vmean, B, Skv, KV, D, key_slots);
+    else
+      flash_attention_kernel_vmean<<<(n + 127) / 128, 128, 0, st>>>(
+          (const float*)v, (float*)vmean, B, Skv, KV, D, key_slots);
+    const int status = repro::launch_status();
+    if (status != 0) return status;
+  }
+  const float* vm = (const float*)vmean;
   if (is_bf16) {
-    if (D % 8) return (int)cudaErrorInvalidValue;
-#define REPRO_FLASH_BF16(DP)                                                        \
-  if (D <= DP)                                                                      \
-    return launch_bf16<DP>(q, k, v, out, lse, B, Sq, Skv, H, KV, D, causal, window, \
-                           q_offset, kv_len, scale, st);
+#define REPRO_FLASH_BF16(DP)                                                             \
+  if (D <= DP)                                                                           \
+    return launch_bf16<DP>(q, k, v, out, lse, vm, B, Sq, Skv, H, KV, D, causal, window,  \
+                           q_offset, kv_len, dead_row, scale, st);
     REPRO_FLASH_BF16(64)
     REPRO_FLASH_BF16(128)
     REPRO_FLASH_BF16(256)
 #undef REPRO_FLASH_BF16
     return (int)cudaErrorInvalidValue;
   }
-#define REPRO_FLASH_F32(NG)                                                         \
-  if (D <= 16 * NG)                                                                 \
-    return launch_f32<NG>(q, k, v, out, lse, B, Sq, Skv, H, KV, D, causal, window,  \
-                          q_offset, kv_len, scale, st);
+#define REPRO_FLASH_F32(NG)                                                              \
+  if (D <= 16 * NG)                                                                      \
+    return launch_f32<NG>(q, k, v, out, lse, vm, B, Sq, Skv, H, KV, D, causal, window,   \
+                          q_offset, kv_len, dead_row, scale, st);
   REPRO_FLASH_F32(1)
   REPRO_FLASH_F32(2)
   REPRO_FLASH_F32(4)

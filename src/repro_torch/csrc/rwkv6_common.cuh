@@ -28,30 +28,43 @@ __device__ __forceinline__ float clamp_log2(float w) {
   return fmaxf(__log2f(fmaxf(w, 1e-30f)), kLog2WMin);
 }
 
-// The decay of one chunk for the column n = threadIdx.x / 4 (< N): four
-// threads to a column, each over its rows i0 .. i0 + cnt - 1 (a quarter
-// of the C rows, cnt <= MR). lw[i * ld + n] holds log2 w clamped, or
-// (RAW) the decay w itself. Returns E_C = exp2(Li[C - 1]) and, for the
-// thread's rows, lx (the exclusive cumsum Lx of the clamped log2 w down
-// the column) and lwv (the clamped log2 w), so Li = lx + lwv. Every
-// thread of the block calls it (the shuffles); all loads come first.
-template <int MR, bool RAW>
-__device__ __forceinline__ float column_decay(const float* lw, int ld, int N, int C,
-                                              float (&lx)[MR], float (&lwv)[MR], int& i0,
-                                              int& cnt) {
-  const int n = threadIdx.x / 4, part = threadIdx.x % 4;
+// The rows of the column n = threadIdx.x / 4 that the thread takes: four
+// threads to a column, each over rows i0 .. i0 + cnt - 1 (a quarter of
+// the C rows, cnt <= MR).
+__device__ __forceinline__ void column_rows(int C, int& i0, int& cnt) {
   const int len = (C + 3) / 4;
-  i0 = min(C, part * len);
+  i0 = min(C, (int)(threadIdx.x % 4) * len);
   cnt = min(C, i0 + len) - i0;
-  const bool mine = n < N;
+}
+
+// x[t] = load(i0 + t, n) over the thread's rows of its column (0 past
+// them, and for a column past N)
+template <int MR, class F>
+__device__ __forceinline__ void column_load(F load, int N, int C, float (&x)[MR]) {
+  const int n = threadIdx.x / 4;
+  int i0, cnt;
+  column_rows(C, i0, cnt);
 #pragma unroll
-  for (int t = 0; t < MR; ++t) {
-    float x = 0.0f;
-    if (mine && t < cnt) {
-      x = lw[(i0 + t) * ld + n];
-      if (RAW) x = clamp_log2(x);
-    }
-    lwv[t] = x;
+  for (int t = 0; t < MR; ++t) x[t] = n < N && t < cnt ? load(i0 + t, n) : 0.0f;
+}
+
+// The decay of one chunk for the thread's column (n = threadIdx.x / 4 <
+// N). lwv holds what column_load gave: log2 w clamped, or (RAW) the decay
+// w itself, of the thread's rows i0 .. i0 + cnt - 1; it becomes the
+// clamped log2 w. Returns E_C = exp2(Li[C - 1]) and, for the thread's
+// rows, lx (the exclusive cumsum Lx of the clamped log2 w down the
+// column), so Li = lx + lwv. Every thread of the block calls it (the
+// shuffles).
+template <int MR, bool RAW>
+__device__ __forceinline__ float column_decay_from(float (&lwv)[MR], int N, int C,
+                                                   float (&lx)[MR], int& i0, int& cnt) {
+  const int part = threadIdx.x % 4;
+  const bool mine = (int)threadIdx.x / 4 < N;
+  column_rows(C, i0, cnt);
+  if (RAW) {
+#pragma unroll
+    for (int t = 0; t < MR; ++t)
+      if (mine && t < cnt) lwv[t] = clamp_log2(lwv[t]);
   }
   float seg = 0.0f;
 #pragma unroll
@@ -68,6 +81,16 @@ __device__ __forceinline__ float column_decay(const float* lw, int ld, int N, in
     run += lwv[t];
   }
   return exp2f(__shfl_sync(0xffffffffu, incl, 3, 4));
+}
+
+// The decay of one chunk for the thread's column from lw[i * ld + n]
+// (column_load, then column_decay_from: all loads come first)
+template <int MR, bool RAW>
+__device__ __forceinline__ float column_decay(const float* lw, int ld, int N, int C,
+                                              float (&lx)[MR], float (&lwv)[MR], int& i0,
+                                              int& cnt) {
+  column_load<MR>([lw, ld](int i, int n) { return lw[i * ld + n]; }, N, C, lwv);
+  return column_decay_from<MR, RAW>(lwv, N, C, lx, i0, cnt);
 }
 
 }  // namespace rwkv6

@@ -32,7 +32,7 @@ from .ref import (
 )
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_ARGTYPES = [_P] * 5 + [_I] * 10 + [ctypes.c_float, _I, _P, _I]
+_ARGTYPES = [_P] * 6 + [_I] * 12 + [ctypes.c_float, _I, _P, _I]
 _BWD_ARGTYPES = [_P] * 10 + [_I] * 11 + [ctypes.c_float] * 2 + [_I, _P, _I]
 MAX_HEAD_DIM = 256
 
@@ -67,17 +67,25 @@ def _launch(q, k, v, causal, window, q_offset, kv_len, *, with_lse: bool):
         )
     if not 0 <= kv_len <= Skv:
         raise ValueError(f"flash_attention: kv_len {kv_len} outside [0, {Skv}]")
+    if q_offset < 0:
+        raise ValueError(f"flash_attention: q_offset {q_offset} < 0 (positions start at 0)")
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     cuda_lib.require("flash_attention", "q", q, q.dtype, (B, Sq, H, D), dev)
     cuda_lib.require("flash_attention", "k", k, q.dtype, (B, Skv, KV, D), dev)
     cuda_lib.require("flash_attention", "v", v, q.dtype, (B, Skv, KV, D), dev)
     out = torch.empty_like(q)
     lse = torch.empty((B, Sq, H), dtype=torch.float32, device=dev) if with_lse else None
+    # rows that see no key get the mean of V over the reference's padded
+    # key slots, from a [B, KV, D] f32 scratch the kernel fills first
+    dead_row = first_dead_row(Sq, int(window), int(q_offset), kv_len)
+    vmean = (torch.empty((B, KV, D), dtype=torch.float32, device=dev)
+             if dead_row < Sq and Skv else None)
     fn = cuda_lib.function("repro_flash_attention", _ARGTYPES)
     code = fn(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        None if lse is None else lse.data_ptr(),
+        None if lse is None else lse.data_ptr(), None if vmean is None else vmean.data_ptr(),
         B, Sq, Skv, H, KV, D, int(causal), int(window), int(q_offset), kv_len,
+        dead_row if vmean is not None else Sq, padded_key_count(Skv) if Skv else 0,
         1.0 / (D ** 0.5), int(q.dtype == torch.bfloat16), *cuda_lib.stream_args(dev),
     )
     cuda_lib.check_launch("flash_attention", code)

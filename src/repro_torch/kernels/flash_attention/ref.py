@@ -10,8 +10,9 @@ layers).
 
 * ``flash_attention_ref``: the online-softmax scan over key blocks of
   ``repro.kernels.flash_attention.ref`` (``NEG_INF = -1e30`` for masked
-  scores, ``acc / max(l, 1e-30)``), the plain version the wrapper runs
-  for CPU tensors. The query is cast to f32 and then scaled by
+  scores, ``acc / max(l, 1e-30)``, K/V padded to whole blocks and the
+  pad masked), the plain version the wrapper runs for CPU tensors. The
+  query is cast to f32 and then scaled by
   ``1/sqrt(D)``, as the TPU kernel does (``kernel.py:68``) and as the
   CUDA kernel (``csrc/flash_attention.cu``) does. The JAX package's
   ``q_offset``/``kv_len`` path scales in the input dtype first; in f32
@@ -55,38 +56,16 @@ def flash_attention_ref(
     q, k, v, *, causal: bool = True, window: int = 0, q_offset: int = 0,
     kv_len: int | None = None, block_k: int = 1024,
 ):
-    """q [B,Sq,H,D], k/v [B,Skv,KV,D] -> [B,Sq,H,D] in q's dtype."""
+    """q [B,Sq,H,D], k/v [B,Skv,KV,D] -> [B,Sq,H,D] in q's dtype: the scan
+    of ``flash_attention_fwd_lse_ref`` over whole key blocks (the pad
+    masked), as the JAX package's scan walks them, so a row that sees no
+    key is the mean of V over the ``padded_key_count`` slots."""
     B, Sq, H, D = q.shape
     _, Skv, KV, Dk = k.shape
     if Dk != D or H % KV:
         raise ValueError(f"flash_attention: q {tuple(q.shape)} vs k {tuple(k.shape)}")
-    G = H // KV
-    kv_len = Skv if kv_len is None else int(kv_len)
-    block_k = min(block_k, Skv)
-    f32 = torch.float32
-    dev = q.device
-    scale = 1.0 / (D ** 0.5)
-    qf = (q.to(f32) * scale).reshape(B, Sq, KV, G, D)
-    q_pos = int(q_offset) + torch.arange(Sq, device=dev)
-
-    m = torch.full((B, Sq, KV, G), NEG_INF, dtype=f32, device=dev)
-    l = torch.zeros((B, Sq, KV, G), dtype=f32, device=dev)
-    acc = torch.zeros((B, Sq, KV, G, D), dtype=f32, device=dev)
-    for start in range(0, Skv, block_k):
-        kblk = k[:, start:start + block_k].to(f32)
-        vblk = v[:, start:start + block_k].to(f32)
-        k_pos = start + torch.arange(kblk.shape[1], device=dev)
-        s = torch.einsum("bqkgd,bckd->bqkgc", qf, kblk)
-        ok = _visible(q_pos, k_pos, causal, window, kv_len)
-        s = torch.where(ok[None, :, None, None, :], s, NEG_INF)
-        m_new = torch.maximum(m, s.amax(dim=-1))
-        p = torch.exp(s - m_new[..., None])
-        corr = torch.exp(m - m_new)
-        l = l * corr + p.sum(dim=-1)
-        acc = acc * corr[..., None] + torch.einsum("bqkgc,bckd->bqkgd", p, vblk)
-        m = m_new
-    out = acc / torch.clamp_min(l[..., None], 1e-30)
-    return out.reshape(B, Sq, H, D).to(q.dtype)
+    return flash_attention_fwd_lse_ref(q, k, v, causal=causal, window=window, q_offset=q_offset,
+                                       kv_len=kv_len, block_k=block_k)[0]
 
 
 def _padded_blocks(k, v, block_k: int):

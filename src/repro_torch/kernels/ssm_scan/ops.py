@@ -22,12 +22,13 @@ from .ref import ssm_scan_bwd_ref, ssm_scan_ref
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = [_P] * 9 + [_I] * 5 + [_P, _I]
-_BWD_ARGTYPES = [_P] * 19 + [_I] * 5 + [_P, _I]
+_BWD_ARGTYPES = [_P] * 23 + [_I] * 5 + [_P, _I]
 # state sizes the kernel is built for: 4 states per thread, N / 4
 # threads per channel
 STATE_SIZES = (4, 8, 16, 32)
-CHANNELS = 32                        # channels of a backward block
-SEGMENT = {4: 16, 8: 16, 16: 16, 32: 8}   # tokens between the backward's checkpoints
+CHANNELS = 64                        # channels of a backward block
+CHUNK = 128                          # tokens of a backward time chunk
+SEGMENT = {4: 16, 8: 16, 16: 8, 32: 8}   # tokens between the backward's checkpoints
 
 
 def ssm_scan(x, dt, A, B, C, D, h0=None, *, chunk: int = 256):
@@ -118,6 +119,21 @@ class _SSMScan(torch.autograd.Function):
         return (*(g if need else None for g, need in zip(grads, ctx.needs_input_grad)), None)
 
 
+def bwd_scratch_shapes(Bsz: int, S: int, dim: int, N: int) -> dict[str, tuple[int, ...]]:
+    """The f32 partials and scratch of ``csrc/ssm_scan_bwd.cu`` for a call
+    over ``S`` tokens (any S, the last chunk and segment ragged): per
+    (row, time chunk) dA and dD, per block of ``CHANNELS`` channels dB and
+    dC, the local state at every segment's start and the sum of dt up to
+    it, and each chunk's three terms (local end state, decay product,
+    local start cotangent)."""
+    n_chunks, n_seg, n_blk = -(-S // CHUNK), -(-S // SEGMENT[N]), -(-dim // CHANNELS)
+    terms = (Bsz, n_chunks, dim, N)
+    return {"dA_part": terms, "dD_part": (Bsz, n_chunks, dim),
+            "dB_part": (Bsz, n_blk, S, N), "dC_part": (Bsz, n_blk, S, N),
+            "ckpt": (Bsz, n_seg, dim, N), "cumdt": (Bsz, n_seg, dim),
+            "hloc": terms, "prod": terms, "gloc": terms}
+
+
 def ssm_scan_bwd(x, dt, A, B, C, D, h0, dy, dh):
     """The gradients (dx, ddt, dA, dB, dC, dD, dh0) of the scan over any S,
     each in its input's dtype (dh0 f32), from the cotangents ``dy`` and
@@ -137,29 +153,27 @@ def ssm_scan_bwd(x, dt, A, B, C, D, h0, dy, dh):
     dx, ddt = torch.empty_like(x), torch.empty_like(dt)
     dB, dC = torch.empty_like(B), torch.empty_like(C)
     dh0 = torch.empty((Bsz, dim, N), **f32)
-    # per-row partials of dA and dD, folded over rows below; scratch: the
-    # per-block partials of dB and dC, the state every SEGMENT tokens
-    dA_part = torch.empty((Bsz, dim, N), **f32)
-    dD_part = torch.empty((Bsz, dim), **f32)
-    n_blk = -(-dim // CHANNELS)
-    dB_part = torch.empty((Bsz, n_blk, S, N), **f32)
-    dC_part = torch.empty((Bsz, n_blk, S, N), **f32)
-    ckpt = torch.empty((Bsz, -(-S // SEGMENT[N]), dim, N), **f32)
+    # per-(row, chunk) partials of dA and dD, folded below; scratch
+    scratch = {k: torch.empty(shape, **f32)
+               for k, shape in bwd_scratch_shapes(Bsz, S, dim, N).items()}
     fn = cuda_lib.function("repro_ssm_scan_bwd", _BWD_ARGTYPES)
     code = fn(
         x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(), C.data_ptr(), D.data_ptr(),
         None if h0 is None else h0.data_ptr(), dy.data_ptr(),
         None if dh is None else dh.data_ptr(), dx.data_ptr(), ddt.data_ptr(),
-        dA_part.data_ptr(), dB.data_ptr(), dC.data_ptr(), dD_part.data_ptr(), dh0.data_ptr(),
-        dB_part.data_ptr(), dC_part.data_ptr(), ckpt.data_ptr(),
+        scratch["dA_part"].data_ptr(), dB.data_ptr(), dC.data_ptr(),
+        scratch["dD_part"].data_ptr(), dh0.data_ptr(),
+        *(scratch[k].data_ptr() for k in ("dB_part", "dC_part", "ckpt", "cumdt", "hloc", "prod",
+                                          "gloc")),
         Bsz, S, dim, N, int(x.dtype == torch.bfloat16), *cuda_lib.stream_args(dev),
     )
     cuda_lib.check_launch("ssm_scan_bwd", code)
     ssm_scan_bwd.launches += 1
-    return dx, ddt, dA_part.sum(0), dB, dC, dD_part.sum(0), dh0
+    return (dx, ddt, scratch["dA_part"].sum((0, 1)), dB, dC, scratch["dD_part"].sum((0, 1)),
+            dh0)
 
 
 ssm_scan.launches = 0
 ssm_scan_bwd.launches = 0
 
-__all__ = ["STATE_SIZES", "ssm_scan", "ssm_scan_bwd"]
+__all__ = ["STATE_SIZES", "bwd_scratch_shapes", "ssm_scan", "ssm_scan_bwd"]

@@ -46,6 +46,7 @@ from repro_torch.kernels.flash_attention import (
     flash_attention_fwd_lse_ref,
 )
 from repro_torch.kernels.flash_attention import ops as flash_ops
+from repro_torch.kernels.flash_attention.ref import NEG_INF, first_dead_row
 from repro_torch.kernels.rwkv6_scan import ops as rwkv6_ops
 from repro_torch.kernels.rwkv6_scan import rwkv6_scan, rwkv6_scan_bwd
 from repro_torch.kernels.sched_select import (
@@ -778,13 +779,11 @@ def test_flash_attention_bwd_bf16_repeats_bit_equal(cuda, case):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
-@pytest.mark.parametrize("case", FLASH_BWD_CUDA_CASES[:4] + FLASH_BWD_CUDA_CASES[10:13], ids=str)
+@pytest.mark.parametrize("case", FLASH_BWD_CUDA_CASES[:4] + FLASH_BWD_CUDA_CASES[10:], ids=str)
 def test_flash_attention_kernel_lse_and_autograd(cuda, case, dtype):
     """The forward kernel's ``lse`` against the plain forward's (2e-4), and
     a backward through ``flash_attention`` on the card: one forward and
-    one backward launch, gradients as the CPU's (cases whose every row
-    sees a key: on a row that sees none the forward kernel averages the
-    key slots of the tiles it walks, not the plain version's)."""
+    one backward launch, gradients as the CPU's."""
     q, k, v, out, lse, dout, kw = _flash_bwd_inputs(case, dtype)
     got_out, got_lse = flash_ops._launch(q.to(cuda), k.to(cuda), v.to(cuda), kw["causal"],
                                          kw["window"], kw["q_offset"], kw["kv_len"],
@@ -801,6 +800,29 @@ def test_flash_attention_kernel_lse_and_autograd(cuda, case, dtype):
     flash_attention(*cpu, **kw).backward(dout)
     for g, w in zip(leaves, cpu):
         _close(g.grad, w.grad, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", FLASH_BWD_CUDA_CASES[13:15], ids=str)
+def test_flash_attention_kernel_rows_that_see_no_key(cuda, case, dtype):
+    """Rows that see no key (a window that ends before kv_len): the forward
+    kernel's ``out`` and ``lse`` on every row against the plain forward's,
+    which gives such a row the mean of V over the padded key slots and an
+    ``lse`` of NEG_INF; serving (no lse) writes the same ``out``."""
+    q, k, v, out, lse, _, kw = _flash_bwd_inputs(case, dtype)
+    dead = first_dead_row(q.shape[1], kw["window"], kw["q_offset"], kw["kv_len"])
+    assert dead < q.shape[1]
+    got_out, got_lse = flash_ops._launch(q.to(cuda), k.to(cuda), v.to(cuda), kw["causal"],
+                                         kw["window"], kw["q_offset"], kw["kv_len"],
+                                         with_lse=True)
+    served = flash_attention(q.to(cuda), k.to(cuda), v.to(cuda), **kw)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(got_lse.cpu().numpy(), lse.numpy(), rtol=2e-4, atol=2e-4)
+    assert float(got_lse[:, dead:].max()) == float(np.float32(NEG_INF))
+    _close(got_out, out, dtype)
+    assert torch.equal(served, got_out)
+    assert bool(got_out[:, dead:].abs().sum() > 0)   # the mean of V, not zeros
 
 
 @pytest.mark.cuda
@@ -961,13 +983,18 @@ def _hold_grad(got, want, elementwise=True):
         assert bool(((a - b).abs() <= tol * (1 + b.abs())).all())
 
 
-def _rwkv_grad_arrays(rng, B, S, H, N, chunk, dtype):
+def _rwkv_grad_arrays(rng, B, S, H, N, chunk, dtype, clamp=False):
     """r, k, v in ``dtype``; w = exp(-exp(x)), x uniform in [-6, 0.5]
     (-0.5 at chunk 64: the chunked form computes k exp(-Li), finite only
-    while a chunk's decays stay above exp(-88)), a few decays below the
-    clamp; u, a state; the cotangents dout (``dtype``) and dstate."""
+    while a chunk's decays stay above exp(-88)), or with ``clamp`` w =
+    exp(-y), y uniform in [4.9, 5.1] (the log decays on both sides of the
+    clamp at -5), a few decays below the clamp; u, a state; the cotangents
+    dout (``dtype``) and dstate."""
     f32 = lambda a: torch.from_numpy(np.asarray(a, np.float32))  # noqa: E731
-    w = np.exp(-np.exp(rng.uniform(-6.0, 0.5 if chunk <= 32 else -0.5, (B, S, H, N))))
+    if clamp:
+        w = np.exp(-rng.uniform(4.9, 5.1, (B, S, H, N)))
+    else:
+        w = np.exp(-np.exp(rng.uniform(-6.0, 0.5 if chunk <= 32 else -0.5, (B, S, H, N))))
     w[:, 1:3, 0, :4] = 1e-4
     ins = (f32(rng.standard_normal((B, S, H, N))).to(dtype),
            f32(rng.standard_normal((B, S, H, N)) * 0.5).to(dtype),
@@ -985,6 +1012,8 @@ RWKV_BWD_CUDA_CASES = [
     (1, 128, 2, 64, 64),
     (2, 48, 2, 16, 16),
     (1, 24, 2, 32, 32),      # chunk > S: one chunk of 24
+    (2, 1024, 2, 64, 32),    # the reverse scan over 32 chunks
+    (1, 256, 2, 64, 16, "clamp"),   # log decays at the clamp: 16 x -5 a chunk
 ]
 
 
@@ -996,9 +1025,9 @@ def test_rwkv6_scan_bwd_kernels_match_plain(cuda, case, dtype, dstate):
     """The backward kernels on the forward kernel's chunk states against
     ``rwkv6_scan_bwd_ref``; dw exactly 0 below the clamp; a second call
     bit-equal to the first."""
-    B, S, H, N, chunk = case
+    B, S, H, N, chunk, *clamp = case
     ins, (dout, dst) = _rwkv_grad_arrays(np.random.default_rng(S + N + chunk), B, S, H, N,
-                                         chunk, dtype)
+                                         chunk, dtype, clamp=bool(clamp))
     dst = dst if dstate else None
     dev = [x.to(cuda) for x in ins]
     C = min(chunk, S)
@@ -1051,6 +1080,10 @@ SSM_BWD_CUDA_CASES = [
     (2, 17, 64, 32),
     (1, 300, 104, 16),       # many segments
     (2, 1, 32, 16),
+    (1, 1000, 72, 16),       # eight time chunks, the last ragged
+    (2, 129, 64, 16),        # one token past a chunk
+    (1, 300, 64, 16, "zero decay"),   # a = exp(A dt) = 0 at token 150, inside a chunk
+    (1, 131, 40, 32),        # N 32: 8-token segments, two chunks
 ]
 
 
@@ -1061,9 +1094,11 @@ SSM_BWD_CUDA_CASES = [
 def test_ssm_scan_bwd_kernels_match_plain(cuda, case, dtype, state):
     """The backward kernels against ``ssm_scan_bwd_ref`` with and without
     h0 and dh; a second call bit-equal to the first."""
-    B, S, dim, N = case
+    B, S, dim, N, *zero = case
     rng = np.random.default_rng(S + dim + N)
     cpu = list(_ssm_arrays(rng, B, S, dim, N, dtype))
+    if zero:
+        cpu[1][:, S // 2] = 200.0   # A dt <= -200
     dy = torch.from_numpy(rng.standard_normal((B, S, dim)).astype(np.float32)).to(dtype)
     dh = torch.from_numpy(rng.standard_normal((B, dim, N)).astype(np.float32))
     if not state:

@@ -263,3 +263,156 @@ def test_ssm_grads_of_a_subset_match_jax_vjp():
     assert all(t[i].grad is None for i in (1, 3, 4))
     for i in (0, 2, 5):
         _hold(t[i].grad, want[i], "f32", SSM_NAMES[i])
+
+
+# ---------------------------------------------------------------------------
+# The backward kernels' decompositions, in plain torch, against the plain
+# backwards (f32, 1e-5 in norm): rwkv6 as a parallel term pass, an
+# elementwise reverse scan of the state's cotangent and chunks that are
+# then independent (csrc/rwkv6_scan_bwd.cu); ssm as a parallel walk of
+# each time chunk from a zero state, a serial pass over the chunks' three
+# terms and a parallel reverse walk of each chunk from its checkpoints
+# (csrc/ssm_scan_bwd.cu)
+# ---------------------------------------------------------------------------
+def _close_norm(got, want, name):
+    assert got.shape == want.shape, name
+    assert (got - want).norm() <= 1e-5 * want.norm() + 1e-7, (name, float((got - want).norm()))
+
+
+@pytest.mark.parametrize("B,S,H,N,chunk,dstate", [(2, 48, 2, 8, 8, True), (1, 64, 2, 16, 16, False),
+                                                  (1, 40, 3, 8, 4, True)])
+def test_rwkv6_bwd_as_terms_a_reverse_scan_and_independent_chunks(B, S, H, N, chunk, dstate):
+    from repro_torch.kernels.rwkv6_scan.ref import _chunk_terms, _to_chunks
+
+    ins, cot = _rwkv_case(S + N, B, S, H, N)
+    r, k, v, w, u, s0 = (torch.from_numpy(a) for a in ins)
+    dout = torch.from_numpy(cot[0])
+    dst = torch.from_numpy(cot[1]) if dstate else None
+    want = rwkv6_scan_bwd_ref(r, k, v, w, u, s0, dout, dst, chunk=chunk)
+    n = S // chunk
+    tri = torch.tril(torch.ones((chunk, chunk)), diagonal=-1)
+    rc, wc, doc = (_to_chunks(x, n, chunk) for x in (r, w, dout))
+    # the term pass: U_c = (r E)_c^T dO_c and E_C of every chunk
+    terms = [_chunk_terms(rc[c], rc[c], wc[c], tri) for c in range(n)]
+    U = [torch.einsum("bhin,bhim->bhnm", terms[c][3], doc[c]) for c in range(n)]
+    etot = [terms[c][2][..., 0, :, None] for c in range(n)]
+    # the reverse scan, elementwise: dS_out of every chunk, then dstate0
+    ds = torch.zeros((B, H, N, N)) if dst is None else dst.clone()
+    dsout = [None] * n
+    for c in reversed(range(n)):
+        dsout[c] = ds
+        ds = etot[c] * ds + U[c]
+    _close_norm(ds, want[5], "dstate0")
+    # every chunk alone, from its input state and its dS_out
+    state, parts = s0, []
+    for c in range(n):
+        cut = slice(c * chunk, (c + 1) * chunk)
+        args = (r[:, cut], k[:, cut], v[:, cut], w[:, cut], u, state)
+        parts.append(rwkv6_scan_bwd_ref(*args, dout[:, cut], dsout[c], chunk=chunk))
+        _close_norm(parts[-1][5], dsout[c - 1] if c else ds, f"dS_in of chunk {c}")
+        state = rwkv6_chunked_ref(*args, chunk=chunk)[1]
+    for i, name in enumerate(("dr", "dk", "dv", "dw")):
+        _close_norm(torch.cat([p[i] for p in parts], 1), want[i], name)
+    _close_norm(sum(p[4] for p in parts), want[4], "du")
+
+
+def _ssm_three_passes(x, dt, A, Bm, Cm, D, h0, dy, dh, chunk, seg):
+    """The backward as csrc/ssm_scan_bwd.cu orders it, in f32: (1) each
+    chunk from a zero state (its local end state, decay product and local
+    start cotangent; the local state and the sum of dt at every segment's
+    start), (2) the chunks in order and in reverse, (3) each chunk's
+    segments in reverse from ckpt + exp(A cumdt) h_in."""
+    Bsz, S, dim = x.shape
+    N = A.shape[1]
+    zeros = torch.zeros((Bsz, dim, N))
+    a = torch.exp(A[None, None] * dt[..., None])                   # [B,S,dim,N]
+    u = (dt * x)[..., None] * Bm[:, :, None, :]
+    gy = dy[..., None] * Cm[:, :, None, :]
+    starts = list(range(0, S, chunk))
+    terms, ckpt, cumdt = [], {}, {}
+    for t0 in starts:                                                # (1)
+        h, pr, gl = zeros.clone(), torch.ones((Bsz, dim, N)), zeros.clone()
+        cd = torch.zeros((Bsz, dim))
+        for t in range(t0, min(S, t0 + chunk)):
+            if t % seg == 0:
+                ckpt[t], cumdt[t] = h, cd
+            h = a[:, t] * h + u[:, t]
+            pr = pr * a[:, t]
+            gl = gl + pr * gy[:, t]
+            cd = cd + dt[:, t]
+        terms.append((h, pr, gl))
+    hin, gout = [], [None] * len(starts)                             # (2)
+    hs = zeros if h0 is None else h0
+    for hl, pr, _ in terms:
+        hin.append(hs)
+        hs = pr * hs + hl
+    gs = zeros if dh is None else dh
+    for c in reversed(range(len(starts))):
+        gout[c] = gs
+        gs = terms[c][1] * gs + terms[c][2]
+    dh0 = gs
+    dx, ddt, dB, dC = (torch.zeros_like(t) for t in (x, dt, Bm, Cm))
+    dA, dD = torch.zeros_like(A), torch.zeros_like(D)
+    for c, t0 in enumerate(starts):                                  # (3)
+        carry = gout[c]
+        for s0 in reversed(range(t0, min(S, t0 + chunk), seg)):
+            h = ckpt[s0] + torch.exp(A[None] * cumdt[s0][..., None]) * hin[c]
+            hp = []
+            for t in range(s0, min(S, s0 + seg)):
+                hp.append(h)
+                h = a[:, t] * h + u[:, t]
+            hp.append(h)
+            for j in reversed(range(len(hp) - 1)):
+                t = s0 + j
+                g = gy[:, t] + carry
+                dC[:, t] = torch.einsum("bd,bdn->bn", dy[:, t], hp[j + 1])
+                dB[:, t] = torch.einsum("bdn,bd->bn", g, dt[:, t] * x[:, t])
+                da = g * hp[j] * a[:, t]
+                ddt[:, t] = (da * A[None]).sum(-1) + x[:, t] * (g * Bm[:, t, None, :]).sum(-1)
+                dx[:, t] = dt[:, t] * (g * Bm[:, t, None, :]).sum(-1) + D[None] * dy[:, t]
+                dA = dA + (da * dt[:, t, :, None]).sum(0)
+                dD = dD + (dy[:, t] * x[:, t]).sum(0)
+                carry = a[:, t] * g
+    return dx, ddt, dA, dB, dC, dD, dh0
+
+
+@pytest.mark.parametrize("B,S,dim,N,chunk,seg,state,zero_decay", [
+    (2, 29, 6, 4, 8, 4, True, False),     # ragged: the last chunk and segment short
+    (1, 32, 5, 8, 16, 4, False, False),   # no h0, no dh
+    (2, 37, 4, 4, 12, 4, True, True),     # a = exp(A dt) = 0 inside a chunk
+])
+def test_ssm_bwd_as_three_passes_over_time_chunks(B, S, dim, N, chunk, seg, state, zero_decay):
+    ins, cot = _ssm_case(S * dim + N, B, S, dim, N)
+    t = [torch.from_numpy(a) for a in ins]
+    dy, dh = (torch.from_numpy(a) for a in cot)
+    if zero_decay:   # A dt below -104 at token 17, mid-chunk: a underflows to 0
+        t[1][:, 17] = 200.0
+        assert float(torch.exp(t[2].max() * 200.0)) == 0.0
+    if not state:
+        t[6], dh = None, None
+    want = ssm_scan_bwd_ref(*t, dy, dh)
+    got = _ssm_three_passes(*t, dy, dh, chunk, seg)
+    for name, a, b in zip(SSM_NAMES, got, want):
+        _close_norm(a, b, name)
+
+
+@pytest.mark.parametrize("S", [1, 16, 127, 128, 129, 1000, 1838, 2048, 4097])
+@pytest.mark.parametrize("N", [4, 16, 32])
+def test_ssm_bwd_scratch_shapes_for_ragged_sequences(S, N):
+    """The backward's scratch plan: one time chunk per 128 tokens and one
+    checkpoint per segment, the last of each ragged; chunks hold whole
+    segments; dB / dC partials per block of 64 channels; the three chunk
+    terms and dA's partials one [dim, N] slice per (row, chunk)."""
+    from repro_torch.kernels.ssm_scan import ops as ssm_ops
+
+    B, dim = 2, 100
+    plan = ssm_ops.bwd_scratch_shapes(B, S, dim, N)
+    seg = ssm_ops.SEGMENT[N]
+    n_chunks = -(-S // ssm_ops.CHUNK)
+    assert ssm_ops.CHUNK % seg == 0
+    assert (n_chunks - 1) * ssm_ops.CHUNK < S <= n_chunks * ssm_ops.CHUNK
+    assert plan["ckpt"] == (B, -(-S // seg), dim, N) and plan["cumdt"] == (B, -(-S // seg), dim)
+    for name in ("hloc", "prod", "gloc", "dA_part"):
+        assert plan[name] == (B, n_chunks, dim, N), name
+    assert plan["dD_part"] == (B, n_chunks, dim)
+    assert plan["dB_part"] == plan["dC_part"] == (B, 2, S, N)

@@ -168,6 +168,25 @@ def test_first_dead_row_is_the_first_row_without_a_visible_key(causal, window):
             assert dead == list(range(first, Sq)), (q_offset, kv_len, dead, first)
 
 
+@pytest.mark.parametrize("case", [c for c in FLASH_CACHE_CASES if c[-1] is not None], ids=str)
+def test_flash_forward_without_grad_matches_jax_on_rows_that_see_no_key(case):
+    """The plain forward that serving runs (no grad) walks whole key blocks
+    as the JAX package's scan does: a row that sees no key is the mean of
+    V over the padded key slots (2,048 at 1,100 keys), equal to the JAX
+    package's and to the training forward's."""
+    B, Sq, Skv, H, KV, D, causal, window, q_offset, kv_len = case
+    rng = np.random.default_rng(Sq * 17 + Skv)
+    q, k, v = (rng.standard_normal(s).astype(np.float32)
+               for s in ((B, Sq, H, D), (B, Skv, KV, D), (B, Skv, KV, D)))
+    kw = dict(causal=causal, window=window, q_offset=q_offset, kv_len=kv_len)
+    want = np.asarray(j_flash.flash_attention_ref(q, k, v, **kw))
+    with torch.no_grad():
+        got = flash_attention(*(torch.from_numpy(x) for x in (q, k, v)), **kw)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-6)
+    trained, _ = flash_attention_fwd_lse_ref(*(torch.from_numpy(x) for x in (q, k, v)), **kw)
+    assert torch.equal(got, trained)
+
+
 def test_flash_cache_path_without_grad_serves():
     q = torch.zeros((1, 4, 2, 8), requires_grad=True)
     with torch.no_grad():   # serving takes that path without grad
