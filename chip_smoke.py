@@ -208,7 +208,22 @@ Phases, in order; any failure raises and the script exits non-zero:
    4,096 tokens in 4 microbatches) and jamba cut to its first layer
    (Adafactor with bf16 state, 3 steps at 8 x 4,096 tokens in 8
    microbatches), as (a), with each scan's forward and backward share of
-   the profiled step's device time.
+   the profiled step's device time;
+17. distribution on the one card: (a) ``core.sweep._fleet_sharded`` on
+   phase 5's 64-lane fleet, binned and padded to 66 lanes, as 3 blocks
+   in turn on the card: every lane equal to phase 5's unsharded states
+   bit for bit, its wall and launches beside phase 5's; (b) a process
+   group of world size 1 (``nccl``, a ``FileStore`` in a temporary
+   directory) and a (1, 1) ``("data", "model")`` mesh: ``run_training``
+   of phi3_mini_3p8b whole over it, as phase 16 (a) trains it (3 steps,
+   4 x 4,096 tokens, 4 microbatches, AdamW with f32 state): losses and
+   gradient norms bit-equal to phase 16 (a)'s, its step ms, the device's
+   busy share of one more profiled step and its launches a step beside
+   phase 16 (a)'s (what DTensor's dispatch costs a host-bound step); (c)
+   on the same mesh, arctic_480b cut to two layers as phase 13 serves it
+   (seed 0): one 1,024-token prefill without the mesh and one on it,
+   logits bit-equal; ``compressed_psum_mean`` at world size 1 equal to
+   ``ef_compress_grad``. The group is destroyed at the end of the phase.
 
 Without a card, or from a directory that holds this script and nothing
 else of the repository, it prints why and exits 1 before any phase.
@@ -2909,6 +2924,12 @@ TRAIN_SMOKE = dict(seq_len=32, global_batch=4, microbatches=2, steps=2)
 TRAIN_SCANS = (("rwkv6_7b", 16, 4, 5), ("jamba_1p5_large_398b", 1, 8, 3))
 
 
+# each whole-model training run of phase 16 by label: losses, gradient
+# norms, median step s, launches, steps and busy share (phase 17 (b)
+# compares against (a))
+TRAINED: dict = {}
+
+
 def _kernel_ms(by_name: dict, kernel: str) -> float:
     return sum(ns for name, (ns, _) in by_name.items() if kernel in name) / 1e6
 
@@ -2994,6 +3015,8 @@ def whole_model_training(dev, label, cfg, arch, batches, tokens: int, model_flop
           f"model-FLOP share of the bf16 peak {100 * mfu:.1f}% ((6 N T = "
           f"{model_flops:.4g} + {extra} {attention_flops:.4g}) FLOP a step){shares}")
     print(f"{label} launches:", json.dumps(counts))
+    TRAINED[label] = {"losses": losses, "norms": norms, "step_s": step_s, "counts": counts,
+                      "steps": len(walls), "busy_share": busy.get("busy_share") if busy else None}
     del state, init_fn, step_fn
     torch.cuda.empty_cache()
     return counts
@@ -3291,6 +3314,193 @@ def sim_launch_phase(run_counts, fleet_counts) -> None:
     print("phase 6: launched in run and fleet_run: " + ", ".join(SIM_KERNELS))
 
 
+# ---------------------------------------------------------------------------
+# Phase 17: distribution on one card
+# ---------------------------------------------------------------------------
+# phase 17 (a): blocks of phase 5's fleet, run in turn on the one card
+FLEET_BLOCKS = 3
+# phase 17 (c): arctic as phase 13 serves it, one prompt of this length
+ARCTIC_PREFILL = (2, 1024)
+
+
+def dist_phase(dev, phase5: dict, fleet_numbers: dict) -> list[dict]:
+    """Phase 17: (a) the sharded fleet; (b) ``run_training`` of phi3 whole
+    over a one-rank ``nccl`` mesh against phase 16 (a); (c) arctic's
+    prefill on the mesh and ``compressed_psum_mean`` at world size 1.
+    Returns the launches of (a), (b) and (c)."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.core import sweep
+    from repro_torch.kernels import SIM_KERNELS, launch_counts, reset_launch_counts
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.parallel import compressed_psum_mean, dequantize_int8, ef_compress_grad
+
+    # ---- (a) the sharded fleet -----------------------------------------------
+    params, wls, want = phase5["params"], phase5["wls"], phase5["states"]
+    F = wls.arrival.shape[0]
+    F_pad = -(-F // FLEET_BLOCKS) * FLEET_BLOCKS
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    binned, inv = sweep.bin_lanes_by_density(wls, params)
+    states, _ = sweep._unbin_states(sweep._fleet_sharded(
+        params, sweep.pad_lanes(binned, F_pad), params.scheduling_algo,
+        [dev] * FLEET_BLOCKS), inv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    fleet_counts = launch_counts()
+    assert_same_states(states, want, "phase 17 (a): the sharded fleet vs phase 5")
+    for name in SIM_KERNELS:
+        if fleet_counts[name] <= 0:
+            raise AssertionError(f"phase 17 (a): {name} was not launched")
+    print(f"{CARD}: phase 17 (a): _fleet_sharded of phase 5's {F} lanes (binned, padded to "
+          f"{F_pad}) as {FLEET_BLOCKS} blocks of {F_pad // FLEET_BLOCKS} in turn on {dev}: wall "
+          f"{wall:.3f} s against phase 5's {fleet_numbers['wall_s']:.3f} s whole, "
+          f"{sum(fleet_counts.values())} simulator launches against phase 5's "
+          f"{fleet_numbers['launches']}; every lane equal to phase 5's states bit for bit")
+    print("phase 17 (a) launches:", json.dumps(fleet_counts))
+    del states, binned
+
+    # ---- (b), (c) one rank of nccl ------------------------------------------
+    tmp = tempfile.TemporaryDirectory()
+    dist.init_process_group("nccl", store=dist.FileStore(str(pathlib.Path(tmp.name) / "store"), 1),
+                            rank=0, world_size=1)
+    try:
+        mesh = make_host_mesh(data=1, model=1)
+        train_counts = mesh_training(dev, mesh)
+        serve_counts = mesh_prefill(dev, mesh)
+        gen = torch.Generator(device=dev).manual_seed(17)
+        grads = {"w": torch.randn((4096, 1024), generator=gen, device=dev),
+                 "b": torch.randn((3072,), generator=gen, device=dev) * 1e-3}
+        errs = {k: torch.randn(v.shape, generator=gen, device=dev) * 1e-4 for k, v in grads.items()}
+        means, new_errs = compressed_psum_mean(grads, errs, mesh)
+        for k in grads:
+            q, scale, new = ef_compress_grad(grads[k], errs[k])
+            if not (torch.equal(means[k], dequantize_int8(q, scale)) and torch.equal(new_errs[k], new)):
+                raise AssertionError(f"phase 17 (c): compressed_psum_mean differs from "
+                                     f"ef_compress_grad on {k}")
+        print(f"{CARD}: phase 17 (c): compressed_psum_mean over the one-rank mesh (an all_reduce "
+              "MAX of the scale and an int32 all_reduce SUM on nccl) equal to ef_compress_grad "
+              f"bit for bit on {[tuple(v.shape) for v in grads.values()]}")
+    finally:
+        dist.destroy_process_group()
+        tmp.cleanup()
+    return [fleet_counts, train_counts, serve_counts]
+
+
+def mesh_training(dev, mesh) -> dict:
+    """Phase 17 (b): phi3 whole through ``run_training`` over ``mesh`` as
+    phase 16 (a) trains it; returns the launches of its steps."""
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.data import SyntheticLM, make_batch_iterator
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.lowering import arch_rules
+    from repro_torch.runtime import make_train_step, opt_config, run_training
+
+    label = "phase 16 (a) phi3_mini_3p8b training"
+    ref = TRAINED[label]
+    arch = get_arch("phi3_mini_3p8b")
+    cfg = arch.model
+    S, Bg, n = TRAIN_PHI3["seq_len"], TRAIN_PHI3["global_batch"], TRAIN_PHI3["steps"]
+    seen = []
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    result = run_training(arch, steps=n, mesh=mesh, use_smoke_config=False, global_batch=Bg,
+                          seq_len=S, microbatches=arch.train_microbatches, device=dev,
+                          on_metrics=lambda step, m: seen.append(m))
+    counts = launch_counts()
+    losses = [m["loss"] for m in seen]
+    norms = [m["grad_norm"] for m in seen]
+    step_s = statistics.median([m["dt"] for m in seen[1:]])
+    if losses != ref["losses"] or norms != ref["norms"]:
+        raise AssertionError(f"phase 17 (b): losses {losses} and norms {norms} over the mesh; "
+                             f"phase 16 (a): {ref['losses']} and {ref['norms']}")
+    # one more step of the same step function on the state run_training
+    # returns, under the profiler
+    _, step_fn = make_train_step(cfg, opt_config(arch), microbatches=arch.train_microbatches,
+                                 device=dev, mesh=mesh, rules=arch_rules(arch))
+    ds = SyntheticLM(vocab=cfg.vocab, seq_len=S, global_batch=Bg, seed=0)
+    batch = next(make_batch_iterator(ds, n, device=dev, mesh=mesh))
+    busy = profile_call(lambda: step_fn(result.final_state, batch), "phase 17 (b) one step")
+    ref_busy = ref["busy_share"]
+    per_step = {k: v / n for k, v in counts.items() if v}
+    ref_step = {k: v / ref["steps"] for k, v in ref["counts"].items() if v}
+    print(f"{CARD}: phase 17 (b): run_training of phi3_mini_3p8b whole over a (1, 1) "
+          f"('data', 'model') mesh of one nccl rank (DTensor parameters, optimizer state and "
+          f"batches): losses {losses} and grad norms {norms} bit-equal to phase 16 (a)'s; step "
+          f"{step_s * 1e3:.1f} ms (host clock around the step and its loss, median of steps "
+          f"2-{n}) against phase 16 (a)'s {ref['step_s'] * 1e3:.1f} ms; device busy "
+          f"{100 * busy['busy_share']:.1f}% of a profiled step's wall against "
+          f"{'not measured' if ref_busy is None else f'{100 * ref_busy:.1f}%'}; "
+          f"{busy.get('device_launches')} device kernels in the profiled step; hand-written "
+          f"kernel launches a step {per_step} against phase 16 (a)'s {ref_step}")
+    print("phase 17 (b) launches:", json.dumps(counts))
+    del result, step_fn, batch, busy
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
+def mesh_prefill(dev, mesh) -> dict:
+    """Phase 17 (c): arctic cut to two layers, one prefill without the
+    mesh and one on it; the logits bit-equal and the launches equal.
+    Returns the launches of the run on the mesh alone."""
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.lowering import arch_rules
+    from repro_torch.models import lm
+    from repro_torch.models.axes import model_axes
+    from repro_torch.parallel import logical_constraint, shard_params, sharding_ctx
+
+    arch = get_arch("arctic_480b")
+    n_layers, S = ARCTIC_PREFILL
+    cfg = dataclasses.replace(arch.model, n_layers=n_layers)
+    rules = arch_rules(arch)
+    params = lm.lm_init(cfg, 0, device=dev)
+    rng = np.random.default_rng(13)
+    toks = torch.as_tensor(rng.integers(2, cfg.vocab, (1, S)).astype(np.int32), device=dev)
+    reset_launch_counts()
+    want, caches = lm.lm_prefill(cfg, params, {"tokens": toks}, max_len=S + 16)
+    plain_counts = launch_counts()
+    del caches
+    shard_params(params, model_axes(cfg), mesh, rules)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    with sharding_ctx(mesh, rules.act):
+        got, caches = lm.lm_prefill(cfg, params, {"tokens": logical_constraint(
+            toks, "batch seq", mesh, rules)}, max_len=S + 16)
+    got = got.full_tensor()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    if not torch.equal(got, want):
+        raise AssertionError(f"phase 17 (c): arctic's prefill logits on the mesh differ by "
+                             f"{(got.float() - want.float()).abs().max().item()}")
+    if counts["flash_attention"] <= 0:
+        raise AssertionError("phase 17 (c): flash_attention was not launched on the mesh")
+    if counts != plain_counts:
+        raise AssertionError(f"phase 17 (c): launches on the mesh {counts} differ from those "
+                             f"without it {plain_counts}")
+    finite(got, "phase 17 (c) prefill")
+    print(f"{CARD}: phase 17 (c): arctic_480b cut to {n_layers} layers as phase 13 serves it: "
+          f"one {S}-token prefill over the (1, 1) mesh ({wall:.3f} s, DTensor parameters and KV "
+          "caches, flash_attention under local_map) with logits bit-equal to the same prefill "
+          "without the mesh")
+    print("phase 17 (c) launches:", json.dumps(counts))
+    del params, caches, got, want
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
 def main() -> int:
     import torch
 
@@ -3323,6 +3533,7 @@ def main() -> int:
     cache_counts, cache_runs = phase("5c", data_plane_phase, dev)
     grid_counts, grid = phase("5d", policy_grid_phase, dev)
     telemetry_counts = phase("5e", telemetry_phase, dev, fleet, fleet_counts, faults_off)
+    phase5 = {k: fleet[k] for k in ("params", "wls", "states")}   # phase 17 (a)
     del fleet
     phase(6, sim_launch_phase, run_counts, fleet_counts)
     *chaos_counts, chaos_run = phase("6b", chaos_phase, dev, faults_off)
@@ -3341,6 +3552,7 @@ def main() -> int:
     vlm_counts = phase(14, vlm_phase, dev)
     whisper_counts = phase(15, whisper_phase, dev)
     train_counts = phase(16, train_phase, dev)
+    dist_counts = phase(17, dist_phase, dev, phase5, faults_off)
     print(f"{CARD}: phase walls (s): " + json.dumps({str(k): round(v, 3) for k, v in walls.items()})
           + f", total {time.perf_counter() - t_all:.2f}")
 
@@ -3372,7 +3584,7 @@ def main() -> int:
     main_runs = (run_counts, fleet_counts, *replay_counts, *cache_counts, grid_counts,
                  *telemetry_counts, *chaos_counts, *overload_counts, rwkv_counts, gemma_counts,
                  jamba_counts, search_counts, *surface_counts, *zoo_counts, *vlm_counts,
-                 *whisper_counts, *train_counts)
+                 *whisper_counts, *train_counts, *dist_counts)
     rows = []
     for name in KERNELS:
         m = measured[name]

@@ -4,9 +4,9 @@ Every architecture of the JAX package registers an :class:`ArchSpec`
 from its own module (``configs/<id>.py``), its ``model`` and ``smoke``
 configs copied field for field from ``repro.configs.<id>`` (without
 ``attn_impl``), and the training fields (``optimizer``,
-``opt_state_dtype``, ``train_microbatches``, ``shapes``, ``skip``)
-copied from the same ``ArchSpec``. Its sharding overrides wait for
-ROADMAP queue 1, item 16.
+``opt_state_dtype``, ``train_microbatches``, ``shapes``, ``skip``,
+``rule_overrides``) copied from the same ``ArchSpec``. ``rule_overrides``
+amends the default sharding rules (``launch.lowering.arch_rules``).
 """
 from __future__ import annotations
 
@@ -28,6 +28,8 @@ class ArchSpec:
     train_microbatches: int = 4         # gradient-accumulation splits
     shapes: tuple[str, ...] = ALL_SHAPES
     skip: Mapping[str, str] = dataclasses.field(default_factory=dict)
+    # sharding-rule overrides, e.g. {"param": {"head_dim": ("model",)}}
+    rule_overrides: Mapping[str, Mapping] = dataclasses.field(default_factory=dict)
     notes: str = ""
 
     @property

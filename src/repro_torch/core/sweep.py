@@ -8,9 +8,13 @@ lane from ``workload_batch_from_traces``), in one engine loop; lane
 ``shard=`` resolves as the reference's does (``None`` one device,
 ``"auto"`` every local device, ``n`` the first n) against
 ``torch.cuda.device_count()``, a CPU run counting as one device. On one
-card the fleet runs whole; spreading it over several (with the lanes
-binned by event density, ``bin_lanes_by_density``, and padded to a
-multiple of the devices, ``pad_lanes``) is ROADMAP queue 1, item 16.
+device the fleet runs whole. Over n cards its lanes are binned by event
+density (``bin_lanes_by_density``), padded to a multiple of n
+(``pad_lanes``) and split into n contiguous blocks, the layout of the
+reference's ``P("fleet")``; block i runs on ``cuda:i``
+(``_fleet_sharded``), and the blocks' states are joined, unbinned and
+stripped of the padding. Lanes never interact, so lane i of a sharded
+run equals the unsharded run's bit for bit.
 ``fleet_summary`` aggregates a fleet's final states. With
 ``trace=True`` every lane records its events (``core/telemetry``) and
 ``fleet_run`` returns ``(states, traces)``. A fleet always runs the
@@ -136,12 +140,43 @@ def bin_lanes_by_density(wls: Workload, params: SimParams) -> tuple[Workload, np
     return tree_map(lambda x: x[index], wls), inv
 
 
-def _unbin_states(states: SimState, inv) -> SimState:
+def _unbin_states(states, inv):
     """Undo the binning permutation, dropping padding lanes (``inv``
     addresses only the real lanes, which binning sorted ahead of the
-    padding): one index per field."""
-    index = torch.as_tensor(inv, device=states.tick.device)
-    return SimState(*(x[index] for x in states))
+    padding): one index per field of ``states`` (a ``SimState``, or any
+    tree of lane-major tensors: the trace buffer rides along)."""
+    index = {}
+
+    def take(x):
+        if x.device not in index:
+            index[x.device] = torch.as_tensor(inv, device=x.device)
+        return x[index[x.device]]
+
+    return tree_map(take, states)
+
+
+def _fleet_sharded(params: SimParams, wls: Workload, key: str, devices: Sequence,
+                   capacity: int = 0):
+    """Run ``wls`` ``[F, ...]`` (F a multiple of ``len(devices)``) as
+    ``len(devices)`` contiguous blocks of lanes, block i on
+    ``devices[i]``; a device named more than once runs its blocks in
+    turn. Returns the joined states (and trace buffer with a positive
+    ``capacity``, else None) on ``devices[0]``, lanes in ``wls``'s order."""
+    n = len(devices)
+    F = wls.arrival.shape[0]
+    if n < 1 or F % n:
+        raise ValueError(f"{F} lanes do not split into {n} equal blocks")
+    width = F // n
+    states, tbufs = [], []
+    for i, dev in enumerate(devices):
+        block = workload_to(tree_map(lambda x: x[i * width:(i + 1) * width], wls), dev)
+        st, _, _, tb = run_lane_major_engine(params, block, key, capacity)
+        states.append(st)
+        tbufs.append(tb)
+    home = torch.device(devices[0])
+    join = lambda *xs: torch.cat([x.to(home) for x in xs])
+    return (tree_map(join, *states),
+            tree_map(join, *tbufs) if capacity else None)
 
 
 def _resolve_shards(shard, fleet_size: int, device: torch.device | None = None) -> int:
@@ -176,9 +211,9 @@ def fleet_run(
     batched final state (leading axis = lane), or ``(states, traces)``
     with ``trace=True``: ``traces`` one ``telemetry.TraceEvents`` a lane,
     of up to ``trace_capacity`` records (``DEFAULT_TRACE_CAPACITY`` when
-    None). ``shard`` resolves as in the reference; a fleet spread over
-    more than one device (where ``bin_lanes`` would bin its lanes first)
-    waits for ROADMAP queue 1, item 16."""
+    None). ``shard`` resolves as in the reference; over n > 1 cards the
+    lanes are binned first unless ``bin_lanes`` is False, and block i of
+    the padded fleet runs on ``cuda:i`` (``_fleet_sharded``)."""
     if (seeds is None) == (workloads is None):
         raise ValueError(
             "fleet_run needs exactly one of seeds= (generated lanes) or "
@@ -194,23 +229,36 @@ def fleet_run(
     if workloads is None:
         workloads = make_workload_batch(params, seeds)
     n_shards = _resolve_shards(shard, workloads.arrival.shape[0], device)
-    if n_shards > 1:
-        raise NotImplementedError(
-            f"shard={shard!r} spreads the fleet over {n_shards} devices: that waits "
-            "for ROADMAP queue 1, item 16 (distribution); one device runs it whole"
-        )
     if params.fault_trace_active and workloads.faults is None:
         # a caller's batch carries no traces: each lane's comes from
         # params.seed and its lane index
         workloads = attach_fault_traces(workloads, params)
     _check_workload(workloads, params)
-    wls = workload_to(workloads, device)
-    states, _, _, tbuf = run_lane_major_engine(
-        params, wls, scheduler_key or params.scheduling_algo, capacity
-    )
+    key = scheduler_key or params.scheduling_algo
+    if n_shards > 1:
+        states, tbuf = _fleet_spread(params, workloads, key, n_shards, bin_lanes, capacity)
+    else:
+        states, _, _, tbuf = run_lane_major_engine(params, workload_to(workloads, device), key,
+                                                   capacity)
     if capacity:
         return states, _decode_traces(tbuf)
     return states
+
+
+def _fleet_spread(params, wls, key, n_shards, bin_lanes, capacity):
+    """Bin, pad, run block i on ``cuda:i``, then unbin and strip the
+    padding: the reference's sharded branch."""
+    F = wls.arrival.shape[0]
+    inv = None
+    if bin_lanes:
+        wls, inv = bin_lanes_by_density(wls, params)
+    F_pad = -(-F // n_shards) * n_shards
+    devices = [torch.device("cuda", i) for i in range(n_shards)]
+    states, tbuf = _fleet_sharded(params, pad_lanes(wls, F_pad), key, devices, capacity)
+    if inv is not None:
+        # one gather: unpermute and strip the padding (binning put it last)
+        return _unbin_states((states, tbuf), inv)
+    return tree_map(lambda x: x[:F], (states, tbuf))
 
 
 def _decode_traces(tbuf):

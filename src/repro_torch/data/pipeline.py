@@ -1,5 +1,5 @@
 """Deterministic synthetic data pipeline with document packing, a port of
-``repro.data.pipeline`` without a mesh.
+``repro.data.pipeline``.
 
 Documents of random length are drawn from a seeded Zipf-ish unigram
 model and packed into fixed-length rows with EOS separators, by the JAX
@@ -7,7 +7,9 @@ package's own numpy generator (copied here: ``SeedSequence([seed,
 step])``), so the same ``(seed, step)`` gives the same arrays bit for bit
 in both packages, on every restart: what makes checkpoint / resume
 reproducible. ``make_batch_iterator`` puts each batch on the caller's
-device (CUDA unless the caller asks for the CPU).
+device (CUDA unless the caller asks for the CPU); over a device mesh each
+rank keeps its rows of the same global batch, a DTensor sharded on its
+batch dim over the mesh's batch axes (``"pod"``, ``"data"``).
 """
 from __future__ import annotations
 
@@ -60,14 +62,23 @@ class SyntheticLM:
         return out
 
 
-def make_batch_iterator(ds: SyntheticLM, start_step: int = 0, *,
-                        device="cuda") -> Iterator[dict[str, torch.Tensor]]:
+def make_batch_iterator(ds: SyntheticLM, start_step: int = 0, *, device="cuda", mesh=None,
+                        batch_axes: tuple[str, ...] = ("pod", "data"),
+                        ) -> Iterator[dict[str, torch.Tensor]]:
     """Yields the batches of ``start_step``, ``start_step + 1``, ... as
-    tensors on ``device``."""
+    tensors on ``device``; with a ``mesh``, as DTensors sharded on dim 0
+    over the ``batch_axes`` it has (each rank keeps its own rows)."""
     device = resolve_device(device)
     step = start_step
+    put = lambda t: t  # noqa: E731
+    if mesh is not None:
+        from ..parallel.sharding import distribute, mesh_axes, placements
+
+        axes = tuple(a for a in batch_axes if a in mesh_axes(mesh))
+        place = placements((axes,) if axes else (), mesh)
+        put = lambda t: distribute(t, mesh, place)  # noqa: E731
     while True:
-        yield {k: torch.from_numpy(v).to(device) for k, v in ds.batch_at(step).items()}
+        yield {k: put(torch.from_numpy(v).to(device)) for k, v in ds.batch_at(step).items()}
         step += 1
 
 

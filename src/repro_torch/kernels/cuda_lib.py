@@ -126,9 +126,12 @@ def require(
     device: torch.device,
 ) -> None:
     """Raise unless ``x`` is a contiguous ``dtype`` tensor of ``shape``
-    on ``device``: the kernels take nothing else."""
+    on ``device``, and not a DTensor: the kernels take nothing else."""
     if not isinstance(x, torch.Tensor):
         raise TypeError(f"{kernel}: {arg} must be a tensor, got {type(x)}")
+    if hasattr(x, "device_mesh"):
+        raise TypeError(f"{kernel}: {arg} is a DTensor; the kernels take each rank's local "
+                        "tensor (parallel.ctx.kernel_map)")
     if x.device != device:
         raise ValueError(f"{kernel}: {arg} is on {x.device}, expected {device}")
     if x.dtype != dtype:

@@ -15,6 +15,15 @@ decode included. One-token decode against a self-attention cache is
 Caches are updated in place (the JAX package returns new arrays): a
 cache belongs to its caller, and writing into it saves a copy of every
 layer's cache per step.
+
+Under a sharding context (``parallel.ctx``) the projections are
+constrained to their logical axes, as in the JAX package, and every
+kernel call (with the cache writes in front of it) runs on each rank's
+local tensors (``kernel_map``): batch over the batch axes, the heads
+over ``"model"`` when both head counts divide by it (the kv heads of
+MQA stay whole), sequence and head dim whole. A cache made under a
+context (``init_kv_cache``) is a DTensor of those placements, so that
+the writes land in its own shards.
 """
 from __future__ import annotations
 
@@ -23,6 +32,8 @@ from typing import NamedTuple
 import torch
 
 from ..kernels.flash_attention import NEG_INF, flash_attention
+from ..parallel.ctx import constrain, get_ctx, kernel_map, kernel_placements, model_size
+from ..parallel.sharding import distribute
 from .common import ModelConfig, dense_init, rotary
 
 
@@ -48,10 +59,30 @@ class KVCache(NamedTuple):
 
 def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int, device) -> KVCache:
     shape = (batch, max_len, cfg.n_kv_heads, cfg.hd)
-    return KVCache(
-        k=torch.zeros(shape, dtype=cfg.compute_dtype, device=device),
-        v=torch.zeros(shape, dtype=cfg.compute_dtype, device=device),
-    )
+
+    def zeros():
+        t = torch.zeros(shape, dtype=cfg.compute_dtype, device=device)
+        if get_ctx() is None or t.device.type == "meta":
+            return t
+        split, kv_dim = _head_split(cfg.n_heads, cfg.n_kv_heads)
+        return distribute(t, get_ctx()[0], kernel_placements(4, 0, kv_dim, batch, split))
+
+    return KVCache(k=zeros(), v=zeros())
+
+
+def _head_split(H: int, KV: int):
+    """(whether the heads split over ``"model"``, the kv operands' split
+    dim or None): both head counts must divide, or the kv heads be one
+    (MQA: kept whole)."""
+    m = model_size()
+    split = H % m == 0 and (KV % m == 0 or KV == 1)
+    return split, 2 if KV % m == 0 else None
+
+
+def _kernel(fn, q, *kv):
+    """``fn(q, *kv)`` -> [B, Sq, H, D] through ``kernel_map``."""
+    split, kv_dim = _head_split(q.shape[2], kv[0].shape[2])
+    return kernel_map(fn, (q, *kv), [(0, 2)] + [(0, kv_dim)] * len(kv), (4, 0, 2), split=split)
 
 
 def attn_apply(
@@ -71,10 +102,10 @@ def attn_apply(
     the fresh K/V are written into the cache in place (causal, as in the
     JAX package); otherwise the call attends over the K/V in flight (or
     ``kv_override``'s) and returns no cache."""
-    q = torch.einsum("bsd,dhn->bshn", x, p["wq"])
+    q = constrain(torch.einsum("bsd,dhn->bshn", x, p["wq"]), "batch seq heads head_dim")
     if kv_override is None:
-        k = torch.einsum("bsd,dkn->bskn", x, p["wk"])
-        v = torch.einsum("bsd,dkn->bskn", x, p["wv"])
+        k = constrain(torch.einsum("bsd,dkn->bskn", x, p["wk"]), "batch seq kv_heads head_dim")
+        v = constrain(torch.einsum("bsd,dkn->bskn", x, p["wv"]), "batch seq kv_heads head_dim")
         if use_rope:
             k = rotary(k, positions, cfg.rope_theta)
     else:
@@ -83,48 +114,52 @@ def attn_apply(
         q = rotary(q, positions, cfg.rope_theta)
 
     if cache is None or kv_override is not None:
-        y = flash_attention(q, k, v, causal=causal, window=window)
+        y = _kernel(lambda q, k, v: flash_attention(q, k, v, causal=causal, window=window),
+                    q, k, v)
         return torch.einsum("bshn,hnd->bsd", y, p["wo"]), None
 
-    S = x.shape[1]
     idx = int(cache_index)
-    if window > 0 and cache.k.shape[1] == window:
-        return _ring_cache_attend(p, q, k, v, cache, idx, S, window)
-    # plain cache: write the fresh K/V at cache_index
-    cache.k[:, idx:idx + S] = k.to(cache.k.dtype)
-    cache.v[:, idx:idx + S] = v.to(cache.v.dtype)
-    kv_len = idx + S
-    if S == 1:
-        y = decode_attention(q, cache.k, cache.v, kv_len=kv_len, window=window, q_pos=idx)
-    else:
-        y = flash_attention(q, cache.k, cache.v, causal=causal, window=window,
-                            q_offset=idx, kv_len=kv_len)
+    ring = window > 0 and cache.k.shape[1] == window
+    attend = _ring_cache_attend if ring else _cache_attend
+    y = _kernel(lambda q, k, v, ck, cv: attend(q, k, v, ck, cv, idx, window, causal),
+                q, k, v, cache.k, cache.v)
     return torch.einsum("bshn,hnd->bsd", y, p["wo"]), cache
 
 
-def _ring_cache_attend(p, q, k, v, cache, idx, S, window):
+def _cache_attend(q, k, v, ck, cv, idx, window, causal):
+    """Plain cache: write the fresh K/V at ``idx``, then attend over the
+    cache's first ``idx + S`` positions."""
+    S = q.shape[1]
+    ck[:, idx:idx + S] = k.to(ck.dtype)
+    cv[:, idx:idx + S] = v.to(cv.dtype)
+    kv_len = idx + S
+    if S == 1:
+        return decode_attention(q, ck, cv, kv_len=kv_len, window=window, q_pos=idx)
+    return flash_attention(q, ck, cv, causal=causal, window=window, q_offset=idx, kv_len=kv_len)
+
+
+def _ring_cache_attend(q, k, v, ck, cv, idx, window, causal):
     """Sliding-window layer with a ring-buffer cache of `window` slots.
     Slot j holds position p_j = idx' - ((idx' - j) mod W) for the newest
     idx'; masking by p_j >= 0 covers the not-yet-full phase, and every
     resident position is inside the window by construction."""
-    W = window
+    W, S = window, q.shape[1]
     if S == 1:
         slot = idx % W
-        cache.k[:, slot:slot + 1] = k.to(cache.k.dtype)
-        cache.v[:, slot:slot + 1] = v.to(cache.v.dtype)
+        ck[:, slot:slot + 1] = k.to(ck.dtype)
+        cv[:, slot:slot + 1] = v.to(cv.dtype)
         j = torch.arange(W, device=q.device)
         slot_pos = idx - torch.remainder(idx - j, W)          # in (idx-W, idx]
-        y = decode_attention(q, cache.k, cache.v, kv_len=idx + 1, window=W, q_pos=idx,
-                             slot_pos=slot_pos)
-        return torch.einsum("bshn,hnd->bsd", y, p["wo"]), cache
+        return decode_attention(q, ck, cv, kv_len=idx + 1, window=W, q_pos=idx,
+                                slot_pos=slot_pos)
     # prefill (from position 0, as in the JAX package): attend over the
     # in-flight K/V, then retire only the last `window` positions
     y = flash_attention(q, k, v, causal=True, window=W)
     start = max(S - W, 0)
     slots = torch.arange(start, S, device=q.device) % W
-    cache.k[:, slots] = k[:, start:].to(cache.k.dtype)
-    cache.v[:, slots] = v[:, start:].to(cache.v.dtype)
-    return torch.einsum("bshn,hnd->bsd", y, p["wo"]), cache
+    ck[:, slots] = k[:, start:].to(ck.dtype)
+    cv[:, slots] = v[:, start:].to(cv.dtype)
+    return y
 
 
 def decode_attention(q, k, v, *, kv_len, window=0, q_pos=0, slot_pos=None):

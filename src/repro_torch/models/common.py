@@ -3,8 +3,7 @@
 A copy of ``repro.models.common`` for PyTorch: the same ``LayerSpec``
 pattern (a short tuple of per-layer specs that repeats over the depth),
 the same ``ModelConfig`` fields, except ``attn_impl`` (the kernel is
-chosen by the device of the data alone, ``kernels/dispatch.py``) and the
-sharding knob ``seq_shard_decode`` (the port has no sharding); dtypes
+chosen by the device of the data alone, ``kernels/dispatch.py``); dtypes
 are ``torch`` dtypes. ``remat`` other than ``"none"`` recomputes each
 layer in the backward (``"full"`` and ``"dots"`` alike: the port keeps
 no saved products).
@@ -21,6 +20,8 @@ import math
 import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
+
+from ..parallel.ctx import checkpoint_kwargs
 
 
 @dataclasses.dataclass(frozen=True)
@@ -84,6 +85,10 @@ class ModelConfig:
     param_dtype: torch.dtype = torch.bfloat16
     compute_dtype: torch.dtype = torch.bfloat16
     remat: str = "full"         # "none" | "full" | "dots"
+    # sequence-parallel attention (shard seq over 'model' axis for
+    # norms/mlp): the reference's knob, which no model code of either
+    # package reads yet
+    seq_shard_decode: bool = False
 
     @property
     def hd(self) -> int:
@@ -117,14 +122,33 @@ class ModelConfig:
 def remat(cfg: ModelConfig, fn, *args):
     """``fn(*args)``, recomputed in the backward (``torch.utils.checkpoint``:
     only the inputs are kept) unless ``cfg.remat`` is "none" or grad is
-    off."""
+    off; under a sharding context the recomputation runs in it too."""
     if cfg.remat != "none" and torch.is_grad_enabled():
-        return checkpoint(fn, *args, use_reentrant=False)
+        return checkpoint(fn, *args, use_reentrant=False, **checkpoint_kwargs())
     return fn(*args)
 
 
 def param_count(module: torch.nn.Module) -> int:
     return sum(p.numel() for p in module.parameters())
+
+
+class _MetaGenerator:
+    """The ``generator`` of the ``meta`` device: draws carry shapes and
+    dtypes and no values."""
+
+    device = torch.device("meta")
+
+
+def generator(device, seed: int = 0):
+    """A ``torch.Generator`` on ``device`` seeded with ``seed`` (on
+    ``meta``, a stand-in without state)."""
+    if torch.device(device).type == "meta":
+        return _MetaGenerator()
+    return torch.Generator(device=device).manual_seed(int(seed))
+
+
+def _source(gen):
+    return None if isinstance(gen, _MetaGenerator) else gen
 
 
 def dense_init(gen: torch.Generator, shape, in_axis_size: int, dtype) -> torch.Tensor:
@@ -134,12 +158,12 @@ def dense_init(gen: torch.Generator, shape, in_axis_size: int, dtype) -> torch.T
 
 
 def normal(gen: torch.Generator, shape, scale: float, dtype) -> torch.Tensor:
-    x = torch.randn(tuple(shape), generator=gen, device=gen.device, dtype=torch.float32)
+    x = torch.randn(tuple(shape), generator=_source(gen), device=gen.device, dtype=torch.float32)
     return (x.mul_(scale)).to(dtype)
 
 
 def uniform(gen: torch.Generator, shape, dtype) -> torch.Tensor:
-    x = torch.rand(tuple(shape), generator=gen, device=gen.device, dtype=torch.float32)
+    x = torch.rand(tuple(shape), generator=_source(gen), device=gen.device, dtype=torch.float32)
     return x.to(dtype)
 
 
@@ -183,6 +207,7 @@ __all__ = [
     "RWKVConfig",
     "ModelConfig",
     "dense_init",
+    "generator",
     "normal",
     "param_count",
     "remat",

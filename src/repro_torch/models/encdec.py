@@ -33,9 +33,10 @@ import torch
 from torch import nn
 
 from ..core.engine import resolve_device
+from ..parallel.ctx import constrain, whole
 from .attention import attn_apply, attn_init, cross_attn_init, encode_kv, init_kv_cache
 from .blocks import _group, _param
-from .common import ModelConfig, normal, remat, rms_norm
+from .common import ModelConfig, generator, normal, remat, rms_norm
 from .lm import VIT_DIM
 from .mlp import mlp_apply, mlp_init
 
@@ -110,7 +111,7 @@ def encdec_init(cfg: ModelConfig, seed: int = 0, *, device="cuda") -> EncDec:
         raise ValueError(f"{cfg.name}: an encoder-decoder needs n_enc_layers > 0")
     cfg.validate()
     device = resolve_device(device)
-    gen = torch.Generator(device=device).manual_seed(int(seed))
+    gen = generator(device, seed)
     d, dt = cfg.d_model, cfg.param_dtype
     frontend_proj = normal(gen, (VIT_DIM, d), 0.02, dt)
     embed = normal(gen, (cfg.vocab, d), 0.02, dt)
@@ -175,7 +176,7 @@ def decode_train(cfg: ModelConfig, params: EncDec, tokens, enc_out):
     """The decoder over all of ``tokens`` [B, S] against ``enc_out``;
     returns the final-normed hidden states [B, S, d]."""
     B, S = tokens.shape
-    x = params.embed[tokens.long()].to(cfg.compute_dtype)
+    x = constrain(params.embed[tokens.long()].to(cfg.compute_dtype), "batch seq embed")
     x = x + sinusoidal(S, cfg.d_model, device=x.device)[None].to(x.dtype)
     positions = torch.arange(S, device=x.device)
     for layer in params.dec:
@@ -190,7 +191,7 @@ def encdec_loss(cfg: ModelConfig, params: EncDec, batch, vocab_chunk: int = 0):
     tokens = batch["tokens"]
     enc_out = _encode(cfg, params, batch["frontend_embeds"])
     h = decode_train(cfg, params, tokens, enc_out)
-    logits = torch.einsum("bsd,dv->bsv", h, params.head).to(torch.float32)
+    logits = whole(torch.einsum("bsd,dv->bsv", h, params.head).to(torch.float32), -1)
     labels = torch.cat([tokens[:, 1:], tokens[:, :1]], dim=1)
     B, S = tokens.shape
     mask = torch.cat([torch.ones((B, S - 1), dtype=torch.float32, device=h.device),
@@ -217,7 +218,7 @@ def encdec_prefill(cfg: ModelConfig, params: EncDec, batch: dict, max_dec: int):
     enc_out = encode(cfg, params, batch["frontend_embeds"])
     tokens = batch["tokens"]
     B, S = tokens.shape
-    x = params.embed[tokens.long()].to(cfg.compute_dtype)
+    x = constrain(params.embed[tokens.long()].to(cfg.compute_dtype), "batch seq embed")
     x = x + sinusoidal(S, cfg.d_model, device=x.device)[None].to(x.dtype)
     positions = torch.arange(S, device=x.device)
     self_kv, cross_kv = [], []
@@ -235,7 +236,7 @@ def encdec_decode_step(cfg: ModelConfig, params: EncDec, caches: EncDecCaches,
                        token: torch.Tensor, pos: int):
     """One decode step. token [B] int; pos = #tokens already cached.
     Returns (logits [B, V] f32, caches)."""
-    x = params.embed[token[:, None].long()].to(cfg.compute_dtype)
+    x = constrain(params.embed[token[:, None].long()].to(cfg.compute_dtype), "batch seq embed")
     x = x + sinusoidal(1, cfg.d_model, offset=int(pos), device=x.device)[None].to(x.dtype)
     positions = torch.full((1,), int(pos), dtype=torch.int64, device=x.device)
     self_kv = []

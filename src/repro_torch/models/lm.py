@@ -26,8 +26,9 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..core.engine import resolve_device
+from ..parallel.ctx import checkpoint_kwargs, constrain, whole
 from .blocks import Block, _param, block_apply, block_init, init_block_cache
-from .common import ModelConfig, normal, remat, rms_norm
+from .common import ModelConfig, generator, normal, remat, rms_norm
 
 
 VIT_DIM = 1024  # stubbed vision/audio frontend embedding width
@@ -59,7 +60,7 @@ def lm_init(cfg: ModelConfig, seed: int = 0, *, device="cuda") -> LM:
     caller asks for the CPU), with the scales of the JAX init."""
     cfg.validate()
     device = resolve_device(device)
-    gen = torch.Generator(device=device).manual_seed(int(seed))
+    gen = generator(device, seed)
     embed = normal(gen, (cfg.vocab, cfg.d_model), 0.02, cfg.param_dtype)
     final_norm = torch.zeros((cfg.d_model,), dtype=torch.float32, device=device)
     head = None if cfg.tie_embeddings else normal(gen, (cfg.d_model, cfg.vocab), 0.02, cfg.param_dtype)
@@ -84,7 +85,7 @@ def _embed(cfg: ModelConfig, params: LM, batch: dict) -> torch.Tensor:
                           params.frontend_proj)
         n_img = fe.shape[1]
         x = torch.cat([fe, x[:, n_img:]], dim=1)
-    return x
+    return constrain(x, "batch seq embed")
 
 
 def _stack_apply(cfg: ModelConfig, params: LM, x, *, positions, mode: str, caches=None,
@@ -102,6 +103,7 @@ def _stack_apply(cfg: ModelConfig, params: LM, x, *, positions, mode: str, cache
             x, nc, a = block_apply(cfg, block, x, positions=positions, mode=mode,
                                    cache=caches[i], cache_index=cache_index)
             new_caches.append(nc)
+        x = constrain(x, "batch seq embed")
         aux = aux + a
     return x, None if mode == "train" else new_caches, aux
 
@@ -120,7 +122,7 @@ def _logits(cfg: ModelConfig, params: LM, h: torch.Tensor) -> torch.Tensor:
 def _chunk_ce(h, w, labels, mask):
     """Sum of (lse - gold) * mask and of mask over one chunk of positions;
     the bf16 product is cast to f32 afterwards, as in the JAX package."""
-    logits = torch.einsum("bsd,dv->bsv", h, w).to(torch.float32)
+    logits = whole(torch.einsum("bsd,dv->bsv", h, w).to(torch.float32), -1)
     lse = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
     return torch.sum((lse - gold) * mask), torch.sum(mask)
@@ -149,7 +151,7 @@ def lm_loss(cfg: ModelConfig, params: LM, batch: dict, *, vocab_chunk: int = 0) 
         for start in range(0, S, vocab_chunk):
             part = slice(start, start + vocab_chunk)
             s, c = checkpoint(_chunk_ce, h[:, part], w, labels[:, part], mask[:, part],
-                              use_reentrant=False)
+                              use_reentrant=False, **checkpoint_kwargs())
             tot, cnt = tot + s, cnt + c
     else:
         tot, cnt = _chunk_ce(h, w, labels, mask)

@@ -19,6 +19,7 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels.rwkv6_scan import rwkv6_decode_step, rwkv6_scan
+from ..parallel.ctx import constrain, kernel_map, model_size
 from .common import ModelConfig, dense_init, normal, rms_norm, uniform
 
 
@@ -90,10 +91,11 @@ def _time_mix_inputs(cfg, p, x, shifted):
         for i in range(5)
     )
     B, S, d = x.shape
-    r = torch.einsum("bsd,dhn->bshn", xr, p["wr"])
-    k = torch.einsum("bsd,dhn->bshn", xk, p["wk"])
-    v = torch.einsum("bsd,dhn->bshn", xv, p["wv"])
-    g = torch.einsum("bsd,dhn->bshn", xg, p["wg"])
+    hax = "batch seq heads head_dim"
+    r = constrain(torch.einsum("bsd,dhn->bshn", xr, p["wr"]), hax)
+    k = constrain(torch.einsum("bsd,dhn->bshn", xk, p["wk"]), hax)
+    v = constrain(torch.einsum("bsd,dhn->bshn", xv, p["wv"]), hax)
+    g = constrain(torch.einsum("bsd,dhn->bshn", xg, p["wg"]), hax)
     # data-dependent decay (log-space LoRA), f32
     wl = torch.tanh(torch.einsum("bsd,dl->bsl", xw, p["w_lora1"]).to(torch.float32))
     logw_in = p["w_base"][0][None, None, :] + torch.einsum("bsl,ld->bsd", wl, p["w_lora2"])
@@ -131,7 +133,11 @@ def rwkv_apply(
     xn = rms_norm(x, n1, cfg.norm_eps)
     shifted = _token_shift(xn, state.shift_t)
     r, k, v, g, w = _time_mix_inputs(cfg, p, xn, shifted)
-    out, wkv = rwkv6_scan(r, k, v, w, p["u"], state.wkv, chunk=cfg.rwkv.chunk)
+    # the kernel on each rank's batch rows (and heads over "model")
+    out, wkv = kernel_map(
+        lambda r, k, v, w, u, s0: rwkv6_scan(r, k, v, w, u, s0, chunk=cfg.rwkv.chunk),
+        (r, k, v, w, p["u"], state.wkv), [(0, 2)] * 4 + [(None, 0), (0, 1)],
+        [(4, 0, 2), (4, 0, 1)], split=r.shape[2] % model_size() == 0)
     x1 = x + _time_mix_out(cfg, p, out, g)
     xc = rms_norm(x1, n2, cfg.norm_eps)
     shifted_c = _token_shift(xc, state.shift_c)

@@ -20,6 +20,7 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels.ssm_scan import ssm_decode_step, ssm_scan
+from ..parallel.ctx import constrain, kernel_map, model_size
 from .common import ModelConfig, dense_init, uniform
 
 
@@ -105,14 +106,20 @@ def mamba_apply(
     """Full-sequence mixer from ``state`` (None: the zero state, as every
     prefill of the JAX package starts). Returns (out [B,S,d], the state
     after x)."""
-    xz = torch.einsum("bsd,de->bse", x, p["in_proj"])
+    xz = constrain(torch.einsum("bsd,de->bse", x, p["in_proj"]), "batch seq ff")
     xi, z = torch.chunk(xz, 2, dim=-1)               # [B,S,di] each
     xi, conv_tail = _causal_conv(xi, p["conv_w"], p["conv_b"],
                                  None if state is None else state.conv)
     xi = F.silu(xi.to(torch.float32)).to(x.dtype)
     dt, A, B_in, C_in = _ssm_inputs(cfg, p, xi)
     h0 = None if state is None else state.h
-    y, h = ssm_scan(xi, dt, A, B_in, C_in, p["D"], h0, chunk=cfg.mamba.chunk)
+    # the kernel on each rank's batch rows (and channels over "model")
+    y, h = kernel_map(
+        lambda xi, dt, A, B_in, C_in, D, h0: ssm_scan(xi, dt, A, B_in, C_in, D, h0,
+                                                      chunk=cfg.mamba.chunk),
+        (xi, dt, A, B_in, C_in, p["D"], h0),
+        [(0, 2), (0, 2), (None, 0), (0, None), (0, None), (None, 0), None if h0 is None else (0, 1)],
+        [(3, 0, 2), (3, 0, 1)], split=xi.shape[2] % model_size() == 0)
     y = y * F.silu(z.to(torch.float32)).to(y.dtype)
     out = torch.einsum("bse,ed->bsd", y, p["out_proj"])
     return out, MambaState(h=h, conv=conv_tail)

@@ -16,11 +16,14 @@ from typing import NamedTuple
 
 import torch
 from torch import nn
+from torch.distributed.tensor import DTensor
 
 from ..models import encdec as ed
 from ..models import lm
 from ..models.common import ModelConfig
 from ..optim.optimizers import OptConfig, OptState, make_optimizer
+from ..parallel.ctx import sharding_ctx
+from ..parallel.sharding import gathered_params
 
 
 class TrainState(NamedTuple):
@@ -76,11 +79,10 @@ def stacked_leaves(cfg: ModelConfig, names) -> dict:
 
 
 def make_train_step(cfg: ModelConfig, opt_cfg: OptConfig, microbatches: int = 1, *,
-                    device="cuda"):
+                    device="cuda", mesh=None, rules=None):
     """Returns (init_fn(seed) -> TrainState, step_fn(state, batch) ->
     (state, metrics)). The JAX package's ``init_fn`` also returns the
-    parameters' sharding axes, which the port has none of (ROADMAP item
-    16).
+    parameters' sharding axes; the port's are ``models.axes.model_axes``.
 
     ``step_fn`` takes the gradient of ``loss_fn`` and applies the
     optimizer to the parameters in place; ``metrics`` holds ``loss``,
@@ -90,6 +92,15 @@ def make_train_step(cfg: ModelConfig, opt_cfg: OptConfig, microbatches: int = 1,
     ``torch.autograd.grad``) are added into f32 accumulators in order,
     as the JAX package's scan adds them into its f32 ``g0``, and the
     sums and the losses' sum are divided by M.
+
+    With a ``mesh`` (and the ``ShardingRules`` of the architecture) the
+    state holds DTensors (``runtime.train_loop``) and the batch is
+    sharded over the batch axes: the step runs under the sharding
+    context of ``rules.act``, each parameter sharded over a data axis
+    gathered whole for the compute (``parallel.sharding.
+    gathered_params``: FSDP), its gradient reduced back onto its shards
+    and the optimizer applied to each rank's shards. The metrics are
+    plain tensors, the same on every rank.
     """
     opt_init, opt_update = make_optimizer(opt_cfg)
 
@@ -99,12 +110,22 @@ def make_train_step(cfg: ModelConfig, opt_cfg: OptConfig, microbatches: int = 1,
         return TrainState(params=params, opt=opt_init(opt_cfg, named, stacked_leaves(cfg, named)))
 
     def step_fn(state: TrainState, batch: dict):
+        if mesh is None:
+            return _step(state, batch)
+        with sharding_ctx(mesh, rules.act):
+            state, metrics = _step(state, batch)
+        return state, {k: v.full_tensor() if isinstance(v, DTensor) else v
+                       for k, v in metrics.items()}
+
+    def _step(state: TrainState, batch: dict):
         named = dict(state.params.named_parameters())
         leaves = list(named.values())
 
         def grads_of(b):
-            loss = loss_fn(cfg, state.params, b)
-            g = torch.autograd.grad(loss, leaves, allow_unused=True)
+            # the backward's recomputation reads the gathered parameters too
+            with gathered_params(state.params):
+                loss = loss_fn(cfg, state.params, b)
+                g = torch.autograd.grad(loss, leaves, allow_unused=True)
             # a parameter the batch does not reach (a frontend without
             # embeddings) has a zero gradient, as in the JAX package
             return loss.detach(), [torch.zeros_like(p) if gi is None else gi
@@ -116,7 +137,7 @@ def make_train_step(cfg: ModelConfig, opt_cfg: OptConfig, microbatches: int = 1,
                    for k, p in parts.items()):
                 raise ValueError(f"the batch does not split into {microbatches} equal microbatches")
             loss_sum = torch.zeros((), dtype=torch.float32, device=leaves[0].device)
-            g_sum = [torch.zeros(p.shape, dtype=torch.float32, device=p.device) for p in leaves]
+            g_sum = [torch.zeros_like(p, dtype=torch.float32) for p in leaves]
             for i in range(microbatches):
                 loss, g = grads_of({k: p[i] for k, p in parts.items()})
                 for acc, gi in zip(g_sum, g):

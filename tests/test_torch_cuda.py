@@ -1193,6 +1193,58 @@ def test_scan_models_loss_grads_on_the_card_match_the_cpu(cuda, name):
         assert (g - want[n]).norm() <= tol * want[n].norm() + 1e-7, n
 
 
+@pytest.mark.cuda
+def test_sharded_fleet_blocks_on_the_card_match_the_cpu_port(cuda):
+    """``_fleet_sharded`` on five lanes padded to six, three blocks in
+    turn on the card: lane for lane equal to the CPU port's unsharded
+    fleet, every simulator kernel launched."""
+    from repro_torch.core import sweep
+
+    params = SimParams(duration=0.05, max_pipelines=32, max_containers=32, num_pools=2,
+                       scheduling_algo="priority_pool", waiting_ticks_mean=300.0,
+                       op_base_seconds_mean=0.005)
+    wls = make_workload_batch(params, list(range(5)))
+    binned, inv = sweep.bin_lanes_by_density(wls, params)
+    reset_launch_counts()
+    states, _ = sweep._unbin_states(sweep._fleet_sharded(
+        params, sweep.pad_lanes(binned, 6), params.scheduling_algo, [cuda] * 3), inv)
+    counts = launch_counts()
+    want = fleet_run(params, workloads=wls, device="cpu")
+    assert all(counts[name] > 0 for name in SIM_KERNELS), counts
+    for name in want._fields:
+        assert torch.equal(getattr(states, name).cpu(), getattr(want, name)), name
+
+
+@pytest.mark.cuda
+def test_training_step_over_a_one_rank_mesh_matches_no_mesh(cuda, tmp_path):
+    """``run_training`` of phi3's smoke config over a (1, 1) mesh of a
+    one-rank ``nccl`` group, 1,024 tokens a row (two chunks of the cross
+    entropy, each recomputed in the backward on the autograd engine's
+    device thread) in two microbatches: losses bit-equal to ``mesh=None``
+    on the card, and the attention kernels launched as often."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.runtime import run_training
+
+    arch = get_arch("phi3_mini_3p8b")
+    kw = dict(steps=2, device=cuda, global_batch=4, seq_len=1024, microbatches=2)
+    reset_launch_counts()
+    want = run_training(arch, **kw)
+    plain = launch_counts()
+    dist.init_process_group("nccl", store=dist.FileStore(str(tmp_path / "store"), 1), rank=0,
+                            world_size=1)
+    try:
+        reset_launch_counts()
+        got = run_training(arch, mesh=make_host_mesh(1, 1), **kw)
+        meshed = launch_counts()
+    finally:
+        dist.destroy_process_group()
+    assert got.losses == want.losses
+    assert meshed["flash_attention"] == plain["flash_attention"] > 0
+    assert meshed["flash_attention_bwd"] == plain["flash_attention_bwd"] > 0
+
+
 # every decoder-only architecture of the registry (all but the audio family)
 SERVED_SMOKE = [name for name in list_archs() if get_arch(name).model.family != "audio"]
 

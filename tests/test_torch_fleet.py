@@ -189,7 +189,9 @@ def test_shard_resolves_as_the_reference_on_one_device():
 
 def test_shards_count_the_cards(monkeypatch):
     """``_resolve_shards`` against the CUDA device count (a CPU run is one
-    device); a fleet spread over several cards waits for item 16."""
+    device); a fleet spread over four cards hands ``cuda:0`` .. ``cuda:3``
+    to ``_fleet_sharded`` (run here as CPU blocks) and equals the whole
+    fleet."""
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
     cuda = torch.device("cuda")
     assert sweep._resolve_shards("auto", 64, cuda) == 4
@@ -199,9 +201,21 @@ def test_shards_count_the_cards(monkeypatch):
     assert sweep._resolve_shards("auto", 64, torch.device("cpu")) == 1
     with pytest.raises(ValueError, match="only 4 are local"):
         sweep._resolve_shards(8, 64, cuda)
+    params = SimParams(**_kw())
+    whole = state_to_arrays(fleet_run(params, seeds=[0, 1, 2, 3, 4], device="cpu"))
     monkeypatch.setattr(sweep, "resolve_device", lambda device: cuda)
-    with pytest.raises(NotImplementedError, match="item 16"):
-        fleet_run(SimParams(**_kw()), seeds=[0, 1], shard="auto")
+    asked = []
+    real = sweep._fleet_sharded
+
+    def on_cpu(params, wls, key, devices, capacity=0):
+        asked.extend(devices)
+        return real(params, wls, key, [torch.device("cpu")] * len(devices), capacity)
+
+    monkeypatch.setattr(sweep, "_fleet_sharded", on_cpu)
+    got = state_to_arrays(fleet_run(params, seeds=[0, 1, 2, 3, 4], shard="auto"))
+    assert asked == [torch.device("cuda", i) for i in range(4)]
+    for name, want in whole.items():
+        np.testing.assert_array_equal(got[name], want, err_msg=name)
 
 
 def test_engine_throughput_fleet_matches_the_reference():

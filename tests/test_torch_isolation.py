@@ -7,8 +7,9 @@ not ported yet.
 * The entry points run on CUDA unless the caller asks for the CPU, and
   without a card the default raises instead of running on the CPU.
 * Every optional layer of a later slice raises ``NotImplementedError``
-  naming its ROADMAP item, never a silent fallback (training over a
-  device mesh, item 16; a gradient through attention's cache path); the layer kinds that
+  naming its ROADMAP item, never a silent fallback (a gradient through
+  attention's cache path, once; a device mesh needs a started process
+  group, and a fleet over several cards runs block by block); the layer kinds that
   a slice has ported run (the chaos layer's, the data plane's and the
   overload layer's knobs, every registered scheduler, every
   architecture of the registry and the stubbed frontends, among them).
@@ -190,9 +191,10 @@ def test_fleet_options_of_later_slices_raise(kwargs, item, monkeypatch):
     """A fleet runs the event engine whatever ``params.engine`` says, as
     the reference's does (item 14 ported the Python engine to ``run``
     alone): its states and traces equal the event engine's. A fleet over
-    several cards (item 16) raises, traced or not; a fleet over two cards
-    is asked of a machine that reports two, and refused before any work
-    on them."""
+    several cards (item 16, once refused) runs: a traced fleet over two
+    cards, asked of a machine that reports two, runs its blocks on
+    ``cuda:0`` and ``cuda:1`` (CPU blocks here), and its states and
+    traces equal the whole fleet's."""
     kwargs = dict(kwargs)
     params = _small(engine=kwargs.pop("engine", "event"), waiting_ticks_mean=50.0,
                     op_base_seconds_mean=0.002)
@@ -205,13 +207,24 @@ def test_fleet_options_of_later_slices_raise(kwargs, item, monkeypatch):
         assert [t.counts_by_kind() for t in traces] == [t.counts_by_kind() for t in want_traces]
         assert int(states.done_count.sum()) > 0
         return
-    device = "cpu"
-    if "shard" in kwargs:
-        monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
-        monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
-        device = "cuda"
-    with pytest.raises(NotImplementedError, match=item):
-        fleet_run(params, seeds=[0, 1], device=device, **kwargs)
+    from repro_torch.core import sweep
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    asked, real = [], sweep._fleet_sharded
+
+    def on_cpu(params, wls, key, devices, capacity=0):
+        asked.extend(devices)
+        return real(params, wls, key, [torch.device("cpu")] * len(devices), capacity)
+
+    monkeypatch.setattr(sweep, "_fleet_sharded", on_cpu)
+    states, traces = fleet_run(params, seeds=[0, 1, 2], device="cuda", **kwargs)
+    assert asked == [torch.device("cuda", 0), torch.device("cuda", 1)]
+    want, want_traces = fleet_run(params, seeds=[0, 1, 2], device="cpu", trace=True)
+    for name in states._fields:
+        assert torch.equal(getattr(states, name), getattr(want, name)), name
+    assert [t.counts_by_kind() for t in traces] == [t.counts_by_kind() for t in want_traces]
+    assert int(states.done_count.sum()) > 0
 
 
 def test_run_trace_raises():
@@ -264,14 +277,20 @@ def test_mamba_and_moe_layers_raise(spec):
         check_spec(LayerSpec(spec[0], "no_such_mlp"))
 
 
-def test_training_over_a_mesh_waits_for_item_16():
-    """``run_training(mesh=...)`` (the elastic re-mesh) raises, naming
-    ROADMAP item 16, before anything is drawn."""
-    from repro_torch.configs import get_arch
-    from repro_torch.runtime import run_training
+def test_training_over_a_mesh_needs_a_process_group():
+    """``run_training(mesh=...)`` runs (item 16) over a ``DeviceMesh``,
+    which ``make_host_mesh`` and ``make_production_mesh`` make only over
+    a started process group: without one they raise, naming
+    ``init_process_group``, before anything is drawn; a mesh's lowering
+    to a dry run waits for item 16 (d)."""
+    from repro_torch.launch import lowering
+    from repro_torch.launch.mesh import make_host_mesh, make_production_mesh
 
-    with pytest.raises(NotImplementedError, match="item 16"):
-        run_training(get_arch("phi3_mini_3p8b"), steps=1, mesh=object(), device="cpu")
+    for build in (make_host_mesh, make_production_mesh):
+        with pytest.raises(RuntimeError, match="init_process_group"):
+            build()
+    with pytest.raises(NotImplementedError, match=r"item 16 \(d\)"):
+        lowering.lower_cell(None, "train_4k", None)
 
 
 @pytest.mark.parametrize("call", ["q_offset", "kv_len"])

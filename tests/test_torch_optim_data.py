@@ -225,3 +225,18 @@ def test_async_save_snapshots_at_the_call(tmp_path):
     assert not list(pathlib.Path(tmp_path).glob("*.tmp"))
     restored, _ = restore_checkpoint(tmp_path, _state(0), step=11)
     _assert_state_equal(restored, want)
+
+
+def test_async_save_of_one_process_commits_on_the_writer_thread(tmp_path):
+    """One process: the written step is visible under its final name as
+    soon as the writer thread ends, with no ``wait``; gc runs there too."""
+    mgr = CheckpointManager(tmp_path, keep=1)
+    mgr.save(_state(0), 0)
+    mgr.async_save(_state(5), 5)
+    mgr._thread.join()
+    assert latest_step(tmp_path) == 5
+    assert sorted(p.name for p in pathlib.Path(tmp_path).iterdir()) == ["step_00000005"]
+    restored, _ = restore_checkpoint(tmp_path, _state(0))
+    _assert_state_equal(restored, _state(5))
+    mgr.wait()
+    assert mgr.latest_step() == 5
