@@ -120,10 +120,11 @@ Phases, in order; any failure raises and the script exits non-zero:
    admissions and defers above 0, sheds and client retries printed (0:
    the client cap keeps the threshold from binding); (b)
    ``benchmarks/scheduler_comparison.py``'s ``overload_comparison``: 8
-   ``retry_storm`` lanes (seed 11, surge 6, a 0.06 s tape in 0.08 s, two
-   early outages, clients that retry 3 times) under ``admit_all``,
-   ``queue_threshold``, ``token_bucket`` and ``codel``, on the JAX
-   package's fault traces (``tests/captures/torch_overload_reference.json``),
+   ``retry_storm`` lanes (seed 11, surge 6, a 0.03 s tape in 0.04 s: half
+   the benchmark's horizon, two early outages, clients that retry 3
+   times) under ``admit_all``, ``queue_threshold``, ``token_bucket`` and
+   ``codel``, on the JAX package's fault traces
+   (``tests/captures/torch_overload_reference_half.json``),
    each arm on CUDA with its first 2 lanes against the CPU port and its
    row (offered, admitted, shed, deferred, client retries, goodput,
    drained and metastable lanes) equal to the reference's from the same
@@ -252,14 +253,10 @@ import numpy as np
 ROOT = pathlib.Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-# H100 SXM data sheet: HBM3 rate, the f32 / int32 rate of the CUDA cores
-# and the dense bf16 tensor-core rate; the special-function units' exp
-# rate, 16 per SM per clock on 132 SMs at the 1.98 GHz boost clock
-HBM_BYTES_PER_S = 3.35e12
-CORE_OPS_PER_S = 67e12
-BF16_TENSOR_OPS_PER_S = 989e12
-TF32_TENSOR_OPS_PER_S = 495e12
-SFU_EXP_PER_S = 16 * 132 * 1.98e9
+# the H100's rates and the kernels' work by shape are the port's
+# (repro_torch.roofline.hw, repro_torch.roofline.kernels), imported where
+# they are used: the script exits before any import of the port where
+# the checkout is missing
 F, MC, MP, K = 64, 64, 256, 16
 
 # fields that are sums taken in another order than the reference's
@@ -670,15 +667,6 @@ def rwkv_inputs(rng, dev, S: int, H: int = 64, N: int = 64):
             torch.tensor(rng.standard_normal((1, H, N, N)) * 0.1, dtype=torch.float32, device=dev))
 
 
-def rwkv_ops(S: int, chunk: int, H: int = 64, N: int = 64) -> float:
-    """f32 operations of the chunked scan for one sequence: per chunk and
-    head the strict-lower C x C product and its V product, (r E) S and
-    the state carry, two operations per multiply-add."""
-    C = min(chunk, S)
-    n_chunks = math.ceil(S / C)
-    return 2.0 * n_chunks * H * (C * (C - 1) * N + 2 * C * N * N)
-
-
 def rwkv_grad_inputs(gen, dev, S: int, H: int = 64, N: int = 64):
     """``rwkv_inputs``'s distributions drawn on the card from the torch
     generator ``gen`` (the host's numpy takes seconds for these sizes),
@@ -716,37 +704,6 @@ def ssm_grad_inputs(gen, dev, S: int, dim: int = 16384, N: int = 16):
             -torch.exp(uniform(0.0, math.log(16.0), dim, N)), normal(1, S, N).to(bf),
             normal(1, S, N).to(bf), torch.ones(dim, device=dev), normal(1, dim, N, scale=0.1),
             normal(1, S, dim).to(bf), normal(1, dim, N))
-
-
-def rwkv_bwd_ops(S: int, chunk: int, H: int = 64, N: int = 64) -> float:
-    """f32 operations of the chunked scan's backward for one sequence:
-    per chunk and head the N x N products d(rE)'s dO S_in^T, V dS_out^T
-    and dV's (k/E'.E_C) dS_out, and the carry's (r E)^T dO, then A, dA
-    and the products with them on the strict lower triangle (five of
-    C (C - 1) / 2 N), two operations per multiply-add."""
-    C = min(chunk, S)
-    n_chunks = math.ceil(S / C)
-    return 2.0 * n_chunks * H * (4 * C * N * N + 2.5 * C * (C - 1) * N)
-
-
-def rwkv_bwd_bound(S: int, chunk: int, H: int = 64, N: int = 64, bf16: bool = True):
-    """The operations bound of ``rwkv6_scan_bwd`` as its kernels run them:
-    the carry's (r E)^T dO on the CUDA cores in f32, and with bf16 inputs
-    the intra kernel's products on the tensor cores in TF32 (f32 inputs:
-    all on the CUDA cores); (operations, rate) pairs whose times add."""
-    C = min(chunk, S)
-    carry = 2.0 * math.ceil(S / C) * H * C * N * N
-    rest = rwkv_bwd_ops(S, chunk, H, N) - carry
-    return [(carry, CORE_OPS_PER_S), (rest, TF32_TENSOR_OPS_PER_S if bf16 else CORE_OPS_PER_S)]
-
-
-def bound_ms_of(spec) -> float:
-    """ms of a bound: (count, rate), or a list of such pairs whose times add."""
-    return sum(count / rate for count, rate in (spec if isinstance(spec, list) else [spec])) * 1e3
-
-
-def count_of(spec) -> float:
-    return sum(count for count, _ in (spec if isinstance(spec, list) else [spec]))
 
 
 def ssm_inputs(rng, dev, S: int, dim: int = 16384, N: int = 16):
@@ -849,7 +806,10 @@ def check_kernels(dev) -> dict:
     from repro_torch.kernels.state_update import (
         assign_gather, assign_gather_ref, retire_land, retire_land_ref,
     )
+    from repro_torch.roofline import kernels as work
+    from repro_torch.roofline.hw import CORE_OPS_PER_S, HBM_BYTES_PER_S
 
+    bf16 = torch.bfloat16
     rng = np.random.default_rng(0)
     sel_rng = np.random.default_rng(19)
     # name, label, kernel, plain, bytes in, {bound: (count, rate)} beside
@@ -958,7 +918,7 @@ def check_kernels(dev) -> dict:
 
         cases.append(("rwkv6_scan", f"B=1 S={S} H=64 N=64 chunk=32 bf16",
                       lambda a=a: rwkv6_scan(*a, chunk=32), plain, a,
-                      {"operations": (rwkv_ops(S, 32), CORE_OPS_PER_S)}, None,
+                      work.rwkv6_scan(1, S, 64, 64, 32, bf16), None,
                       (LM_TOL["bf16"], LM_TOL["f32"])))
 
     # gemma3_12b prefill: H = 16, KV = 8, D = 256, 2048 tokens; the local
@@ -975,7 +935,6 @@ def check_kernels(dev) -> dict:
         kw = dict(causal=True, window=window, q_offset=0, kv_len=kv_len)
         n_keys = Skv if kv_len is None else kv_len
         mask = attn_mask(2048, Skv, window, 0, n_keys, dev)
-        visible = int(mask.sum().item())
         # the keys that this run's queries see: rows below kv_len
         needed = (q, k[:, :n_keys], v[:, :n_keys])
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
@@ -986,7 +945,7 @@ def check_kernels(dev) -> dict:
         cases.append(("flash_attention", f"B=1 Sq=2048 H={H} KV={KV} D={D} {label} bf16",
                       lambda q=q, k=k, v=v, kw=kw: flash_attention(q, k, v, **kw),
                       lambda q=q, k=k, v=v, kw=kw: flash_attention_ref(q, k, v, **kw),
-                      needed, {"operations": (4.0 * H * visible * D, BF16_TENSOR_OPS_PER_S)},
+                      needed, work.flash_attention(1, 2048, Skv, H, KV, D, bf16, **kw),
                       library, (LM_TOL["bf16"],), {"represent": H == 16, "norm_tol": ATTN_NORM_TOL}))
     # the rest of the zoo: phi3's head width 96, granite's 48 heads on one
     # KV head against its cache, whisper's encoder (not causal, 1,500 and
@@ -999,7 +958,6 @@ def check_kernels(dev) -> dict:
         n_keys = Skv if kv_len is None else kv_len
         # an unmasked call needs no mask: the library runs without one
         mask = None if not causal and n_keys == Skv else attn_mask(Sq, Skv, 0, 0, n_keys, dev, causal)
-        visible = B * (Sq * n_keys if mask is None else int(mask.sum().item()))
         needed = (q, k[:, :n_keys], v[:, :n_keys])
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
 
@@ -1016,7 +974,7 @@ def check_kernels(dev) -> dict:
         cases.append(("flash_attention", f"B={B} Sq={Sq} Skv={Skv} H={H} KV={KV} D={D} {label} bf16",
                       lambda q=q, k=k, v=v, kw=kw: flash_attention(q, k, v, **kw),
                       lambda q=q, k=k, v=v, kw=kw, r=rows: flash_attention_ref(q[:, :r], k, v, **kw),
-                      needed, {"operations": (4.0 * H * visible * D, BF16_TENSOR_OPS_PER_S)},
+                      needed, work.flash_attention(B, Sq, Skv, H, KV, D, bf16, **kw),
                       library, (LM_TOL["bf16"],), extra))
 
     # the attention backward of training (phase 16's path): each case's
@@ -1044,7 +1002,6 @@ def check_kernels(dev) -> dict:
         ins = (q, k, v, out, lse, dout)
         mask = None if not causal and window == 0 and n_keys == Skv else attn_mask(
             Sq, Skv, window, q_offset, n_keys, dev, causal)
-        visible = B * (Sq * Skv if mask is None else int(mask.sum().item()))
         qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
         # the library's backward alone: SDPA's forward once, its backward
         # timed; its own causal mask where it is the same (from position 0
@@ -1058,12 +1015,11 @@ def check_kernels(dev) -> dict:
         def library(o=lib_out, leaves=(qt, kt, vt), g=dout_t):
             return torch.autograd.grad(o, leaves, g, retain_graph=True)
 
-        rate = BF16_TENSOR_OPS_PER_S if dtype == "bf16" else CORE_OPS_PER_S
         cases.append(("flash_attention_bwd", f"B={B} Sq={Sq} Skv={Skv} H={H} KV={KV} D={D} "
                       f"{label} {dtype}",
                       lambda a=ins, kw=kw: flash_attention_bwd(*a, **kw),
                       lambda a=ins, kw=kw: flash_attention_bwd_ref(*a, **kw),
-                      ins, {"operations": (5 * 2.0 * H * D * visible, rate)}, library,
+                      ins, work.flash_attention_bwd(B, Sq, Skv, H, KV, D, q.dtype, **kw), library,
                       (LM_TOL[dtype],) * 3,
                       {"represent": dtype == "bf16", "norm_tol": ATTN_NORM_TOL,
                        "plain_reps": dict(reps=3, inner=1), "bit_equal": True}))
@@ -1078,7 +1034,6 @@ def check_kernels(dev) -> dict:
         if dtype == "f32":
             q, k, v = (x.float() for x in (q, k, v))
         kw = dict(causal=True, window=16, q_offset=100, kv_len=150)
-        visible = int(attn_mask(80, 200, 16, 100, 150, dev).sum().item())
         cases.append(("flash_attention", f"B=1 Sq=80 Skv=200 H=4 KV=2 D=64 q_offset=100 kv_len=150 "
                       f"window=16, rows 65-79 see no key, {dtype}, out and lse",
                       lambda q=q, k=k, v=v, kw=kw: flash_ops._launch(q, k, v, kw["causal"], kw["window"],
@@ -1086,7 +1041,8 @@ def check_kernels(dev) -> dict:
                                                                        with_lse=True),
                       lambda q=q, k=k, v=v, kw=kw: (lambda o, l: (o, l.reshape(o.shape[:3])))(
                           *flash_attention_fwd_lse_ref(q, k, v, **kw)),
-                      (q, k, v), {"operations": (4.0 * 4 * visible * 64, BF16_TENSOR_OPS_PER_S)}, None,
+                      (q, k, v), work.flash_attention(1, 80, 200, 4, 2, 64, q.dtype, **kw,
+                                                      with_lse=True), None,
                       (LM_TOL[dtype], LM_TOL["f32"]), {"represent": False}))
 
     # jamba's Mamba prefill: B = 1, dim 16384, N 16; 2048 tokens, a ragged
@@ -1104,11 +1060,9 @@ def check_kernels(dev) -> dict:
             y, h = ssm_scan_ref(p(a[0]), p(a[1]), a[2], p(a[3]), p(a[4]), a[5], a[6], chunk=256)
             return y[:, :S], h
 
-        per_state = S * 16384 * 16
         cases.append(("ssm_scan", f"B=1 S={S} dim=16384 N=16 bf16 (plain: chunk 256)",
                       lambda a=a: ssm_scan(*a, chunk=256), plain, a,
-                      {"exp": (per_state, SFU_EXP_PER_S),
-                       "operations": (6.0 * per_state, CORE_OPS_PER_S)}, None,
+                      work.ssm_scan(1, S, 16384, 16, bf16), None,
                       (LM_TOL["bf16"], LM_TOL["f32"]), {"plain_reps": PLAIN_ONCE}))
 
     # the scans' backward kernels (phase 16's path) against their plain
@@ -1140,9 +1094,9 @@ def check_kernels(dev) -> dict:
                       lambda a=args, st=states, c=cut: c(rwkv6_scan_bwd(*a, chunk=32, states=st)),
                       lambda a=args, c=cut: c(rwkv6_scan_bwd_ref(*a, chunk=32)),
                       (r, k, v, w, u, s0, dout, dst),
-                      {"operations": rwkv_bwd_bound(S, 32)}, None, None,
+                      work.rwkv6_scan_bwd(1, S, 64, 64, 32, bf16), None, None,
                       {"grads": rwkv_rules, "plain_reps": PLAIN_ONCE,
-                       "f32_bound_ms": rwkv_bwd_ops(S, 32) / CORE_OPS_PER_S * 1e3}))
+                       "f32_bound_ms": work.rwkv_bwd_ops(S, 32) / CORE_OPS_PER_S * 1e3}))
     # f32 at chunk 16 with decays below the clamp: dw exactly 0 there
     f32 = lambda a: torch.tensor(a, dtype=torch.float32, device=dev)  # noqa: E731
     w = np.exp(-np.exp(bwd_rng.uniform(-6.0, 0.5, (1, 256, 4, 32))))
@@ -1158,21 +1112,19 @@ def check_kernels(dev) -> dict:
     cases.append(("rwkv6_scan_bwd", "B=1 S=256 H=4 N=32 chunk=16 f32, decays below the clamp",
                   lambda a=args, st=states: rwkv6_scan_bwd(*a, chunk=16, states=st),
                   lambda a=args: rwkv6_scan_bwd_ref(*a, chunk=16), args,
-                  {"operations": rwkv_bwd_bound(256, 16, 4, 32, bf16=False)}, None, None,
+                  work.rwkv6_scan_bwd(1, 256, 4, 32, 16, torch.float32), None, None,
                   {"grads": (f32_grad,) * 6, "represent": False,
                    "zero": lambda g: g[3][:, 3:9, :, :5]}))
     ssm_rules = (bf16_grad, f32_grad, f32_grad, bf16_grad, bf16_grad, f32_grad, f32_grad)
     for S in (2048, 1838):
         *a, dy, dh = ssm_grad_inputs(gen, dev, S)
         cot = (dy, dh)
-        per_state = S * 16384 * 16
         # one exp per (token, channel, state) and ~10 f32 operations (the
         # forward's recomputation, g, dA, ddt, dx, dB, dC and the carry)
         cases.append(("ssm_scan_bwd", f"B=1 S={S} dim=16384 N=16 bf16",
                       lambda a=a, c=cot: ssm_scan_bwd(*a, *c),
                       lambda a=a, c=cot: ssm_scan_bwd_ref(*a, *c), (*a, *cot),
-                      {"exp": (per_state, SFU_EXP_PER_S),
-                       "operations": (10.0 * per_state, CORE_OPS_PER_S)}, None, None,
+                      work.ssm_scan_bwd(1, S, 16384, 16, bf16), None, None,
                       {"grads": ssm_rules, "plain_reps": PLAIN_ONCE}))
 
     results, attached = {}, {}
@@ -1225,9 +1177,11 @@ def check_kernels(dev) -> dict:
         moved = nbytes(x for x in ins if x is not None) + nbytes(got)
         if ops is None:
             # a few compares / selects per input element; no tensor-core work
-            ops = {"operations": (4 * sum(x.numel() for x in ins if x is not None), CORE_OPS_PER_S)}
-        bounds = {"bytes": moved / HBM_BYTES_PER_S * 1e3,
-                  **{what: bound_ms_of(spec) for what, spec in ops.items()}}
+            ops = work.Work(ops=((4 * sum(x.numel() for x in ins if x is not None), "f32"),),
+                            bytes=moved)
+        # the bytes this case's tensors move; the operations and exps of
+        # the kernel's work (repro_torch.roofline.kernels)
+        bounds = {**ops.bounds_ms(), "bytes": moved / HBM_BYTES_PER_S * 1e3}
         bound_by = max(bounds, key=bounds.get)
         bound_ms = bounds[bound_by]
         dev_text = ("not measured" if dev_ms is None else
@@ -1243,7 +1197,7 @@ def check_kernels(dev) -> dict:
         if name in LM_KERNELS and dev_ms is not None:
             # achieved rate of the kernel's operations over its device time,
             # and its share of the bound
-            rate_text = (f" achieved={count_of(ops['operations']) / dev_ms / 1e9:.2f} TFLOP/s, "
+            rate_text = (f" achieved={ops.flops / dev_ms / 1e9:.2f} TFLOP/s, "
                          f"{100 * bound_ms / dev_ms:.1f}% of the bound")
             if "f32_bound_ms" in options:
                 # the same work at the CUDA cores' f32 rate, beside it
@@ -1780,17 +1734,21 @@ OVERLOAD_POLICIES = (
 # lanes of phase 6c held to the CPU port (lanes are independent; the card
 # runs them all)
 CPU_LANES_6C = {"fleet": 8, "arm": 2}
-# phase 6c (b)'s fault traces and rows as the JAX package gives them
-# (tests/captures/write_torch_overload_reference.py)
-OVERLOAD_REFERENCE = ROOT / "tests" / "captures" / "torch_overload_reference.json"
+# the retry_storm lanes' fault traces and rows as the JAX package gives
+# them (tests/captures/write_torch_overload_reference.py): (run s, tape s,
+# file). Phase 5e traces the whole one; phase 6c (b) runs half of it (its
+# arms took 193-319 s at the whole horizon), which keeps every check
+STORM = (0.08, 0.06, ROOT / "tests" / "captures" / "torch_overload_reference.json")
+STORM_HALF = (0.04, 0.03, ROOT / "tests" / "captures" / "torch_overload_reference_half.json")
 ROW_KEYS = ("offered", "admitted", "shed", "deferred", "client_retries", "goodput_per_s",
             "drained_lanes", "metastable_lanes")
 
 
-def overload_storm(policy: str, knobs: dict):
-    """Phase 6c (b)'s arm ``policy``: the 8 ``retry_storm`` lanes as a
-    CPU batch with the reference's fault traces (``fault_trace_from_
-    records`` of the fixture's records), and its params."""
+def overload_storm(policy: str, knobs: dict, storm=STORM):
+    """The arm ``policy`` of ``storm`` (``STORM`` or ``STORM_HALF``): the 8
+    ``retry_storm`` lanes as a CPU batch with the reference's fault
+    traces (``fault_trace_from_records`` of the fixture's records), and
+    its params."""
     import torch
 
     from repro_torch import SimParams
@@ -1799,19 +1757,20 @@ def overload_storm(policy: str, knobs: dict):
     from repro_torch.core.state import tree_map
     from repro_torch.core.workload import workload_batch_from_traces
 
+    duration, tape, capture = storm
     base = SimParams(
-        duration=0.08, max_pipelines=0, max_ops_per_pipeline=0, max_containers=16,
+        duration=duration, max_pipelines=0, max_ops_per_pipeline=0, max_containers=16,
         waiting_ticks_mean=150.0, op_base_seconds_mean=0.008, op_base_seconds_sigma=1.0,
         num_pools=2, total_cpus=4, total_ram_gb=8, scheduling_algo="priority_pool", seed=11,
     )
-    lanes = scenario_lane_batch("retry_storm", base.replace(duration=0.06), 8,
+    lanes = scenario_lane_batch("retry_storm", base.replace(duration=tape), 8,
                                 seed=11, surge_factor=6.0)
     wls, params = workload_batch_from_traces(lanes, base)
     armed = retry_storm_params(
         params, admission_policy=policy, outage_mtbf_s=0.02, outage_duration_s=0.006,
         client_max_retries=3,
     ).replace(max_fault_events=2, **knobs)
-    records = json.loads(OVERLOAD_REFERENCE.read_text())["fault_traces"]
+    records = json.loads(capture.read_text())["fault_traces"]
     faults = tree_map(lambda *lane: torch.cat(lane),
                       *[fault_trace_from_records(r, armed) for r in records])
     return wls._replace(faults=faults), armed
@@ -1882,10 +1841,10 @@ def overload_phase(dev, loop_off: dict) -> tuple[list[dict], dict]:
 
     # ---- (b) the overload table ----------------------------------------------
     n_lanes, n = 8, CPU_LANES_6C["arm"]
-    reference = json.loads(OVERLOAD_REFERENCE.read_text())["rows"]
+    reference = json.loads(STORM_HALF[2].read_text())["rows"]
     rows = {}
     for policy, knobs in OVERLOAD_POLICIES:
-        wls, armed = overload_storm(policy, knobs)
+        wls, armed = overload_storm(policy, knobs, STORM_HALF)
         states, wall, counts, _ = timed_fleet(armed, wls, dev)
         t0 = time.perf_counter()
         compare_states(head(states, n), fleet_run(armed, workloads=head(wls, n), device="cpu"),
@@ -2926,8 +2885,9 @@ TRAIN_SCANS = (("rwkv6_7b", 16, 4, 5), ("jamba_1p5_large_398b", 1, 8, 3))
 
 # each whole-model training run of phase 16 by label: losses, gradient
 # norms, median step s, launches, steps and busy share (phase 17 (b)
-# compares against (a))
+# compares against (a)); phi3's also a counted step (phase 18 (b))
 TRAINED: dict = {}
+PHI3_LABEL = "phase 16 (a) phi3_mini_3p8b training"
 
 
 def _kernel_ms(by_name: dict, kernel: str) -> float:
@@ -2958,17 +2918,20 @@ def timed_train(step_fn, state, batches, label: str):
 def whole_model_training(dev, label, cfg, arch, batches, tokens: int, model_flops: float,
                          attention_flops: float, profile_batch,
                          kernels=("flash_attention", "flash_attention_bwd"),
-                         extra="attention") -> dict:
+                         extra="attention", counted: bool = False) -> dict:
     """Phase 16 (a), (b), (e): ``make_train_step`` of ``arch``'s optimizer
     and microbatches on ``cfg``, the batches in turn, then one more step
     under the profiler; ``kernels`` must launch, and each one's share of
     the profiled step's device time is printed. ``attention_flops``: the
     FLOPs of a step beside 6 N T (``extra`` names them); ``model_flops``
-    None: 6 N T with N the parameters drawn. Returns the launches of the
-    timed steps."""
+    None: 6 N T with N the parameters drawn. With ``counted``, one more
+    step, not timed, under ``roofline.counting`` (its count, launches and
+    ``max_memory_allocated`` kept in ``TRAINED[label]["counted"]`` for
+    phase 18 (b)). Returns the launches of the timed steps."""
     import torch
 
     from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.roofline.analysis import model_flop_share
     from repro_torch.runtime import make_train_step, opt_config
 
     ocfg = opt_config(arch)
@@ -3006,7 +2969,7 @@ def whole_model_training(dev, label, cfg, arch, batches, tokens: int, model_flop
             f"step's device time)" for k in kernels)
         shares = f"; device busy {100 * busy['busy_share']:.1f}% of the profiled step's wall; " \
                  + shares
-    mfu = (model_flops + attention_flops) / (step_s * BF16_TENSOR_OPS_PER_S)
+    mfu = model_flop_share(model_flops + attention_flops, step_s)
     print(f"{CARD}: {label}: {n_params} parameters ({cfg.param_dtype}), {ocfg.name} with "
           f"{ocfg.state_dtype} state, {arch.train_microbatches} microbatches; step walls (s) "
           f"{[round(w, 3) for w in walls]}, step {step_s * 1e3:.1f} ms (median of steps "
@@ -3017,6 +2980,17 @@ def whole_model_training(dev, label, cfg, arch, batches, tokens: int, model_flop
     print(f"{label} launches:", json.dumps(counts))
     TRAINED[label] = {"losses": losses, "norms": norms, "step_s": step_s, "counts": counts,
                       "steps": len(walls), "busy_share": busy.get("busy_share") if busy else None}
+    if counted:
+        from repro_torch.roofline.counting import counting
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        with counting(state, profile_batch) as count:
+            state, _ = step_fn(state, profile_batch)
+        torch.cuda.synchronize()
+        TRAINED[label]["counted"] = {"count": count, "launches": launch_counts(),
+                                     "peak_bytes": torch.cuda.max_memory_allocated()}
     del state, init_fn, step_fn
     torch.cuda.empty_cache()
     return counts
@@ -3048,6 +3022,7 @@ def train_phase(dev) -> list[dict]:
     from repro_torch.data import SyntheticLM, make_batch_iterator
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.models import VIT_DIM, encdec
+    from repro_torch.roofline import kernels as work
     from repro_torch.runtime import FailureInjector, make_train_step, opt_config, run_training
 
     all_counts = []
@@ -3066,8 +3041,8 @@ def train_phase(dev) -> list[dict]:
     T = Bg * S
     attn = 3 * 4.0 * cfg.n_heads * cfg.hd * (S * (S + 1) // 2) * Bg * cfg.n_layers
     all_counts.append(whole_model_training(
-        dev, "phase 16 (a) phi3_mini_3p8b training", cfg, arch, batches[:n], T, 6.0 * N * T,
-        attn, batches[n]))
+        dev, PHI3_LABEL, cfg, arch, batches[:n], T, 6.0 * N * T, attn, batches[n],
+        counted=True))
 
     # ---- (b) whisper_small whole ---------------------------------------------
     arch = get_arch("whisper_small")
@@ -3186,8 +3161,8 @@ def train_phase(dev) -> list[dict]:
             kernels = ("rwkv6_scan", "rwkv6_scan_bwd")
             H = cfg.d_model // cfg.rwkv.head_dim
             # the chunked scan's products, forward and backward, each row
-            scan = Bg * n_layers * (rwkv_ops(S, cfg.rwkv.chunk, H, cfg.rwkv.head_dim)
-                                    + rwkv_bwd_ops(S, cfg.rwkv.chunk, H, cfg.rwkv.head_dim))
+            scan = Bg * n_layers * (work.rwkv_ops(S, cfg.rwkv.chunk, H, cfg.rwkv.head_dim)
+                                    + work.rwkv_bwd_ops(S, cfg.rwkv.chunk, H, cfg.rwkv.head_dim))
         else:
             kernels = ("ssm_scan", "ssm_scan_bwd")
             d_inner = cfg.mamba.expand * cfg.d_model
@@ -3223,6 +3198,98 @@ def card_phase():
 SASS_OPS = ("HGMMA", "HMMA", "FFMA", "FMUL", "FADD", "MUFU.EX2", "MUFU.LG2", "SHFL", "LDS",
             "LDGSTS", "BAR.SYNC", "BAR.ARV", "STL", "LDL", "REDUX", "VOTE", "LDG", "ATOMS", "ATOM",
             "ATOMG", "RED", "REDG", "STG")
+# ---------------------------------------------------------------------------
+# Phase 18: the dry run and the roofline (repro_torch.launch.dryrun,
+# repro_torch.roofline).
+# ---------------------------------------------------------------------------
+# (a) (arch, shape, mesh) cells of the dry run on the card's host: one
+# step on meta DTensors over a fake process group of 256 / 512 ranks
+DRYRUN_CELLS = (("phi3_mini_3p8b", "train_4k", "single"),
+                ("llama4_maverick_400b_a17b", "train_4k", "multi"))
+# (b) the meta peak against the card's max_memory_allocated of the step
+PEAK_RATIO = (0.8, 1.25)
+
+
+def dryrun_phase(dev) -> dict:
+    """Phase 18. (a) ``launch.dryrun.run_cell`` of ``DRYRUN_CELLS`` on the
+    card's host: FLOPs, HBM bytes and collective wire bytes a device
+    handles, the three terms under the H100's constants (counts, not
+    times measured on a chip), the dominant term, the peak and whether it
+    fits; both cells ``ok`` and the card's allocated memory unchanged.
+    (b) phase 16 (a)'s counted step of phi3_mini_3p8b whole on the card
+    (``TRAINED[PHI3_LABEL]["counted"]``) against the same step as
+    ``lower_train`` on ``meta``: FLOPs and HBM bytes equal, each
+    hand-written kernel's records equal to its launches in that step, and
+    the meta peak within ``PEAK_RATIO`` of the card's
+    ``max_memory_allocated``. Returns the counted step's launches."""
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import dryrun, lowering
+    from repro_torch.launch.shapes import ShapeSpec
+    from repro_torch.roofline.hw import H100
+
+    # ---- (a) the dry run on the card's host ----------------------------------
+    allocated = torch.cuda.memory_allocated()
+    for arch_name, shape, mesh in DRYRUN_CELLS:
+        t0 = time.perf_counter()
+        rec = dryrun.run_cell(arch_name, shape, mesh)
+        wall = time.perf_counter() - t0
+        if rec.get("status") != "ok":
+            raise AssertionError(f"phase 18 (a): {arch_name} x {shape} x {mesh}: {rec}")
+        print(f"phase 18 (a): {arch_name} x {shape} x {mesh}: {rec['chips']} ranks of a fake "
+              f"process group, one step on meta DTensors traced in {rec['t_lower_s']} s "
+              f"({wall:.2f} s with the group and the parameter count; {rec['ops']} ops); a "
+              f"device: {rec['flops_per_device']:.6g} FLOPs, {rec['bytes_per_device']:.6g} HBM "
+              f"bytes, {rec['collective_bytes_per_device']:.6g} collective wire bytes; under "
+              f"the H100's constants (counts, not times measured on a chip): t_compute "
+              f"{rec['t_compute_s'] * 1e3:.3f} ms, t_memory {rec['t_memory_s'] * 1e3:.3f} ms, "
+              f"t_collective {rec['t_collective_s'] * 1e3:.3f} ms -> {rec['dominant']}; peak "
+              f"{rec['peak_bytes_per_device'] / 2**30:.2f} GiB a device (fits "
+              f"{H100.hbm_bytes / 2**30:.2f} GiB: {rec['fits_hbm']}); useful FLOP share "
+              f"{100 * rec['useful_flops_fraction']:.1f}%, roofline share "
+              f"{100 * rec['roofline_fraction']:.2f}%; kernels "
+              + json.dumps({k: v["calls"] for k, v in rec["kernels"].items()}))
+    if torch.cuda.memory_allocated() != allocated:
+        raise AssertionError(f"phase 18 (a): the dry run allocated card memory: "
+                             f"{torch.cuda.memory_allocated()} bytes against {allocated}")
+    print(f"phase 18 (a): the card's allocated memory unchanged ({allocated} bytes)")
+
+    # ---- (b) the count held against the card --------------------------------
+    counted = TRAINED[PHI3_LABEL]["counted"]
+    card, launches = counted["count"], counted["launches"]
+    arch = get_arch("phi3_mini_3p8b")
+    spec = ShapeSpec("phase 16 (a)", "train", TRAIN_PHI3["seq_len"], TRAIN_PHI3["global_batch"])
+    low = lowering.lower_train(arch, spec)
+    records = {k: v["calls"] for k, v in low.kernels.items()}
+    ran = {k: v for k, v in launches.items() if v}
+    ratio = low.peak_bytes / counted["peak_bytes"]
+    print(f"{CARD}: phase 18 (b): phi3_mini_3p8b whole, one step of 4 x 4,096 tokens (AdamW "
+          f"f32, 4 microbatches) counted on {dev} against lower_train on meta (traced in "
+          f"{low.t_trace_s:.2f} s): FLOPs {card.flops:.10g} / {low.flops:.10g}, HBM bytes "
+          f"{card.bytes:.10g} / {low.bytes:.10g}, ops {card.ops} / {low.ops}; kernel records "
+          f"{json.dumps(card.kernel_calls())} / {json.dumps(records)}, launches "
+          f"{json.dumps(ran)}; peak {counted['peak_bytes'] / 2**30:.2f} GiB "
+          f"(max_memory_allocated) / {low.peak_bytes / 2**30:.2f} GiB (meta), ratio "
+          f"{ratio:.4f} (meta / card)")
+    if card.flops != low.flops or card.bytes != low.bytes:
+        raise AssertionError(f"phase 18 (b): the card's FLOPs / bytes {card.flops} / "
+                             f"{card.bytes} differ from meta's {low.flops} / {low.bytes}")
+    if not card.kernel_calls() == records == ran:
+        raise AssertionError(f"phase 18 (b): kernel records {card.kernel_calls()} (card), "
+                             f"{records} (meta), launches {ran}")
+    if not PEAK_RATIO[0] <= ratio <= PEAK_RATIO[1]:
+        raise AssertionError(f"phase 18 (b): meta peak / card peak {ratio} outside {PEAK_RATIO}")
+    # the card's memory as it reports it: the constant of roofline.hw
+    total = torch.cuda.get_device_properties(0).total_memory
+    print(f"{CARD}: phase 18: the card reports {total} bytes of memory "
+          f"({total / 2**30:.2f} GiB); roofline.hw holds {H100.hbm_bytes}")
+    if total != H100.hbm_bytes:
+        raise AssertionError(f"phase 18: the card reports {total} bytes of memory, "
+                             f"roofline.hw holds {H100.hbm_bytes}")
+    return launches
+
+
 # the attention kernels whose products must run on the tensor cores
 TENSOR_CORE_KERNELS = ("flash_attention_kernel_bf16", "flash_attention_bwd_kernel_dkdv_bf16",
                        "flash_attention_bwd_kernel_dkdv_pair_bf16",
@@ -3402,7 +3469,7 @@ def mesh_training(dev, mesh) -> dict:
     from repro_torch.launch.lowering import arch_rules
     from repro_torch.runtime import make_train_step, opt_config, run_training
 
-    label = "phase 16 (a) phi3_mini_3p8b training"
+    label = PHI3_LABEL
     ref = TRAINED[label]
     arch = get_arch("phi3_mini_3p8b")
     cfg = arch.model
@@ -3553,6 +3620,7 @@ def main() -> int:
     whisper_counts = phase(15, whisper_phase, dev)
     train_counts = phase(16, train_phase, dev)
     dist_counts = phase(17, dist_phase, dev, phase5, faults_off)
+    dryrun_counts = phase(18, dryrun_phase, dev)
     print(f"{CARD}: phase walls (s): " + json.dumps({str(k): round(v, 3) for k, v in walls.items()})
           + f", total {time.perf_counter() - t_all:.2f}")
 
@@ -3584,7 +3652,7 @@ def main() -> int:
     main_runs = (run_counts, fleet_counts, *replay_counts, *cache_counts, grid_counts,
                  *telemetry_counts, *chaos_counts, *overload_counts, rwkv_counts, gemma_counts,
                  jamba_counts, search_counts, *surface_counts, *zoo_counts, *vlm_counts,
-                 *whisper_counts, *train_counts, *dist_counts)
+                 *whisper_counts, *train_counts, *dist_counts, dryrun_counts)
     rows = []
     for name in KERNELS:
         m = measured[name]

@@ -14,15 +14,22 @@ on CUDA, ``flash_attention_fwd_lse_ref`` on the CPU) and the backward is
 for CUDA tensors (bf16 on the tensor cores, f32 on the CUDA cores; each
 call counted once in ``flash_attention_bwd.launches``),
 ``flash_attention_bwd_ref`` for CPU tensors. Without grad nothing of
-this runs and no ``lse`` is stored."""
+this runs and no ``lse`` is stored.
+
+``meta`` tensors (a dry run) take the kernels' paths up to the launch
+and return their empty outputs there; every call, a launch or a
+stand-in, reports its work (``roofline.kernels``) to
+``roofline.counting``."""
 from __future__ import annotations
 
 import ctypes
 
 import torch
 
+from ...roofline import kernels as work
+from ...roofline.counting import report
 from .. import cuda_lib
-from ..dispatch import use_kernel
+from ..dispatch import abstract, use_kernel
 from .ref import (
     first_dead_row,
     flash_attention_bwd_ref,
@@ -44,14 +51,15 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
         return _FlashAttention.apply(q, k, v, bool(causal), int(window), int(q_offset),
                                      None if kv_len is None else int(kv_len))
-    if not use_kernel(q):
+    if not (abstract(q) or use_kernel(q)):
         return flash_attention_ref(q, k, v, causal=causal, window=window,
                                    q_offset=q_offset, kv_len=kv_len)
     return _launch(q, k, v, causal, window, q_offset, kv_len, with_lse=False)[0]
 
 
 def _launch(q, k, v, causal, window, q_offset, kv_len, *, with_lse: bool):
-    """The forward kernel; returns (out, lse [B,Sq,H] f32 or None)."""
+    """The forward kernel (on ``meta``, its stand-in); returns (out, lse
+    [B,Sq,H] f32 or None)."""
     B, Sq, H, D = q.shape
     Skv, KV = k.shape[1], k.shape[2]
     dev = q.device
@@ -70,9 +78,6 @@ def _launch(q, k, v, causal, window, q_offset, kv_len, *, with_lse: bool):
     if q_offset < 0:
         raise ValueError(f"flash_attention: q_offset {q_offset} < 0 (positions start at 0)")
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-    cuda_lib.require("flash_attention", "q", q, q.dtype, (B, Sq, H, D), dev)
-    cuda_lib.require("flash_attention", "k", k, q.dtype, (B, Skv, KV, D), dev)
-    cuda_lib.require("flash_attention", "v", v, q.dtype, (B, Skv, KV, D), dev)
     out = torch.empty_like(q)
     lse = torch.empty((B, Sq, H), dtype=torch.float32, device=dev) if with_lse else None
     # rows that see no key get the mean of V over the reference's padded
@@ -80,6 +85,13 @@ def _launch(q, k, v, causal, window, q_offset, kv_len, *, with_lse: bool):
     dead_row = first_dead_row(Sq, int(window), int(q_offset), kv_len)
     vmean = (torch.empty((B, KV, D), dtype=torch.float32, device=dev)
              if dead_row < Sq and Skv else None)
+    report("flash_attention", work.flash_attention, B, Sq, Skv, H, KV, D, q.dtype, causal=causal,
+           window=window, q_offset=q_offset, kv_len=kv_len, with_lse=with_lse)
+    if q.is_meta:
+        return out, lse
+    cuda_lib.require("flash_attention", "q", q, q.dtype, (B, Sq, H, D), dev)
+    cuda_lib.require("flash_attention", "k", k, q.dtype, (B, Skv, KV, D), dev)
+    cuda_lib.require("flash_attention", "v", v, q.dtype, (B, Skv, KV, D), dev)
     fn = cuda_lib.function("repro_flash_attention", _ARGTYPES)
     code = fn(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
@@ -99,7 +111,7 @@ class _FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, causal: bool, window: int, q_offset: int, kv_len: int | None):
-        if use_kernel(q):
+        if abstract(q) or use_kernel(q):
             out, lse = _launch(q, k, v, causal, window, q_offset, kv_len, with_lse=True)
         else:
             out, lse = flash_attention_fwd_lse_ref(q, k, v, causal=causal, window=window,
@@ -124,7 +136,7 @@ def flash_attention_bwd(q, k, v, out, lse, dout, *, causal: bool = True, window:
     [B,Sq,H] f32 and the output's gradient ``dout``."""
     if q_offset < 0:
         raise ValueError(f"flash_attention_bwd: q_offset {q_offset} < 0 (positions start at 0)")
-    if not use_kernel(q):
+    if not (abstract(q) or use_kernel(q)):
         return flash_attention_bwd_ref(q, k, v, out, lse, dout, causal=causal, window=window,
                                        q_offset=q_offset, kv_len=kv_len)
     B, Sq, H, D = q.shape
@@ -142,16 +154,20 @@ def flash_attention_bwd(q, k, v, out, lse, dout, *, causal: bool = True, window:
     if not 0 <= kv_len <= Skv:
         raise ValueError(f"flash_attention_bwd: kv_len {kv_len} outside [0, {Skv}]")
     q, k, v, out, dout = (x.contiguous() for x in (q, k, v, out, dout))
-    for name, x, shape in (("q", q, (B, Sq, H, D)), ("k", k, (B, Skv, KV, D)),
-                           ("v", v, (B, Skv, KV, D)), ("out", out, (B, Sq, H, D)),
-                           ("dout", dout, (B, Sq, H, D))):
-        cuda_lib.require("flash_attention_bwd", name, x, q.dtype, shape, dev)
     lse = lse.contiguous()
-    cuda_lib.require("flash_attention_bwd", "lse", lse, torch.float32, (B, Sq, H), dev)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     if min(Sq, Skv) == 0:   # no pair to differentiate: nothing to launch
         return dq.zero_(), dk.zero_(), dv.zero_()
     delta = torch.empty((B, Sq, H), dtype=torch.float32, device=dev)   # rowsum(dO * O)
+    report("flash_attention_bwd", work.flash_attention_bwd, B, Sq, Skv, H, KV, D, q.dtype,
+           causal=causal, window=window, q_offset=q_offset, kv_len=kv_len)
+    if q.is_meta:
+        return dq, dk, dv
+    for name, x, shape in (("q", q, (B, Sq, H, D)), ("k", k, (B, Skv, KV, D)),
+                           ("v", v, (B, Skv, KV, D)), ("out", out, (B, Sq, H, D)),
+                           ("dout", dout, (B, Sq, H, D))):
+        cuda_lib.require("flash_attention_bwd", name, x, q.dtype, shape, dev)
+    cuda_lib.require("flash_attention_bwd", "lse", lse, torch.float32, (B, Sq, H), dev)
     fn = cuda_lib.function("repro_flash_attention_bwd", _BWD_ARGTYPES)
     code = fn(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),

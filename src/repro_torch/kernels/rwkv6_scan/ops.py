@@ -10,7 +10,12 @@ backward is ``rwkv6_scan_bwd``: the kernels of ``csrc/rwkv6_scan_bwd.cu``
 for CUDA tensors (each call counted once in ``rwkv6_scan_bwd.launches``),
 ``ref.rwkv6_scan_bwd_ref`` for CPU tensors. The padding, the casts of w
 and u to f32 and the ``[:, :S]`` slice stay outside the Function, where
-autograd differentiates them."""
+autograd differentiates them.
+
+``meta`` tensors (a dry run) take the kernels' paths up to the launch
+and return their empty outputs there; every call, a launch or a
+stand-in, reports its work (``roofline.kernels``) to
+``roofline.counting``."""
 from __future__ import annotations
 
 import ctypes
@@ -18,8 +23,10 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
+from ...roofline import kernels as work
+from ...roofline.counting import report
 from .. import cuda_lib
-from ..dispatch import use_kernel
+from ..dispatch import abstract, use_kernel
 from .ref import rwkv6_chunked_ref, rwkv6_scan_bwd_ref
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -47,7 +54,7 @@ def rwkv6_scan(r, k, v, w, u, state0=None, *, chunk: int = 16):
     if torch.is_grad_enabled() and any(t.requires_grad for t in (r, k, v, w, u, state0)):
         out, state = _RWKV6Scan.apply(r, k, v, w.to(torch.float32), u.to(torch.float32),
                                       state0, C)
-    elif use_kernel(r):
+    elif abstract(r) or use_kernel(r):
         out, state, _ = _launch(r, k, v, w, u, state0, C)
     else:
         out, state = rwkv6_chunked_ref(r, k, v, w, u, state0, chunk=C)
@@ -72,21 +79,24 @@ def _launch(r, k, v, w, u, state0, C: int, *, with_states: bool = False):
     dev = r.device
     _check("rwkv6_scan", r, C)
     r, k, v = r.contiguous(), k.contiguous(), v.contiguous()
-    for name, x in (("r", r), ("k", k), ("v", v)):
-        cuda_lib.require("rwkv6_scan", name, x, r.dtype, (B, S, H, N), dev)
     # the chunk math is f32 (as in the reference): w and u enter as f32
     w = w.to(torch.float32).contiguous()
     u = u.to(torch.float32).contiguous()
     state0 = state0.contiguous()
-    cuda_lib.require("rwkv6_scan", "w", w, torch.float32, (B, S, H, N), dev)
-    cuda_lib.require("rwkv6_scan", "u", u, torch.float32, (H, N), dev)
-    cuda_lib.require("rwkv6_scan", "state0", state0, torch.float32, (B, H, N, N), dev)
     out = torch.empty_like(r)
     state = torch.empty((B, H, N, N), dtype=torch.float32, device=dev)
     # scratch: the intra-chunk output A V + d V in f32, B S H N floats
     intra = torch.empty((B, S, H, N), dtype=torch.float32, device=dev)
     states = (torch.empty((B, H, S // C, N, N), dtype=torch.float32, device=dev)
               if with_states else None)
+    report("rwkv6_scan", work.rwkv6_scan, B, S, H, N, C, r.dtype, with_states=with_states)
+    if r.is_meta:
+        return out, state, states
+    for name, x in (("r", r), ("k", k), ("v", v)):
+        cuda_lib.require("rwkv6_scan", name, x, r.dtype, (B, S, H, N), dev)
+    cuda_lib.require("rwkv6_scan", "w", w, torch.float32, (B, S, H, N), dev)
+    cuda_lib.require("rwkv6_scan", "u", u, torch.float32, (H, N), dev)
+    cuda_lib.require("rwkv6_scan", "state0", state0, torch.float32, (B, H, N, N), dev)
     fn = cuda_lib.function("repro_rwkv6_scan", _ARGTYPES)
     code = fn(
         r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(), u.data_ptr(),
@@ -107,7 +117,7 @@ class _RWKV6Scan(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, r, k, v, w, u, state0, C: int):
-        if use_kernel(r):
+        if abstract(r) or use_kernel(r):
             out, state, states = _launch(r, k, v, w, u, state0, C, with_states=True)
         else:
             (out, state), states = rwkv6_chunked_ref(r, k, v, w, u, state0, chunk=C), None
@@ -128,7 +138,7 @@ def rwkv6_scan_bwd(r, k, v, w, u, state0, dout, dstate, *, chunk: int, states=No
     (dstate0 f32), from the cotangents ``dout`` (None: zeros) and
     ``dstate`` (None: zeros). On CUDA ``states`` is the forward's input
     state of every chunk (``_launch(..., with_states=True)``)."""
-    if not use_kernel(r):
+    if not (abstract(r) or use_kernel(r)):
         return rwkv6_scan_bwd_ref(r, k, v, w, u, state0, dout, dstate, chunk=chunk)
     B, S, H, N = r.shape
     C = min(chunk, S)
@@ -144,14 +154,8 @@ def rwkv6_scan_bwd(r, k, v, w, u, state0, dout, dstate, *, chunk: int, states=No
     w32 = w.to(torch.float32).contiguous()
     u32 = u.to(torch.float32).contiguous()
     states = states.contiguous()
-    for name, x in (("r", r), ("k", k), ("v", v), ("dout", dout)):
-        cuda_lib.require("rwkv6_scan_bwd", name, x, r.dtype, (B, S, H, N), dev)
-    cuda_lib.require("rwkv6_scan_bwd", "w", w32, torch.float32, (B, S, H, N), dev)
-    cuda_lib.require("rwkv6_scan_bwd", "u", u32, torch.float32, (H, N), dev)
-    cuda_lib.require("rwkv6_scan_bwd", "states", states, torch.float32, (B, H, S // C, N, N), dev)
     if dstate is not None:
         dstate = dstate.contiguous()
-        cuda_lib.require("rwkv6_scan_bwd", "dstate", dstate, torch.float32, (B, H, N, N), dev)
     dr, dk, dv = torch.empty_like(r), torch.empty_like(k), torch.empty_like(v)
     dw = torch.empty_like(w32)
     du = torch.zeros_like(u32)    # a batch of 0 rows folds nothing
@@ -159,6 +163,25 @@ def rwkv6_scan_bwd(r, k, v, w, u, state0, dout, dstate, *, chunk: int, states=No
     # scratch: dS_out of every chunk, du's partials by (b, h, chunk)
     dsout = torch.empty_like(states)
     du_part = torch.empty((B, H, S // C, N), dtype=torch.float32, device=dev)
+    report("rwkv6_scan_bwd", work.rwkv6_scan_bwd, B, S, H, N, C, r.dtype,
+           with_dstate=dstate is not None)
+    if not r.is_meta:
+        _launch_bwd(r, k, v, w32, u32, states, dout, dstate, dr, dk, dv, dw, du, ds0, dsout,
+                    du_part, C)
+    return dr, dk, dv, dw.to(w.dtype), du.to(u.dtype), ds0
+
+
+def _launch_bwd(r, k, v, w32, u32, states, dout, dstate, dr, dk, dv, dw, du, ds0, dsout,
+                du_part, C: int) -> None:
+    B, S, H, N = r.shape
+    dev = r.device
+    for name, x in (("r", r), ("k", k), ("v", v), ("dout", dout)):
+        cuda_lib.require("rwkv6_scan_bwd", name, x, r.dtype, (B, S, H, N), dev)
+    cuda_lib.require("rwkv6_scan_bwd", "w", w32, torch.float32, (B, S, H, N), dev)
+    cuda_lib.require("rwkv6_scan_bwd", "u", u32, torch.float32, (H, N), dev)
+    cuda_lib.require("rwkv6_scan_bwd", "states", states, torch.float32, (B, H, S // C, N, N), dev)
+    if dstate is not None:
+        cuda_lib.require("rwkv6_scan_bwd", "dstate", dstate, torch.float32, (B, H, N, N), dev)
     fn = cuda_lib.function("repro_rwkv6_scan_bwd", _BWD_ARGTYPES)
     code = fn(
         r.data_ptr(), k.data_ptr(), v.data_ptr(), w32.data_ptr(), u32.data_ptr(),
@@ -169,7 +192,6 @@ def rwkv6_scan_bwd(r, k, v, w, u, state0, dout, dstate, *, chunk: int, states=No
     )
     cuda_lib.check_launch("rwkv6_scan_bwd", code)
     rwkv6_scan_bwd.launches += 1
-    return dr, dk, dv, dw.to(w.dtype), du.to(u.dtype), ds0
 
 
 rwkv6_scan.launches = 0

@@ -8,7 +8,12 @@ differentiable (``_SSMScan``, one Function on both devices), and the
 backward is ``ssm_scan_bwd``: the kernels of ``csrc/ssm_scan_bwd.cu``
 for CUDA tensors (each call counted once in ``ssm_scan_bwd.launches``),
 ``ref.ssm_scan_bwd_ref`` for CPU tensors. The CPU's padding and the
-``[:, :S]`` slice stay outside the Function."""
+``[:, :S]`` slice stay outside the Function.
+
+``meta`` tensors (a dry run) take the kernels' paths up to the launch
+and return their empty outputs there; every call, a launch or a
+stand-in, reports its work (``roofline.kernels``) to
+``roofline.counting``."""
 from __future__ import annotations
 
 import ctypes
@@ -16,8 +21,10 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
+from ...roofline import kernels as work
+from ...roofline.counting import report
 from .. import cuda_lib
-from ..dispatch import use_kernel
+from ..dispatch import abstract, use_kernel
 from .ref import ssm_scan_bwd_ref, ssm_scan_ref
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -39,7 +46,7 @@ def ssm_scan(x, dt, A, B, C, D, h0=None, *, chunk: int = 256):
     grad = torch.is_grad_enabled() and any(
         t is not None and t.requires_grad for t in (x, dt, A, B, C, D, h0))
     S = x.shape[1]
-    if use_kernel(x):
+    if abstract(x) or use_kernel(x):
         if grad:
             return _SSMScan.apply(x, dt, A, B, C, D, h0, chunk)
         return _launch(x, dt, A, B, C, D, h0)
@@ -60,13 +67,17 @@ def ssm_scan(x, dt, A, B, C, D, h0=None, *, chunk: int = 256):
     return (y[:, :S], h) if pad else (y, h)
 
 
-def _check(kernel: str, x, dt, A, B, C, D, h0) -> None:
-    Bsz, S, dim = x.shape
+def _check(kernel: str, x, A) -> None:
     N = A.shape[1]
     if x.dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"{kernel}: x has dtype {x.dtype}; the kernel takes bf16 or f32")
     if N not in STATE_SIZES:
         raise ValueError(f"{kernel}: the kernel takes d_state in {STATE_SIZES}, got {N}")
+
+
+def _require(kernel: str, x, dt, A, B, C, D, h0) -> None:
+    Bsz, S, dim = x.shape
+    N = A.shape[1]
     for name, t, dtype, shape in (
         ("x", x, x.dtype, (Bsz, S, dim)),
         ("dt", dt, torch.float32, (Bsz, S, dim)),
@@ -84,9 +95,13 @@ def _launch(x, dt, A, B, C, D, h0):
     Bsz, S, dim = x.shape
     N = A.shape[1]
     dev = x.device
-    _check("ssm_scan", x, dt, A, B, C, D, h0)
+    _check("ssm_scan", x, A)
     y = torch.empty_like(x)
     h = torch.empty((Bsz, dim, N), dtype=torch.float32, device=dev)
+    report("ssm_scan", work.ssm_scan, Bsz, S, dim, N, x.dtype, with_h0=h0 is not None)
+    if x.is_meta:
+        return y, h
+    _require("ssm_scan", x, dt, A, B, C, D, h0)
     fn = cuda_lib.function("repro_ssm_scan", _ARGTYPES)
     code = fn(
         x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(), C.data_ptr(),
@@ -106,7 +121,7 @@ class _SSMScan(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, dt, A, B, C, D, h0, chunk: int):
-        if use_kernel(x):
+        if abstract(x) or use_kernel(x):
             y, h = _launch(x, dt, A, B, C, D, h0)
         else:
             y, h = ssm_scan_ref(x, dt, A, B, C, D, h0, chunk=chunk)
@@ -138,17 +153,15 @@ def ssm_scan_bwd(x, dt, A, B, C, D, h0, dy, dh):
     """The gradients (dx, ddt, dA, dB, dC, dD, dh0) of the scan over any S,
     each in its input's dtype (dh0 f32), from the cotangents ``dy`` and
     ``dh`` (either None: zeros; h0 None: zeros)."""
-    if not use_kernel(x):
+    if not (abstract(x) or use_kernel(x)):
         return ssm_scan_bwd_ref(x, dt, A, B, C, D, h0, dy, dh)
     Bsz, S, dim = x.shape
     N = A.shape[1]
     dev = x.device
-    _check("ssm_scan_bwd", x, dt, A, B, C, D, h0)
+    _check("ssm_scan_bwd", x, A)
     dy = torch.zeros_like(x) if dy is None else dy.contiguous()
-    cuda_lib.require("ssm_scan_bwd", "dy", dy, x.dtype, (Bsz, S, dim), dev)
     if dh is not None:
         dh = dh.contiguous()
-        cuda_lib.require("ssm_scan_bwd", "dh", dh, torch.float32, (Bsz, dim, N), dev)
     f32 = dict(dtype=torch.float32, device=dev)
     dx, ddt = torch.empty_like(x), torch.empty_like(dt)
     dB, dC = torch.empty_like(B), torch.empty_like(C)
@@ -156,6 +169,22 @@ def ssm_scan_bwd(x, dt, A, B, C, D, h0, dy, dh):
     # per-(row, chunk) partials of dA and dD, folded below; scratch
     scratch = {k: torch.empty(shape, **f32)
                for k, shape in bwd_scratch_shapes(Bsz, S, dim, N).items()}
+    report("ssm_scan_bwd", work.ssm_scan_bwd, Bsz, S, dim, N, x.dtype, with_h0=h0 is not None,
+           with_dh=dh is not None)
+    if not x.is_meta:
+        _launch_bwd(x, dt, A, B, C, D, h0, dy, dh, dx, ddt, dB, dC, dh0, scratch)
+    return (dx, ddt, scratch["dA_part"].sum((0, 1)), dB, dC, scratch["dD_part"].sum((0, 1)),
+            dh0)
+
+
+def _launch_bwd(x, dt, A, B, C, D, h0, dy, dh, dx, ddt, dB, dC, dh0, scratch) -> None:
+    Bsz, S, dim = x.shape
+    N = A.shape[1]
+    dev = x.device
+    _require("ssm_scan_bwd", x, dt, A, B, C, D, h0)
+    cuda_lib.require("ssm_scan_bwd", "dy", dy, x.dtype, (Bsz, S, dim), dev)
+    if dh is not None:
+        cuda_lib.require("ssm_scan_bwd", "dh", dh, torch.float32, (Bsz, dim, N), dev)
     fn = cuda_lib.function("repro_ssm_scan_bwd", _BWD_ARGTYPES)
     code = fn(
         x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(), C.data_ptr(), D.data_ptr(),
@@ -169,8 +198,6 @@ def ssm_scan_bwd(x, dt, A, B, C, D, h0, dy, dh):
     )
     cuda_lib.check_launch("ssm_scan_bwd", code)
     ssm_scan_bwd.launches += 1
-    return (dx, ddt, scratch["dA_part"].sum((0, 1)), dB, dC, scratch["dD_part"].sum((0, 1)),
-            dh0)
 
 
 ssm_scan.launches = 0

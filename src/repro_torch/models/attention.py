@@ -62,7 +62,7 @@ def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int, device) -> KVCache
 
     def zeros():
         t = torch.zeros(shape, dtype=cfg.compute_dtype, device=device)
-        if get_ctx() is None or t.device.type == "meta":
+        if get_ctx() is None:
             return t
         split, kv_dim = _head_split(cfg.n_heads, cfg.n_kv_heads)
         return distribute(t, get_ctx()[0], kernel_placements(4, 0, kv_dim, batch, split))
@@ -116,14 +116,14 @@ def attn_apply(
     if cache is None or kv_override is not None:
         y = _kernel(lambda q, k, v: flash_attention(q, k, v, causal=causal, window=window),
                     q, k, v)
-        return torch.einsum("bshn,hnd->bsd", y, p["wo"]), None
+        return constrain(torch.einsum("bshn,hnd->bsd", y, p["wo"]), "batch seq embed"), None
 
     idx = int(cache_index)
     ring = window > 0 and cache.k.shape[1] == window
     attend = _ring_cache_attend if ring else _cache_attend
     y = _kernel(lambda q, k, v, ck, cv: attend(q, k, v, ck, cv, idx, window, causal),
                 q, k, v, cache.k, cache.v)
-    return torch.einsum("bshn,hnd->bsd", y, p["wo"]), cache
+    return constrain(torch.einsum("bshn,hnd->bsd", y, p["wo"]), "batch seq embed"), cache
 
 
 def _cache_attend(q, k, v, ck, cv, idx, window, causal):

@@ -69,7 +69,7 @@ def mlp_apply(p, x: torch.Tensor) -> torch.Tensor:
     else:  # jax.nn.gelu's default is the tanh approximation
         h = F.gelu(u.to(torch.float32), approximate="tanh").to(x.dtype)
     h = constrain(h, "batch seq ff")
-    return torch.einsum("bsf,fd->bsd", h, p["w_down"])
+    return constrain(torch.einsum("bsf,fd->bsd", h, p["w_down"]), "batch seq embed")
 
 
 # ---------------------------------------------------------------------------

@@ -110,13 +110,13 @@ def _channel_mix(p, xc, shifted_c, dtype):
     kk = torch.einsum("bsd,df->bsf", xk_c, p["ck"])
     kk = torch.square(F.relu(kk.to(torch.float32))).to(dtype)
     gate = torch.sigmoid(torch.einsum("bsd,de->bse", xr_c, p["cr"]).to(torch.float32)).to(dtype)
-    return gate * torch.einsum("bsf,fd->bsd", kk, p["cv"])
+    return gate * constrain(torch.einsum("bsf,fd->bsd", kk, p["cv"]), "batch seq embed")
 
 
 def _time_mix_out(cfg, p, out, g):
     out = _group_rms(out, p["ln_scale"], cfg.norm_eps)
     out = out * F.silu(g.to(torch.float32)).to(out.dtype)
-    return torch.einsum("bshn,hnd->bsd", out, p["wo"])
+    return constrain(torch.einsum("bshn,hnd->bsd", out, p["wo"]), "batch seq embed")
 
 
 def rwkv_apply(

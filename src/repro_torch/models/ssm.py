@@ -121,7 +121,7 @@ def mamba_apply(
         [(0, 2), (0, 2), (None, 0), (0, None), (0, None), (None, 0), None if h0 is None else (0, 1)],
         [(3, 0, 2), (3, 0, 1)], split=xi.shape[2] % model_size() == 0)
     y = y * F.silu(z.to(torch.float32)).to(y.dtype)
-    out = torch.einsum("bse,ed->bsd", y, p["out_proj"])
+    out = constrain(torch.einsum("bse,ed->bsd", y, p["out_proj"]), "batch seq embed")
     return out, MambaState(h=h, conv=conv_tail)
 
 
@@ -137,7 +137,7 @@ def mamba_decode(cfg: ModelConfig, p, x: torch.Tensor, state: MambaState):
     dt, A, B_in, C_in = _ssm_inputs(cfg, p, xi)
     y, h = ssm_decode_step(xi[:, 0], dt[:, 0], A, B_in[:, 0], C_in[:, 0], p["D"], state.h)
     y = y[:, None, :] * F.silu(z.to(torch.float32)).to(y.dtype)
-    out = torch.einsum("bse,ed->bsd", y, p["out_proj"])
+    out = constrain(torch.einsum("bse,ed->bsd", y, p["out_proj"]), "batch seq embed")
     return out, MambaState(h=h, conv=window[:, 1:, :])
 
 

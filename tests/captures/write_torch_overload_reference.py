@@ -1,16 +1,19 @@
-"""Write ``torch_overload_reference.json``: the JAX package's overload table
-on ``chip_smoke.py`` phase 6c (b)'s configuration, for the port to be held
-to on the card.
+"""Write ``torch_overload_reference.json`` and
+``torch_overload_reference_half.json``: the JAX package's overload table,
+for the port to be held to (``tests/test_torch_overload.py`` on the CPU,
+``chip_smoke.py`` phase 6c (b) on the card).
 
     PYTHONPATH=src JAX_PLATFORMS=cpu python tests/captures/write_torch_overload_reference.py
 
 The configuration is ``benchmarks/scheduler_comparison.py``'s
 ``overload_comparison``: 8 ``retry_storm`` lanes (seed 11, surge 6, a
 0.06 s tape in a 0.08 s run), two early outages a lane, clients that
-retry 3 times, under the four admission policies. The file holds each
-lane's fault trace as the reference draws it (``fault_trace_to_records``;
-the same for every arm) and each arm's row from the reference's
-``fleet_run`` on those traces.
+retry 3 times, under the four admission policies; the ``_half`` file
+runs the same at half the horizon (a 0.03 s tape in a 0.04 s run), which
+is what the card's phase 6c (b) runs. Each file holds each lane's fault
+trace as the reference draws it (``fault_trace_to_records``; the same
+for every arm) and each arm's row from the reference's ``fleet_run`` on
+those traces.
 """
 from __future__ import annotations
 
@@ -24,7 +27,10 @@ from repro.core.faults import attach_fault_traces, fault_trace_to_records
 from repro.core.scenarios import retry_storm_params, scenario_lane_batch
 from repro.core.state import INF_TICK, FaultTrace
 
-OUT = pathlib.Path(__file__).with_name("torch_overload_reference.json")
+HERE = pathlib.Path(__file__).parent
+# file: (run s, tape s)
+CAPTURES = {"torch_overload_reference.json": (0.08, 0.06),
+            "torch_overload_reference_half.json": (0.04, 0.03)}
 N_LANES = 8
 # benchmarks/scheduler_comparison.py's OVERLOAD_POLICIES
 OVERLOAD_POLICIES = (
@@ -67,9 +73,9 @@ def row(states, params) -> dict:
     }
 
 
-def main() -> None:
-    base = base_params()
-    lanes = scenario_lane_batch("retry_storm", base.replace(duration=0.06), N_LANES,
+def write(name: str, duration: float, tape: float) -> None:
+    base = base_params().replace(duration=duration)
+    lanes = scenario_lane_batch("retry_storm", base.replace(duration=tape), N_LANES,
                                 seed=11, surge_factor=6.0)
     traces, rows = None, {}
     for policy, knobs in OVERLOAD_POLICIES:
@@ -85,13 +91,18 @@ def main() -> None:
         elif lane_traces != traces:
             raise AssertionError(f"{policy}: the fault traces differ from the first arm's")
         rows[policy] = row(fleet_run(armed, workloads=wls), armed)
-    OUT.write_text(json.dumps({
-        "config": "chip_smoke.py phase 6c (b): retry_storm, 8 lanes, seed 11, surge 6, "
-                  "0.06 s tape in 0.08 s, two outages a lane, client_max_retries 3",
+    (HERE / name).write_text(json.dumps({
+        "config": f"chip_smoke.py phase 6c (b): retry_storm, 8 lanes, seed 11, surge 6, "
+                  f"{tape:g} s tape in {duration:g} s, two outages a lane, client_max_retries 3",
         "fault_traces": traces,
         "rows": rows,
     }, indent=1, sort_keys=True) + "\n")
-    print(json.dumps(rows, indent=1, sort_keys=True))
+    print(name, json.dumps(rows, indent=1, sort_keys=True))
+
+
+def main() -> None:
+    for name, (duration, tape) in CAPTURES.items():
+        write(name, duration, tape)
 
 
 if __name__ == "__main__":

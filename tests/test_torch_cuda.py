@@ -1449,3 +1449,45 @@ def test_cpu_tensors_never_launch():
     keys = (torch.zeros((2, 4), dtype=torch.int32), torch.arange(8, dtype=torch.int32).reshape(2, 4))
     assert masked_lex_argmin(mask, keys).tolist() == [0, 0]
     assert launch_counts() == {name: 0 for name in KERNELS}
+
+
+@pytest.mark.cuda
+def test_each_launch_reports_the_work_its_meta_stand_in_reports(cuda):
+    """Every LM kernel, forward and backward (through their autograd
+    Functions), counted on the card and on ``meta`` at the same shapes:
+    the same records (calls, FLOPs, bytes, exps), the same FLOPs and HBM
+    bytes of the whole step, and launches only on the card."""
+    from repro_torch.roofline.counting import counting
+
+    def step(dev):
+        gen = torch.Generator(device="cpu").manual_seed(0)
+
+        def t(*shape, dtype=torch.bfloat16, grad=True, scale=1.0):
+            x = (torch.rand(shape, generator=gen) * scale).to(dtype).to(dev)
+            return x.requires_grad_(grad)
+
+        q, k, v = t(2, 64, 4, 64), t(2, 64, 2, 64), t(2, 64, 2, 64)
+        y = flash_attention(q, k, v)
+        r, kk, vv = t(1, 64, 2, 64), t(1, 64, 2, 64), t(1, 64, 2, 64)
+        w = t(1, 64, 2, 64, dtype=torch.float32, scale=0.5) + 0.4
+        o, _ = rwkv6_scan(r, kk, vv, w, t(2, 64, dtype=torch.float32), chunk=16)
+        x, dt = t(1, 48, 32), t(1, 48, 32, dtype=torch.float32, scale=0.1)
+        A = -t(32, 16, dtype=torch.float32)
+        ys, _ = ssm_scan(x, dt, A, t(1, 48, 16), t(1, 48, 16), t(32, dtype=torch.float32))
+        loss = y.float().sum() + o.float().sum() + ys.float().sum()
+        torch.autograd.grad(loss, [q, r, x])
+
+    reset_launch_counts()
+    with counting(torch.empty(0, device=cuda)) as on_card:
+        step(cuda)
+    torch.cuda.synchronize()
+    launched = {n: c for n, c in launch_counts().items() if c}
+    reset_launch_counts()
+    with counting(torch.empty(0, device="meta")) as on_meta:
+        step("meta")
+    assert launch_counts() == {name: 0 for name in KERNELS}
+    assert on_card.kernels == on_meta.kernels
+    assert on_card.kernel_calls() == launched == {
+        "flash_attention": 1, "flash_attention_bwd": 1, "rwkv6_scan": 1, "rwkv6_scan_bwd": 1,
+        "ssm_scan": 1, "ssm_scan_bwd": 1}
+    assert (on_card.flops, on_card.bytes) == (on_meta.flops, on_meta.bytes)

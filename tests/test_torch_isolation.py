@@ -281,16 +281,34 @@ def test_training_over_a_mesh_needs_a_process_group():
     """``run_training(mesh=...)`` runs (item 16) over a ``DeviceMesh``,
     which ``make_host_mesh`` and ``make_production_mesh`` make only over
     a started process group: without one they raise, naming
-    ``init_process_group``, before anything is drawn; a mesh's lowering
-    to a dry run waits for item 16 (d)."""
+    ``init_process_group``, before anything is drawn. A dry run's
+    lowering (item 16 (d)) needs none without a mesh, and starts its own
+    fake group for one (``launch.mesh.fake_process_group``), gone when it
+    ends."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_arch
     from repro_torch.launch import lowering
-    from repro_torch.launch.mesh import make_host_mesh, make_production_mesh
+    from repro_torch.launch.mesh import (
+        fake_process_group, make_host_mesh, make_production_mesh,
+    )
+    from repro_torch.launch.shapes import ShapeSpec
 
     for build in (make_host_mesh, make_production_mesh):
         with pytest.raises(RuntimeError, match="init_process_group"):
             build()
-    with pytest.raises(NotImplementedError, match=r"item 16 \(d\)"):
-        lowering.lower_cell(None, "train_4k", None)
+    arch = get_arch("gemma3_12b")
+    arch = dataclasses.replace(arch, model=arch.smoke, train_microbatches=1)
+    spec = ShapeSpec("t", "train", 32, 4)
+    alone = lowering.lower_cell(arch, spec)
+    assert not dist.is_initialized() and alone.chips == 1 and alone.flops > 0
+    with fake_process_group(2):
+        low = lowering.lower_cell(arch, spec, make_host_mesh(2, 1))
+    assert not dist.is_initialized()
+    # two ranks share the batch: each computes about half the FLOPs
+    assert low.chips == 2 and 0.4 < low.flops / alone.flops < 0.6
 
 
 @pytest.mark.parametrize("call", ["q_offset", "kv_len"])

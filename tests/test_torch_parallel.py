@@ -258,11 +258,34 @@ def test_opt_axes_equal_the_reference(arch):
             assert got.inner[leaf] == node, leaf
 
 
-def test_lowering_waits_for_item_16d():
-    for fn in (lowering.lower_train, lowering.lower_prefill, lowering.lower_decode,
-               lowering.lower_cell):
-        with pytest.raises(NotImplementedError, match=r"item 16 \(d\)"):
-            fn(get_arch("phi3_mini_3p8b"), "train_4k", MESH_SINGLE)
+@pytest.mark.parametrize("kind", ["train", "prefill", "decode"])
+def test_lowering_counts_one_step_on_meta(kind):
+    """Item 16 (d): ``lower_train``, ``lower_prefill``, ``lower_decode``
+    and ``lower_cell`` run a step of a smoke config on ``meta`` (no mesh:
+    one device, no process group) and return its count; the attention
+    kernels are counted as their stand-ins report them, and nothing is
+    launched. Over fake 256- and 512-rank groups:
+    ``tests/test_torch_dryrun.py``."""
+    import dataclasses
+
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
+    arch = get_arch("phi3_mini_3p8b")
+    arch = dataclasses.replace(arch, model=arch.smoke, train_microbatches=2)
+    spec = shapes.ShapeSpec(kind, kind, 32, 4)
+    fn = {"train": lowering.lower_train, "prefill": lowering.lower_prefill,
+          "decode": lowering.lower_decode}[kind]
+    reset_launch_counts()
+    low = fn(arch, spec)
+    assert launch_counts() == {name: 0 for name in launch_counts()}
+    again = lowering.lower_cell(arch, spec)
+    assert (low.kind, low.chips, low.collective_bytes) == (kind, 1, 0)
+    assert low.flops > 0 and low.bytes > 0 and low.peak_bytes > 0
+    assert (again.flops, again.bytes, again.ops) == (low.flops, low.bytes, low.ops)
+    layers = arch.model.n_layers
+    want = {"train": {"flash_attention": 2 * layers * 2, "flash_attention_bwd": layers * 2},
+            "prefill": {"flash_attention": layers}, "decode": {}}[kind]
+    assert {k: v["calls"] for k, v in low.kernels.items()} == want
 
 
 # ---------------------------------------------------------------------------
@@ -492,17 +515,23 @@ def test_recomputation_enters_the_context_on_another_thread(one_rank):
 
 
 def test_the_private_torch_names_the_port_reads_are_there(one_rank):
-    """Two names the port reads are private to torch and pin its version
+    """The names the port reads that are private to torch pin its version
     (ROADMAP queue 3): DTensor's implicit-replication flag, which
     ``sharding_ctx`` sets and restores and which the autograd engine's
     device threads must see too, and
     ``compute_local_shape_and_global_offset``, which ``ckpt._region``
-    calls. Either gone or changed in kind fails here, not on the card.
-    The flag is one of two kinds: an attribute of the process's one
-    dispatcher (any thread sees it), or torch's own thread-local flag
-    behind ``torch._C._get_dtensor_allow_implicit_replication``, which
-    is part of the thread-local state that the autograd engine hands to
-    its device threads."""
+    calls; for the dry run (``launch/mesh.py``, ``roofline/counting.py``,
+    ``launch/lowering.py``) the fake process group's ``FakeStore``, the
+    dispatch-mode key of a fake-tensor mode (how the counter tells
+    DTensor's shape propagation from the step's ops),
+    ``_resolve_process_group`` (a collective's group from its name) and
+    ``flop_counter.flop_registry``. Any gone or changed in kind fails
+    here, not on the card. The flag is one of
+    two kinds: an attribute of the process's one dispatcher (any thread
+    sees it), or torch's own thread-local flag behind
+    ``torch._C._get_dtensor_allow_implicit_replication``, which is part
+    of the thread-local state that the autograd engine hands to its
+    device threads."""
     import threading
 
     from torch.distributed.tensor import DTensor, Shard, distribute_tensor
@@ -530,3 +559,29 @@ def test_the_private_torch_names_the_port_reads_are_there(one_rank):
     shape, start = compute_local_shape_and_global_offset(t.shape, t.device_mesh, t.placements)
     assert (tuple(shape), tuple(start)) == ((4, 6), (0, 0))
     assert _region(t) == ((0, 0), (4, 6))
+
+    # the dry run's names
+    import torch.distributed as dist
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.distributed.distributed_c10d import _resolve_process_group
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils.flop_counter import flop_registry
+
+    assert issubclass(FakeStore, dist.Store) and dist.Backend.FAKE == "fake"
+    group = dist.group.WORLD
+    assert _resolve_process_group(group.group_name).size() == group.size() == 1
+    assert callable(flop_registry[torch.ops.aten.mm])
+    modes = []
+
+    class Probe(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            modes.append(torch._C._get_dispatch_mode(torch._C._TorchDispatchModeKey.FAKE))
+            return func(*args, **(kwargs or {}))
+
+    with Probe():
+        torch.ones(2) + 1
+        with FakeTensorMode():
+            torch.ones(2) + 1
+    assert modes[0] is None and any(m is not None for m in modes[1:])
+
